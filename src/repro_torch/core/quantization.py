@@ -1,0 +1,212 @@
+"""Port of ``repro.core.quantization``: the quantization primitives of
+pQuant (paper §3.1, Eq. 3-10).
+
+The fake-quant quantizers return values in the input's float dtype,
+restricted to the quantization grid.  Their straight-through gradients
+come with the training slice of the port; this slice serves inference
+only.  The runtime integer path lives in ``repro_torch.core.packing`` and
+``repro_torch.kernels``.
+
+Rounding is half to even everywhere (``torch.round`` shares it with
+``jnp.round``), and every activation scale is computed in float32, so the
+integer codes equal the JAX package's for equal inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Optional
+
+import torch
+
+Tensor = torch.Tensor
+
+# folded into the scale denominators, as upstream
+EPS = 1e-5
+
+INT8_QMAX = 127.0
+
+
+def fdiv(a, b) -> Tensor:
+    """``a / b`` rounded once, as IEEE division and ``jnp`` round it.  A
+    Python float on either side becomes a tensor first: in PyTorch
+    ``float / tensor`` is ``reciprocal(tensor) * float`` (two roundings),
+    and ``tensor / float`` on CUDA multiplies by the float's reciprocal,
+    while a tensor divided by a tensor divides.  Every scale that meets an
+    int8 rounding or a kernel epilogue goes through here."""
+    if not torch.is_tensor(a):
+        a = torch.full_like(b, a)
+    elif not torch.is_tensor(b):
+        b = torch.full_like(a, b)
+    return a / b
+
+
+# ---------------------------------------------------------------------------
+# Weight quantizers
+# ---------------------------------------------------------------------------
+
+
+def _sign(x: Tensor) -> Tensor:
+    """sign() on {-1, +1}: 0 maps to +1 (upstream ``ste_sign``)."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return torch.where(x >= 0, one, -one)
+
+
+def binarize_weights(w: Tensor) -> tuple[Tensor, Tensor]:
+    """1-bit weight fake-quant (paper Eq. 3-6): ``(sign(W - mean W) * lam,
+    lam)`` with the per-tensor AbsMean ``lam = mean|W| + eps``."""
+    mu = torch.mean(w)
+    lam = torch.mean(torch.abs(w)) + EPS
+    return _sign(w - mu) * lam, lam
+
+
+def binarize_weights_grouped(w: Tensor, group_size: int) -> tuple[Tensor, Tensor]:
+    """Group-wise 1-bit quantization along the last axis (paper §4.6)."""
+    *lead, k = w.shape
+    if k % group_size:
+        raise ValueError(f"{k=} not divisible by {group_size=}")
+    wg = w.reshape(*lead, k // group_size, group_size)
+    mu = torch.mean(wg, dim=-1, keepdim=True)
+    lam = torch.mean(torch.abs(wg), dim=-1, keepdim=True) + EPS
+    return (_sign(wg - mu) * lam).reshape(w.shape), lam.squeeze(-1)
+
+
+def binarize_weights_channelwise(w: Tensor) -> tuple[Tensor, Tensor]:
+    """Channel-wise (per output column) 1-bit quantization (paper §4.6)."""
+    mu = torch.mean(w, dim=0, keepdim=True)
+    lam = torch.mean(torch.abs(w), dim=0, keepdim=True) + EPS
+    return _sign(w - mu) * lam, lam.squeeze(0)
+
+
+def ternarize_weights(w: Tensor) -> tuple[Tensor, Tensor]:
+    """BitNet-1.58 ternary AbsMean quantization (baseline)."""
+    lam = torch.mean(torch.abs(w)) + EPS
+    q = torch.clamp(torch.round(w / lam), -1.0, 1.0)
+    return q * lam, lam
+
+
+def quantize_weights_int8(w: Tensor, axis: Optional[int] = None) -> tuple[Tensor, Tensor]:
+    """INT8 AbsMax weight fake-quant (per tensor, or per ``axis``)."""
+    if axis is None:
+        amax = torch.amax(torch.abs(w))
+    else:
+        amax = torch.amax(torch.abs(w), dim=axis, keepdim=True)
+    scale = fdiv(INT8_QMAX, amax + EPS)
+    q = torch.clamp(torch.round(w * scale), -INT8_QMAX, INT8_QMAX)
+    return q / scale, scale
+
+
+def quantize_weights_int8_stacked(w, n_batch_axes: int = 1) -> tuple[Tensor, Tensor]:
+    """Per-slice INT8 AbsMax for stacked weights.  Accepts the serving dict
+    layout ({"q": int8, "scale"}), which it dequantizes directly."""
+    if isinstance(w, dict):
+        return _dequant_stored(w), w["scale"]
+    red = tuple(range(n_batch_axes, w.ndim))
+    amax = torch.amax(torch.abs(w), dim=red, keepdim=True)
+    scale = fdiv(INT8_QMAX, amax + EPS)
+    q = torch.clamp(torch.round(w * scale), -INT8_QMAX, INT8_QMAX)
+    return q / scale, scale
+
+
+# ---------------------------------------------------------------------------
+# Activation quantizer
+# ---------------------------------------------------------------------------
+
+
+def act_scale_int8(x: Tensor) -> Tensor:
+    """Per-token AbsMax INT8 scale ``127 / (max|x| + eps)`` along the last
+    axis, in float32 — the one formula shared by the fake-quant path, the
+    runtime integer path and the kernels' prologues."""
+    amax = torch.amax(torch.abs(x.float()), dim=-1, keepdim=True)
+    return fdiv(INT8_QMAX, amax + EPS)
+
+
+def quantize_activations_int8(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Per-token AbsMax INT8 activation fake-quant (paper Eq. 7-9):
+    ``(RoundClip(x * gamma) / gamma, gamma)`` in the input dtype."""
+    gamma = act_scale_int8(x)
+    q = torch.clamp(torch.round(x.float() * gamma), -INT8_QMAX, INT8_QMAX)
+    return (q / gamma).to(x.dtype), gamma
+
+
+def quantize_act_int8(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Per-token AbsMax INT8 on the runtime integer path: the int8 tensor
+    and a flat per-row gamma for the kernel epilogues."""
+    gamma = act_scale_int8(x)
+    q = torch.clamp(torch.round(x.float() * gamma), -INT8_QMAX, INT8_QMAX)
+    return q.to(torch.int8), gamma[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Quantization mode config
+# ---------------------------------------------------------------------------
+
+QuantMode = Literal["none", "bitnet", "bitnet158", "pquant"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Selects the quantization scheme for a whole model (field for field
+    upstream's ``QuantConfig``; see its docstring for each field)."""
+
+    mode: QuantMode = "pquant"
+    r: int = 128
+    num_experts: int = 1
+    alpha_init: float = 2.0
+    beta_init: float = 0.2
+    act_bits: int = 8
+    weight_scheme: Literal["tensor", "channel", "group"] = "tensor"
+    group_size: int = 64
+    native_mix_frac: float = 0.0
+    qgather: bool = False
+
+    @property
+    def quantize_acts(self) -> bool:
+        return self.mode != "none"
+
+    def binarize(self, w: Tensor) -> tuple[Tensor, Tensor]:
+        if self.weight_scheme == "channel":
+            return binarize_weights_channelwise(w)
+        if self.weight_scheme == "group":
+            return binarize_weights_grouped(w, self.group_size)
+        return binarize_weights(w)
+
+
+def _dequant_stored(w: dict) -> Tensor:
+    """Dequantize a serving-format weight: {"q": int8, "scale"} or
+    {"packed": uint8 (..., K//8, N), "scale"}.  Only paths without a packed
+    kernel take this float fallback."""
+    if "packed" in w:
+        from repro_torch.core.packing import unpack_signs
+
+        signs = unpack_signs(w["packed"], torch.int8)
+        return signs.to(w["scale"].dtype) * w["scale"]
+    return w["q"].to(w["scale"].dtype) * w["scale"]
+
+
+def is_packed_1bit(w) -> bool:
+    """True for the bit-packed 1-bit serving layout {"packed", "scale"}."""
+    return isinstance(w, dict) and "packed" in w
+
+
+def is_stored_int8(w) -> bool:
+    """True for the INT8 serving layout {"q", "scale"}."""
+    return isinstance(w, dict) and "q" in w
+
+
+def fake_quant_linear_weights(w, cfg: QuantConfig) -> Tensor:
+    """The configured backbone weight quantizer (1-bit or ternary), for a
+    latent float tensor or the serving dict layout."""
+    if isinstance(w, dict):
+        return _dequant_stored(w)
+    if cfg.mode == "none":
+        return w
+    if cfg.mode == "bitnet158":
+        return ternarize_weights(w)[0]
+    return cfg.binarize(w)[0]
+
+
+def maybe_quant_acts(x: Tensor, cfg: QuantConfig) -> Tensor:
+    if not cfg.quantize_acts:
+        return x
+    return quantize_activations_int8(x)[0]

@@ -12,3 +12,9 @@ os.environ.setdefault("REPRO_TILE_CACHE", "0")
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)"
+    )
