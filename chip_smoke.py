@@ -314,32 +314,32 @@ def phase_slice(torch):
     log(f"[4] TTFT {ttft * 1e3:.1f} ms; generate {t_gen * 1e3:.1f} ms; decode "
         f"{(t_gen - ttft) / steps * 1e3:.2f} ms/step, {BATCH * steps / (t_gen - ttft):.1f} tokens/s "
         f"(batch {BATCH}, host clock, synchronized by the transfer)")
-    _profile(torch, eng, prompts, greedy)
+    _profile(torch, eng, prompts, greedy, t_gen)
     return params, cfg, prompts, launches
 
 
-def _profile(torch, eng, prompts, greedy):
+def _profile(torch, eng, prompts, greedy, wall):
     """Where a generate's time goes on the device: torch.profiler's device
-    time by kernel name, and the device's busy share of the wall time."""
+    time of every kernel, summed by name, and the device's busy share of an
+    unprofiled generate's wall time ``wall`` (the profiler slows the host,
+    not the kernels)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         eng.generate(prompts, greedy)
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    log(f"[4] profiled generate: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.2f} ms "
-        f"({100 * busy / wall:.1f}% of wall)")
-    for us, key, count in rows[:8]:
-        log(f"[4]   {us / 1e3:8.3f} ms  {count:6d}x  {key[:90]}")
+    rows = {}
+    for e in prof.events():
+        # device-side kernels only: not CPU ops, not the annotate() spans
+        if e.device_type != DeviceType.CUDA or e.name.startswith(("serve/", "kernels/")):
+            continue
+        us, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (us + e.device_time_total, n + 1)
+    busy = sum(us for us, _ in rows.values()) / 1e6
+    log(f"[4] device busy {busy * 1e3:.2f} ms in a {wall * 1e3:.1f} ms generate "
+        f"({100 * busy / wall:.1f}%); kernels by device time:")
+    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[4]   {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
 
 
 def _leaves(tree):

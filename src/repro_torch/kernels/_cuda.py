@@ -112,6 +112,9 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``name`` (built on first use), with
     ``argtypes`` set from ``signatures`` and every function returning the
     ``cudaError_t`` of its launch as an int."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -130,8 +133,9 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(device_index: int) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on the device."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 # Shared-memory plan of the GEMV blocks, mirroring smem_plan() in
@@ -147,15 +151,25 @@ def smem_bytes(m: int, k: int) -> int:
 
 
 def device_index(t: "torch.Tensor") -> int:
-    if t.device.type != "cuda":
+    """The CUDA device index of ``t``; raises for any other device."""
+    idx = t.get_device()
+    if idx < 0 or not t.is_cuda:
         raise ValueError(f"no kernel for device {t.device}")
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return idx
 
 
-def scalar_arg(t: "torch.Tensor", device, what: str) -> "torch.Tensor":
-    """A one-element float32 tensor on ``device`` as a (1,) view (kernels
-    read scales through device pointers: no host sync)."""
-    if t.numel() != 1 or t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"{what} must be one float32 element on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    return t.reshape(1)
+def on_device(t: "torch.Tensor", dtype, device: int, what: str) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on CUDA device
+    ``device`` (the launch checks every pointer it passes)."""
+    if t.dtype != dtype or t.get_device() != device or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor on cuda:{device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def scalar_ptr(t: "torch.Tensor", device: int, what: str) -> int:
+    """Device pointer of a one-element float32 tensor on ``device`` (the
+    kernels read scales through device pointers: no host sync)."""
+    if t.numel() != 1:
+        raise ValueError(f"{what} must have one element, got {tuple(t.shape)}")
+    on_device(t, torch.float32, device, what)
+    return t.data_ptr()

@@ -42,8 +42,7 @@ def int8_matmul(x_i8: Tensor, w_i8: Tensor, gamma: Tensor, wscale: Tensor) -> Te
     dev = _cuda.device_index(x_i8)
     for t, name, dt in ((x_i8, "x", torch.int8), (w_i8, "w", torch.int8),
                         (gamma, "gamma", torch.float32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != x_i8.device:
-            raise ValueError(f"{name} must be contiguous {dt} on {x_i8.device}")
+        _cuda.on_device(t, dt, dev, name)
     if x_i8.ndim != 2 or w_i8.ndim != 2:
         raise ValueError("x and w must be 2-D")
     m, k = x_i8.shape
@@ -53,12 +52,12 @@ def int8_matmul(x_i8: Tensor, w_i8: Tensor, gamma: Tensor, wscale: Tensor) -> Te
                          f"gamma {tuple(gamma.shape)} (K must be a multiple of 4)")
     if _cuda.smem_bytes(min(m, _ROW_TILE), k) > _cuda.MAX_SMEM:
         raise ValueError(f"K = {k} exceeds one block's shared memory")
-    wscale = _cuda.scalar_arg(wscale, x_i8.device, "wscale")
+    wscale_p = _cuda.scalar_ptr(wscale, dev, "wscale")
     out = torch.empty((m, n), dtype=torch.float32, device=x_i8.device)
     lib = _cuda.load("int8_matmul", _SIGNATURES)
     err = lib.int8_matmul_launch(
-        x_i8.data_ptr(), w_i8.data_ptr(), gamma.data_ptr(), wscale.data_ptr(),
-        out.data_ptr(), m, k, n, dev, _cuda.stream_ptr(x_i8.device),
+        x_i8.data_ptr(), w_i8.data_ptr(), gamma.data_ptr(), wscale_p,
+        out.data_ptr(), m, k, n, dev, _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "int8_matmul")
     _cuda.LAUNCHES["int8_matmul"] += 1

@@ -38,8 +38,10 @@ DECODE_M_MAX = 32
 
 
 def _rows(x: Tensor) -> Tensor:
-    """(..., K) -> contiguous (M, K) float32, the kernels' activation layout."""
-    return x.reshape(-1, x.shape[-1]).float().contiguous()
+    """(..., K) -> contiguous, 16-byte aligned (M, K) float32: the kernels'
+    activation layout (a view that starts mid-allocation is copied)."""
+    xf = x.reshape(-1, x.shape[-1]).float().contiguous()
+    return xf.clone() if xf.data_ptr() % 16 else xf
 
 
 def _decode_tier_only(xf: Tensor, kernel: str) -> None:

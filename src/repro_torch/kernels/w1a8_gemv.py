@@ -4,9 +4,9 @@
 Each wrapper launches the hand-written CUDA kernel of
 ``csrc/w1a8_gemv.cu`` for a CUDA tensor and runs its plain PyTorch version
 (same arithmetic, same order of operations, so the f32 outputs agree bit
-for bit) for a CPU tensor.  The kernels take any M >= 1 directly: pad rows
-are a kernel-internal detail (zero codes, unit scale), so callers never
-pad.  The shared-memory plan bounds M x K (32 x 5024 fits).
+for bit) for a CPU tensor.  The kernels take any 1 <= M <= 32 directly: pad
+rows are a kernel-internal detail (zero codes, unit scale), so callers
+never pad.  The shared-memory plan bounds M x K (32 x 5024 fits).
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ _SIGNATURES = {
     # x, wp, w8, lam, w8scale, alpha, beta, y1, y8, m, k, n, r, device, stream
     "decoupled_gemv_launch": [_P] * 9 + [_I] * 5 + [_P],
 }
+
+# the decode tier: at most this many token rows per launch (ops.DECODE_M_MAX)
+MAX_ROWS = 32
 
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card's yardstick)
@@ -67,19 +70,23 @@ def decoupled_gemv_plain(x, w1_packed, w8_i8, lam, w8scale, alpha, beta):
 # ---------------------------------------------------------------------------
 
 
-def _check(x: Tensor, w_packed: Tensor) -> tuple[int, int, int]:
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous (M, K) float32, got {x.dtype} {tuple(x.shape)}")
-    if (w_packed.dtype != torch.uint8 or w_packed.ndim != 2
-            or not w_packed.is_contiguous() or w_packed.device != x.device):
-        raise ValueError("w_packed must be contiguous (K//8, N) uint8 on x's device")
+def _check(x: Tensor, w_packed: Tensor) -> tuple[int, int, int, int]:
+    """(device, M, K, N) of a launch; raises on what the kernels do not take."""
+    dev = _cuda.device_index(x)
+    _cuda.on_device(x, torch.float32, dev, "x")
+    _cuda.on_device(w_packed, torch.uint8, dev, "w_packed")
+    if x.ndim != 2 or w_packed.ndim != 2:
+        raise ValueError("x and w_packed must be 2-D")
     m, k = x.shape
     kb, n = w_packed.shape
-    if kb * 8 != k or m < 1 or n < 1:
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed {tuple(w_packed.shape)}")
+    if kb * 8 != k or not 1 <= m <= MAX_ROWS or n < 1:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)} (1 <= M <= {MAX_ROWS}), "
+                         f"packed {tuple(w_packed.shape)}")
     if _cuda.smem_bytes(m, k) > _cuda.MAX_SMEM:
         raise ValueError(f"M x K = {m} x {k} exceeds one block's shared memory")
-    return m, k, n
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the kernels load four floats at a time)")
+    return dev, m, k, n
 
 
 def w1a8_gemv(x: Tensor, w_packed: Tensor, lam: Tensor) -> Tensor:
@@ -87,14 +94,13 @@ def w1a8_gemv(x: Tensor, w_packed: Tensor, lam: Tensor) -> Tensor:
     fused.  x: (M, K) f32; w_packed: (K//8, N) uint8; lam: AbsMean scale."""
     if x.device.type == "cpu":
         return w1a8_gemv_plain(x, w_packed, lam)
-    dev = _cuda.device_index(x)
-    m, k, n = _check(x, w_packed)
-    lam = _cuda.scalar_arg(lam, x.device, "lam")
+    dev, m, k, n = _check(x, w_packed)
+    lam_p = _cuda.scalar_ptr(lam, dev, "lam")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lib = _cuda.load("w1a8_gemv", _SIGNATURES)
     err = lib.w1a8_gemv_launch(
-        x.data_ptr(), w_packed.data_ptr(), lam.data_ptr(), out.data_ptr(),
-        m, k, n, dev, _cuda.stream_ptr(x.device),
+        x.data_ptr(), w_packed.data_ptr(), lam_p, out.data_ptr(),
+        m, k, n, dev, _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "w1a8_gemv")
     _cuda.LAUNCHES["w1a8_gemv"] += 1
@@ -108,21 +114,19 @@ def decoupled_gemv(x: Tensor, w1_packed: Tensor, w8_i8: Tensor, lam: Tensor,
     uint8; w8_i8: (K, R) int8; w8scale: the int8 quant multiplier."""
     if x.device.type == "cpu":
         return decoupled_gemv_plain(x, w1_packed, w8_i8, lam, w8scale, alpha, beta)
-    dev = _cuda.device_index(x)
-    m, k, n = _check(x, w1_packed)
-    if (w8_i8.dtype != torch.int8 or w8_i8.ndim != 2 or not w8_i8.is_contiguous()
-            or w8_i8.device != x.device or w8_i8.shape[0] != k or w8_i8.shape[1] < 1):
-        raise ValueError(f"w8 must be contiguous (K={k}, R) int8 on x's device")
+    dev, m, k, n = _check(x, w1_packed)
+    _cuda.on_device(w8_i8, torch.int8, dev, "w8")
+    if w8_i8.ndim != 2 or w8_i8.shape[0] != k or w8_i8.shape[1] < 1:
+        raise ValueError(f"w8 must be (K={k}, R), got {tuple(w8_i8.shape)}")
     r = w8_i8.shape[1]
-    scalars = [_cuda.scalar_arg(t, x.device, name) for t, name in
+    scalars = [_cuda.scalar_ptr(t, dev, name) for t, name in
                ((lam, "lam"), (w8scale, "w8scale"), (alpha, "alpha"), (beta, "beta"))]
     y1 = torch.empty((m, n), dtype=torch.float32, device=x.device)
     y8 = torch.empty((m, r), dtype=torch.float32, device=x.device)
     lib = _cuda.load("w1a8_gemv", _SIGNATURES)
     err = lib.decoupled_gemv_launch(
-        x.data_ptr(), w1_packed.data_ptr(), w8_i8.data_ptr(),
-        *(s.data_ptr() for s in scalars), y1.data_ptr(), y8.data_ptr(),
-        m, k, n, r, dev, _cuda.stream_ptr(x.device),
+        x.data_ptr(), w1_packed.data_ptr(), w8_i8.data_ptr(), *scalars,
+        y1.data_ptr(), y8.data_ptr(), m, k, n, r, dev, _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "decoupled_gemv")
     _cuda.LAUNCHES["decoupled_gemv"] += 1
