@@ -2,7 +2,8 @@
 // int8_matmul.cu).
 //
 // Block shape, common to all three kernels: 8 warps (256 threads) own 32
-// output columns, one column per lane.  The 8 warps split the reduction
+// packed output columns, one column per lane (or 8 int8 columns, four
+// lanes per column: see int8_columns_split).  The 8 warps split the reduction
 // (K) axis into 8 slices and meet in shared memory, where each of the 256
 // threads sums one (row, column) pair of a group of 8 token rows and
 // applies the epilogue.  The token rows live in shared memory as int8
@@ -176,6 +177,29 @@ __device__ __forceinline__ void int8_column(const int8_t* __restrict__ w, int n_
       const int xw = *reinterpret_cast<const int*>(xq + (size_t)(row0 + i) * k + (size_t)k4 * 4);
       acc[i] = __dp4a(xw, wv, acc[i]);
     }
+  }
+}
+
+// int8 columns per block: four lanes share a column (lane = 8 * part + c),
+// each taking a quarter of the warp's K slice.  An int8 column is 8x the
+// bytes of a packed one, so it gets 4x the threads.
+constexpr int kInt8Cols = 8;
+
+// int8_column over columns col0 + (lane & 7), with K split four ways
+// across the lanes that share a column; on return every lane holds its
+// column's sum over the warp's whole slice [k4_lo, k4_hi).
+__device__ __forceinline__ void int8_columns_split(const int8_t* __restrict__ w, int n_cols,
+                                                   int col0, int k4_lo, int k4_hi,
+                                                   const int8_t* xq, int k, int row0,
+                                                   int (&acc)[kRowGroup]) {
+  const int lane = threadIdx.x & 31, col = col0 + (lane & 7), part = lane >> 3;
+  const int per = (k4_hi - k4_lo + 3) / 4;
+  const int lo = min(k4_hi, k4_lo + part * per), hi = min(k4_hi, lo + per);
+  if (col < n_cols) int8_column(w, n_cols, col, lo, hi, xq, k, row0, acc);
+#pragma unroll
+  for (int i = 0; i < kRowGroup; ++i) {
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 8);
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 16);
   }
 }
 

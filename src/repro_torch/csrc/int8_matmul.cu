@@ -11,11 +11,11 @@
 //
 // Design: the GEMV block of gemv_common.cuh.  Each block copies up to 32
 // int8 token rows (blockIdx.y picks the row tile, so any M runs) into
-// shared memory and owns 32 output columns; lane n gathers four int8
-// weights of its column down K into one word and feeds one __dp4a per
-// token row.  The epilogue keeps the Pallas kernel's order of operations,
-// y = float(acc) * (1 / (gamma * wscale)), so the f32 output equals the
-// plain version bit for bit (no fast math).
+// shared memory and owns 8 output columns, four lanes to a column; a lane
+// gathers four int8 weights of its column down K into one word and feeds
+// one __dp4a per token row.  The epilogue keeps the Pallas kernel's order
+// of operations, y = float(acc) * (1 / (gamma * wscale)), so the f32 output
+// equals the plain version bit for bit (no fast math).
 
 #include "gemv_common.cuh"
 
@@ -40,16 +40,16 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kCols + lane;
+  const int col0 = blockIdx.x * kInt8Cols, col = col0 + lane;
   int lo, hi;
   warp_slice(k / 4, warp, lo, hi);
   const float wscale = *wscale_p;
   for (int row0 = 0; row0 < p.mpad; row0 += kRowGroup) {
     int acc[kRowGroup] = {};
-    if (col < n) int8_column(w, n, col, lo, hi, xq, k, row0, acc);
+    int8_columns_split(w, n, col0, lo, hi, xq, k, row0, acc);
     const int sum = reduce_warps(acc, part);
     const int row = row0 + warp;
-    if (row < mt && col < n) {
+    if (lane < kInt8Cols && row < mt && col < n) {
       const float inv = 1.0f / (gamma[base + row] * wscale);
       out[(size_t)(base + row) * n + col] = (float)sum * inv;
     }
@@ -73,7 +73,7 @@ extern "C" int int8_matmul_launch(const int8_t* x, const int8_t* w, const float*
     cudaGetLastError();
     return (int)e;
   }
-  const dim3 grid((n + kCols - 1) / kCols, (m + kRowTile - 1) / kRowTile);
+  const dim3 grid((n + kInt8Cols - 1) / kInt8Cols, (m + kRowTile - 1) / kRowTile);
   int8_matmul_kernel<<<grid, kThreads, p.total, (cudaStream_t)stream>>>(x, w, gamma, wscale, out,
                                                                        m, k, n);
   return (int)cudaGetLastError();

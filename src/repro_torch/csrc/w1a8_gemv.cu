@@ -21,7 +21,8 @@
 // owns 32 output columns (see gemv_common.cuh): lane n reads its column's
 // packed byte, expands the 8 sign bits to two words of four +-1 int8 lanes
 // and feeds two __dp4a per token row.  decoupled_gemv puts the r int8
-// columns after the N packed columns in one grid, so one launch reads the
+// columns after the N packed columns in one grid, 8 to a block (an int8
+// column holds 8x the bytes of a packed one), so one launch reads the
 // activations once per block and the int8 weight exactly once.
 //
 // Epilogues keep the Pallas kernels' order of operations, so the f32
@@ -99,15 +100,15 @@ decoupled_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w
       }
     }
   } else {  // r-wide int8 branch columns
-    const int col = (blockIdx.x - blocks1) * kCols + lane;
+    const int col0 = (blockIdx.x - blocks1) * kInt8Cols, col = col0 + lane;
     warp_slice(k / 4, warp, lo, hi);
     const float alpha = *alpha_p, w8s = *w8s_p;
     for (int row0 = 0; row0 < p.mpad; row0 += kRowGroup) {
       int acc[kRowGroup] = {};
-      if (col < r) int8_column(w8, r, col, lo, hi, xq, k, row0, acc);
+      int8_columns_split(w8, r, col0, lo, hi, xq, k, row0, acc);
       const int sum = reduce_warps(acc, part);
       const int row = row0 + warp;
-      if (row < m && col < r) {
+      if (lane < kInt8Cols && row < m && col < r) {
         const float inv8 = alpha / (gamma[row] * w8s);
         y8[(size_t)row * r + col] = (float)sum * inv8;
       }
@@ -150,7 +151,7 @@ extern "C" int decoupled_gemv_launch(const float* x, const uint8_t* wp, const in
     cudaGetLastError();
     return (int)e;
   }
-  const dim3 grid((n + kCols - 1) / kCols + (r + kCols - 1) / kCols);
+  const dim3 grid((n + kCols - 1) / kCols + (r + kInt8Cols - 1) / kInt8Cols);
   decoupled_gemv_kernel<<<grid, kThreads, p.total, (cudaStream_t)stream>>>(
       x, wp, w8, lam, w8scale, alpha, beta, y1, y8, m, k, n, r);
   return (int)cudaGetLastError();
