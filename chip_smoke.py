@@ -25,7 +25,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    32 rows) with 32 greedy new tokens.  Checks finite logits, one host
    transfer per call, the launch count of every kernel (layers x (5, 2, 1)
    x forwards) and a repeatable stream; prints TTFT, decode tokens/s and
-   the time per step;
+   the time per step (medians of 5 runs), and the device's busy share and
+   kernel time by name from torch.profiler;
 5. the same export cut to 2 layers on the card and on the CPU (plain
    versions): prefill logits allclose within the stated tolerance, equal
    greedy streams;
@@ -59,6 +60,7 @@ RTOL = 1e-6  # kernel vs plain version (built to agree exactly)
 
 # end-to-end run
 BATCH, PROMPT, NEW_TOKENS = 4, 8, 32
+TIMED_RUNS = 5
 CUT_LAYERS, CUT_NEW_TOKENS = 2, 8
 # card vs CPU logits: the float ops around the kernels (norms, attention,
 # SiLU, unembedding) round differently on the two devices, and a last-ulp
@@ -121,7 +123,9 @@ def _time(torch, fn, iters: int, reps: int = 7) -> float:
     times = []
     for _ in range(reps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(iters * 200_000)  # ~0.1 ms of spinning per call queued
+        # ~0.25 ms of spinning per call queued: more than the host takes to
+        # issue one (15-125 us measured), or the device would idle between calls
+        torch.cuda._sleep(iters * 500_000)
         e0.record()
         for i in range(iters):
             fn(i)
@@ -135,7 +139,7 @@ def _host_us(torch, fn, iters: int = 100) -> float:
     """Host time to issue one call, in microseconds (the wrapper's checks,
     allocation and launch), with the device kept busy so nothing waits."""
     torch.cuda.synchronize()
-    torch.cuda._sleep(iters * 200_000)
+    torch.cuda._sleep(iters * 500_000)
     t0 = time.perf_counter()
     for i in range(iters):
         fn(i)
@@ -303,17 +307,25 @@ def phase_slice(torch):
     log(f"[4] launches in one generate: {launches} (= {cfg.n_layers} layers x (5, 2, 1) x "
         f"{forwards} forwards)")
 
-    t0 = time.perf_counter()
-    eng.generate(prompts, dataclasses.replace(greedy, max_new_tokens=1))
-    ttft = time.perf_counter() - t0
-    again = eng.generate(prompts, greedy)
-    if not (again == stream).all():
-        raise AssertionError("a second generate gave another stream")
+    first = dataclasses.replace(greedy, max_new_tokens=1)
+    ttfts, gens = [], []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        eng.generate(prompts, first)
+        ttfts.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        again = eng.generate(prompts, greedy)
+        gens.append(time.perf_counter() - t0)
+        if not (again == stream).all():
+            raise AssertionError("a repeated generate gave another stream")
+    ttft, t_gen = statistics.median(ttfts), statistics.median(gens)
     steps = NEW_TOKENS - 1
     log(f"[4] stream (request 0): {stream[0].tolist()}")
-    log(f"[4] TTFT {ttft * 1e3:.1f} ms; generate {t_gen * 1e3:.1f} ms; decode "
-        f"{(t_gen - ttft) / steps * 1e3:.2f} ms/step, {BATCH * steps / (t_gen - ttft):.1f} tokens/s "
-        f"(batch {BATCH}, host clock, synchronized by the transfer)")
+    log(f"[4] over {TIMED_RUNS} runs (host clock, each ended by its one transfer): TTFT median "
+        f"{ttft * 1e3:.1f} ms (min {min(ttfts) * 1e3:.1f}, max {max(ttfts) * 1e3:.1f}); "
+        f"generate median {t_gen * 1e3:.1f} ms (min {min(gens) * 1e3:.1f}, max "
+        f"{max(gens) * 1e3:.1f}); decode {(t_gen - ttft) / steps * 1e3:.2f} ms/step, "
+        f"{BATCH * steps / (t_gen - ttft):.1f} tokens/s at batch {BATCH}")
     _profile(torch, eng, prompts, greedy, t_gen)
     return params, cfg, prompts, launches
 

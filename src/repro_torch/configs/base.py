@@ -7,7 +7,7 @@ field for field the JAX package's, so configs compare and hash cleanly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 from repro_torch.core.quantization import QuantConfig
 
@@ -124,134 +124,3 @@ TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
 PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
 DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
 LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
-
-ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
-
-
-def shapes_for(cfg: ModelConfig) -> tuple[ShapeConfig, ...]:
-    """Shape cells that apply to this architecture (assignment rules:
-    long_500k only for sub-quadratic archs)."""
-    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
-    if cfg.sub_quadratic:
-        out.append(LONG_500K)
-    return tuple(out)
-
-
-def param_count(cfg: ModelConfig) -> dict[str, int]:
-    """Approximate parameter populations by precision class.
-
-    Returns dict with n_1bit / n_8bit / n_fp16 (embeddings, norms, scalars
-    stay high precision, per paper Table 3 footnote).
-    """
-    d, h = cfg.d_model, cfg.head_dim
-    nq = cfg.n_heads * h
-    nkv = cfg.n_kv_heads * h
-    q = cfg.quant
-
-    n_1bit = n_8bit = n_fp16 = 0
-
-    def attn_params() -> int:
-        if cfg.attn_type == "mla":
-            p = 0
-            if cfg.q_lora_rank:
-                p += d * cfg.q_lora_rank
-                p += cfg.q_lora_rank * cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
-            else:
-                p += d * cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
-            p += d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
-            p += cfg.kv_lora_rank * cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)
-            p += cfg.n_heads * cfg.v_head_dim * d
-            return p
-        return d * nq + 2 * d * nkv + nq * d
-
-    def ffn_params(width: int) -> int:
-        mats = 3 if cfg.glu else 2
-        return mats * d * width
-
-    mlp_8bit_per_layer = (3 if cfg.glu else 2) * d * q.r * q.num_experts
-
-    for layer in range(cfg.n_layers):
-        blocks: list[str] = []
-        if cfg.family == "hybrid":
-            blocks = [cfg.block_pattern[layer % len(cfg.block_pattern)]]
-        elif cfg.family == "ssm":
-            blocks = ["ssm"]
-        else:
-            blocks = ["attn"]
-
-        for b in blocks:
-            if b == "attn":
-                ap = attn_params()
-                if q.mode in ("bitnet", "bitnet158", "pquant"):
-                    n_1bit += ap
-                else:
-                    n_fp16 += ap
-            elif b == "ssm":
-                d_in = cfg.ssm_expand * d
-                conv_dim = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
-                proj = d * (2 * d_in + 2 * cfg.ssm_groups * cfg.ssm_state
-                            + d_in // cfg.ssm_headdim) + d_in * d
-                if q.mode in ("bitnet", "bitnet158", "pquant"):
-                    n_1bit += proj
-                else:
-                    n_fp16 += proj
-                n_fp16 += conv_dim * cfg.conv_kernel + 3 * (d_in // cfg.ssm_headdim)
-            elif b == "rec":
-                w = cfg.lru_width or d
-                proj = 2 * d * w + w * d
-                gates = 2 * w * w // 1  # block-diagonal approximated dense
-                if q.mode in ("bitnet", "bitnet158", "pquant"):
-                    n_1bit += proj
-                else:
-                    n_fp16 += proj
-                n_fp16 += gates + w  # RG-LRU gates + Lambda stay FP
-        # FFN / MoE
-        if cfg.family == "ssm":
-            continue  # no FFN block in mamba2
-        if cfg.moe and layer >= cfg.first_k_dense:
-            n_exp = cfg.n_routed_experts
-            per_e = ffn_params(cfg.d_ff_expert) // 1
-            shared = cfg.n_shared_experts * ffn_params(cfg.d_ff_expert)
-            if q.mode in ("bitnet", "bitnet158", "pquant"):
-                n_1bit += n_exp * per_e + shared
-            else:
-                n_fp16 += n_exp * per_e + shared
-            if q.mode == "pquant":
-                n_8bit += mlp_8bit_per_layer
-            n_fp16 += d * n_exp  # router
-        else:
-            width = cfg.d_ff
-            if q.mode == "pquant":
-                n_1bit += ffn_params(width)
-                n_8bit += mlp_8bit_per_layer
-                n_fp16 += d * q.num_experts if q.num_experts > 1 else 0
-            elif q.mode in ("bitnet", "bitnet158"):
-                n_1bit += ffn_params(width)
-            else:
-                n_fp16 += ffn_params(width)
-
-    # encoder stack (whisper): mirror decoder-style attn+ffn
-    for _ in range(cfg.n_enc_layers):
-        ap = attn_params()
-        fp = ffn_params(cfg.d_ff)
-        if q.mode in ("bitnet", "bitnet158", "pquant"):
-            n_1bit += ap + fp
-            if q.mode == "pquant":
-                n_8bit += mlp_8bit_per_layer
-        else:
-            n_fp16 += ap + fp
-        # cross-attention in decoder layers
-    if cfg.family == "encdec":
-        ca = cfg.n_layers * attn_params()
-        if q.mode in ("bitnet", "bitnet158", "pquant"):
-            n_1bit += ca
-        else:
-            n_fp16 += ca
-
-    n_fp16 += cfg.vocab_size * d  # embedding
-    if not cfg.tie_embeddings:
-        n_fp16 += cfg.vocab_size * d
-    n_fp16 += 2 * cfg.n_layers * d  # norms
-
-    return {"n_1bit": n_1bit, "n_8bit": n_8bit, "n_fp16": n_fp16,
-            "total": n_1bit + n_8bit + n_fp16}

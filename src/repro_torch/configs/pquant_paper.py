@@ -20,7 +20,7 @@ from repro_torch.core.quantization import QuantConfig
 
 # size -> (layers, d_model, heads, baseline_d_ff, pquant_d_ff_1bit, r)
 SIZES = {
-    # 100m: CPU-trainable end-to-end driver size (examples/train_lm.py),
+    # 100m: CPU-trainable end-to-end example size (examples/train_lm.py),
     # same family/recipe as the paper's models
     "100m": (14, 768, 12, 1920, 1792, 128),
     "300m": (24, 1024, 16, 2400, 2272, 128),

@@ -8,8 +8,6 @@ kernel tier through ``repro_torch.kernels.ops``.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.core.quantization import (
@@ -25,31 +23,21 @@ _SQRT2 = 2.0**0.5
 
 
 def truncated_normal(
-    gen: torch.Generator, shape, lo: float = -3.0, hi: float = 3.0,
-    device=None, dtype=torch.float32,
+    gen: torch.Generator, shape, lo: float = -3.0, hi: float = 3.0, device=None,
 ) -> Tensor:
-    """Standard normal truncated to [lo, hi], by inverting the CDF of
-    uniforms drawn from ``gen`` (which must live on ``device``)."""
+    """Standard normal f32 samples truncated to [lo, hi], by inverting the
+    CDF of uniforms drawn from ``gen`` (which must live on ``device``)."""
     cdf = lambda v: 0.5 * (1.0 + torch.erf(torch.tensor(v / _SQRT2)))  # noqa: E731
     a, b = float(cdf(lo)), float(cdf(hi))
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
     x = torch.erfinv(2.0 * (a + u * (b - a)) - 1.0) * _SQRT2
-    return x.clamp_(lo, hi).to(dtype)
+    return x.clamp_(lo, hi)
 
 
-def init_linear(
-    gen: torch.Generator,
-    d_in: int,
-    d_out: int,
-    lead: tuple = (),
-    device=None,
-    scale: Optional[float] = None,
-):
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, lead: tuple = (), device=None):
     """Dense kernel init (truncated-normal fan-in, LLaMA-style); ``lead``
     prepends stack axes (layers)."""
-    if scale is None:
-        scale = d_in**-0.5
-    w = truncated_normal(gen, lead + (d_in, d_out), device=device) * scale
+    w = truncated_normal(gen, lead + (d_in, d_out), device=device) * d_in**-0.5
     return {"w": w}
 
 

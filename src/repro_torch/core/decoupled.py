@@ -26,12 +26,9 @@ from repro_torch.core.quantization import (
 
 Tensor = torch.Tensor
 
-ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
-    "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "relu": F.relu,
-    "relu2": lambda x: torch.square(F.relu(x)),
-}
+# the paper's family uses SiLU (GLU); upstream's other activations come
+# with the architectures that use them
+ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {"silu": F.silu}
 
 
 def init_decoupled_ffn(

@@ -138,18 +138,6 @@ def stream_ptr(device_index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
-# Shared-memory plan of the GEMV blocks, mirroring smem_plan() in
-# csrc/gemv_common.cuh: int8 rows (M padded to 8) x K, their scales, and
-# 8 warps x 8 rows x 32 int32 partial sums; at most 227 KB on sm_90.
-MAX_SMEM = 232448
-
-
-def smem_bytes(m: int, k: int) -> int:
-    up = lambda v, q: -(-v // q) * q  # noqa: E731
-    mpad = up(m, 8)
-    return up(mpad * k, 16) + up(mpad * 4, 16) + 8 * 8 * 32 * 4
-
-
 def device_index(t: "torch.Tensor") -> int:
     """The CUDA device index of ``t``; raises for any other device."""
     idx = t.get_device()

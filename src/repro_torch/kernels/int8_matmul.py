@@ -24,7 +24,6 @@ _SIGNATURES = {
     # x, w, gamma, wscale, out, m, k, n, device, stream
     "int8_matmul_launch": [_P] * 5 + [_I] * 4 + [_P],
 }
-_ROW_TILE = 32  # token rows per block (kRowTile in csrc/int8_matmul.cu)
 
 
 def int8_matmul_plain(x_i8: Tensor, w_i8: Tensor, gamma: Tensor, wscale: Tensor) -> Tensor:
@@ -50,8 +49,6 @@ def int8_matmul(x_i8: Tensor, w_i8: Tensor, gamma: Tensor, wscale: Tensor) -> Te
     if k2 != k or gamma.shape != (m,) or m < 1 or n < 1 or k % 4:
         raise ValueError(f"shape mismatch: x {tuple(x_i8.shape)}, w {tuple(w_i8.shape)}, "
                          f"gamma {tuple(gamma.shape)} (K must be a multiple of 4)")
-    if _cuda.smem_bytes(min(m, _ROW_TILE), k) > _cuda.MAX_SMEM:
-        raise ValueError(f"K = {k} exceeds one block's shared memory")
     wscale_p = _cuda.scalar_ptr(wscale, dev, "wscale")
     out = torch.empty((m, n), dtype=torch.float32, device=x_i8.device)
     lib = _cuda.load("int8_matmul", _SIGNATURES)

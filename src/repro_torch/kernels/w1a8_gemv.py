@@ -6,7 +6,8 @@ Each wrapper launches the hand-written CUDA kernel of
 (same arithmetic, same order of operations, so the f32 outputs agree bit
 for bit) for a CPU tensor.  The kernels take any 1 <= M <= 32 directly: pad
 rows are a kernel-internal detail (zero codes, unit scale), so callers
-never pad.  The shared-memory plan bounds M x K (32 x 5024 fits).
+never pad.  The kernel rejects an M x K whose int8 rows overflow one
+block's shared memory (32 x 5024 fits).
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.quantization import fdiv
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.ref import int_matmul, unpack_ref
+from repro_torch.kernels.ref import int_matmul, quantize_act_ref, unpack_ref
 
 Tensor = torch.Tensor
 
@@ -37,19 +37,9 @@ MAX_ROWS = 32
 # ---------------------------------------------------------------------------
 
 
-def quant_prologue(x: Tensor) -> tuple[Tensor, Tensor]:
-    """Per-token AbsMax INT8 of the (M, K) rows, as the kernels' prologue
-    computes it: f32 amax, gamma = 127 / (amax + 1e-5), round half to even."""
-    xf = x.float()
-    amax = torch.amax(torch.abs(xf), dim=-1)
-    gamma = fdiv(127.0, amax + 1e-5)
-    q = torch.clamp(torch.round(xf * gamma[:, None]), -127, 127).to(torch.int8)
-    return q, gamma
-
-
 def w1a8_gemv_plain(x: Tensor, w_packed: Tensor, lam: Tensor) -> Tensor:
     """Y (M, N) f32 = float(quantize(X) @ unpack(W)) * (lam / gamma)."""
-    xq, gamma = quant_prologue(x)
+    xq, gamma = quantize_act_ref(x)
     acc = int_matmul(xq, unpack_ref(w_packed))
     return acc.float() * (lam.float().reshape(()) / gamma)[:, None]
 
@@ -58,7 +48,7 @@ def decoupled_gemv_plain(x, w1_packed, w8_i8, lam, w8scale, alpha, beta):
     """(y1 (M, N), y8 (M, R)) f32 from one act-quant:
     y1 = float(acc1) * ((beta * lam) / gamma),
     y8 = float(acc8) * (alpha / (gamma * w8scale))."""
-    xq, gamma = quant_prologue(x)
+    xq, gamma = quantize_act_ref(x)
     lam, w8s, alpha, beta = (t.float().reshape(()) for t in (lam, w8scale, alpha, beta))
     y1 = int_matmul(xq, unpack_ref(w1_packed)).float() * ((beta * lam) / gamma)[:, None]
     y8 = int_matmul(xq, w8_i8).float() * (alpha / (gamma * w8s))[:, None]
@@ -82,8 +72,6 @@ def _check(x: Tensor, w_packed: Tensor) -> tuple[int, int, int, int]:
     if kb * 8 != k or not 1 <= m <= MAX_ROWS or n < 1:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)} (1 <= M <= {MAX_ROWS}), "
                          f"packed {tuple(w_packed.shape)}")
-    if _cuda.smem_bytes(m, k) > _cuda.MAX_SMEM:
-        raise ValueError(f"M x K = {m} x {k} exceeds one block's shared memory")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the kernels load four floats at a time)")
     return dev, m, k, n

@@ -31,20 +31,16 @@ def forward(params, batch, cfg: ModelConfig):
     return _mod(cfg).forward(params, batch, cfg)
 
 
-def prefill(params, batch, cfg: ModelConfig, cache_len: int, last_pos=None):
-    return _mod(cfg).prefill(params, batch, cfg, cache_len, last_pos)
+def prefill(params, batch, cfg: ModelConfig, cache_len: int):
+    return _mod(cfg).prefill(params, batch, cfg, cache_len)
 
 
 def decode_step(params, tokens, caches, pos, cfg: ModelConfig, active=None):
     return _mod(cfg).decode_step(params, tokens, caches, pos, cfg, active)
 
 
-def forward_chunk(params, tokens, caches, pos, cfg: ModelConfig,
-                  active=None, lengths=None, logits_at=None):
-    return _mod(cfg).forward_chunk(
-        params, tokens, caches, pos, cfg, active=active, lengths=lengths,
-        logits_at=logits_at,
-    )
+def forward_chunk(params, tokens, caches, pos, cfg: ModelConfig, active=None, lengths=None):
+    return _mod(cfg).forward_chunk(params, tokens, caches, pos, cfg, active=active, lengths=lengths)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -83,26 +83,21 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
     return out.reshape(b, sq, hq, dv)
 
 
-def causal_mask(sq: int, skv: int, window: int, device=None) -> Tensor:
-    """(1, 1, Sq, Skv) boolean mask; ``window`` <= 0 means unlimited."""
+def causal_mask(sq: int, skv: int, device=None) -> Tensor:
+    """(1, 1, Sq, Skv) boolean mask of full causal attention."""
     i = torch.arange(sq, device=device)[:, None] + (skv - sq)
     j = torch.arange(skv, device=device)[None, :]
-    m = j <= i
-    if window > 0:
-        m = m & ((i - j) < window)
-    return m[None, None]
+    return (j <= i)[None, None]
 
 
-def attention(params, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor,
-              window: int = 0, causal: bool = True):
-    """Full-sequence attention (train / eval, no cache)."""
+def attention(params, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor):
+    """Full-sequence causal attention (train / eval, no cache)."""
     q, k, v = _project_qkv(params, x, cfg)
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     s = x.shape[1]
-    mask = causal_mask(s, s, window, x.device) if causal else None
-    return _out_proj(params, _sdpa(q, k, v, mask), cfg)
+    return _out_proj(params, _sdpa(q, k, v, causal_mask(s, s, x.device)), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +136,14 @@ def _slot_write(cache: Tensor, new: Tensor, slot: Tensor, active: Tensor | None)
     return cache.copy_(torch.where(hit, new.to(cache.dtype), cache))
 
 
-def _decode_mask(pos, skv: int, ring: bool, device=None) -> Tensor:
-    """Validity mask of a decode read, broadcastable to (B, 1, 1, Skv)."""
+def _decode_mask(pos, skv: int, device=None) -> Tensor:
+    """Validity mask of a decode read, broadcastable to (B, 1, 1, Skv):
+    slots 0..min(pos, Skv - 1) (upstream's ring rule; on a cache at least
+    as long as the sequence it is the plain prefix)."""
     j = torch.arange(skv, device=device)
     if not torch.is_tensor(pos):
-        lim = min(pos, skv - 1) if ring else pos
-        return (j <= lim)[None, None, None].expand(1, 1, 1, skv)
-    lim = torch.clamp(pos, max=skv - 1) if ring else pos
+        return (j <= min(pos, skv - 1))[None, None, None].expand(1, 1, 1, skv)
+    lim = torch.clamp(pos, max=skv - 1)
     if pos.ndim == 0:
         return (j <= lim)[None, None, None].expand(1, 1, 1, skv)
     return (j[None, :] <= lim[:, None])[:, None, None, :]
@@ -263,6 +259,6 @@ def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig, thet
         slots = _pos_matrix(pos, 1, x.device)[:, 0].expand(b) % skv
         _slot_write(cache["k"], k, slots, active)
         _slot_write(cache["v"], v, slots, active)
-    mask = _decode_mask(pos, skv, ring=True, device=x.device)
+    mask = _decode_mask(pos, skv, device=x.device)
     out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
     return _out_proj(params, out, cfg), cache

@@ -24,19 +24,13 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, device=None):
 
 
 def embed(params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    x = params["table"][tokens]
-    # gemma-family scales embeddings by sqrt(d_model)
-    if "gemma" in cfg.name:
-        x = x * cfg.d_model**0.5
-    return x
+    """Token embeddings (the ported family scales none: no gemma configs)."""
+    return params["table"][tokens]
 
 
 def unembed(params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    logits = x @ params["table"].T.to(x.dtype)
-    if cfg.logit_softcap > 0:
-        c = cfg.logit_softcap
-        logits = c * torch.tanh(logits / c)
-    return logits
+    """Tied-table logits (no ported config sets ``logit_softcap``)."""
+    return x @ params["table"].T.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ enc-dec) are not ported yet and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any
 
 import torch
 
@@ -51,15 +51,13 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
     mixer: str  # attn
-    ffn: Optional[str]  # dense
-    window: int = 0
+    ffn: str  # dense
 
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
     repeats: int
     blocks: tuple[BlockSpec, ...]
-    first_layer: int
 
 
 def build_segments(cfg: ModelConfig) -> list[Segment]:
@@ -70,7 +68,7 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
         raise NotImplementedError(
             f"{cfg.name}: only the plain full-attention decoder is ported"
         )
-    return [Segment(cfg.n_layers, (BlockSpec("attn", "dense", 0),), 0)]
+    return [Segment(cfg.n_layers, (BlockSpec("attn", "dense"),))]
 
 
 # ---------------------------------------------------------------------------
@@ -208,36 +206,25 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
 
 
 def forward_chunk(params, tokens: Tensor, caches, pos, cfg: ModelConfig,
-                  active: Tensor | None = None, lengths: Tensor | None = None,
-                  logits_at: Tensor | None = None):
+                  active: Tensor | None = None, lengths: Tensor | None = None):
     """Cache-resident multi-token forward, the single serving code path:
     tokens (B, T) at absolute positions pos.. (int, 0-d or (B,) tensor)
     extend the caches; each token attends the resident prefix plus its
-    in-chunk causal predecessors.  ``logits_at`` (B,) returns only that
-    chunk position's logits (B, V).  Returns (logits, caches)."""
+    in-chunk causal predecessors.  Returns (logits (B, T, V), caches)."""
     x = embed(params["embed"], tokens, cfg)
     x, caches = _forward_chunk_x(params, x, caches, pos, cfg, active, lengths)
-    head = params.get("lm_head", params["embed"])
-    if logits_at is not None:
-        idx = logits_at.to(torch.int64)[:, None, None].expand(x.shape[0], 1, x.shape[2])
-        xl = rmsnorm(params["final_norm"], torch.gather(x, 1, idx))
-        return unembed(head, xl, cfg)[:, 0], caches
     x = rmsnorm(params["final_norm"], x)
-    return unembed(head, x, cfg), caches
+    return unembed(params.get("lm_head", params["embed"]), x, cfg), caches
 
 
-def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int,
-            last_pos: Optional[int] = None):
+def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int):
     """The whole prompt as one :func:`forward_chunk` from an empty cache of
-    length ``cache_len``: last-position logits (B, V) and the caches.
-    ``last_pos`` reads the logits at position ``last_pos - 1`` instead of
-    the final row (bucket-padded prompts)."""
+    length ``cache_len``: last-position logits (B, V) and the caches."""
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg)
     caches = init_cache(cfg, x.shape[0], cache_len, dtype=x.dtype, device=x.device)
     x, caches = _forward_chunk_x(params, x, caches, 0, cfg, read_to=x.shape[1])
-    end = x.shape[1] if last_pos is None else int(last_pos)
-    x = rmsnorm(params["final_norm"], x[:, end - 1:end])
+    x = rmsnorm(params["final_norm"], x[:, -1:])
     head = params.get("lm_head", params["embed"])
     return unembed(head, x, cfg)[:, 0], caches
 

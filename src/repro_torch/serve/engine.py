@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.telemetry.tracing import annotate, maybe_profile
+from repro_torch.telemetry.tracing import annotate
 
 Tensor = torch.Tensor
 
@@ -136,14 +136,12 @@ class DecodeEngine:
         scfg = SamplerConfig() if scfg is None else scfg
         self._check_budget(scfg)
         prompts, stop, gen = self._setup(prompts, scfg, seed)
-        with maybe_profile("decode_engine_generate"):
-            tok, caches, pos = self._prefill(prompts, scfg, gen)
-            done = _hit_stop(tok, stop)
-            rest, _, _, _ = self._decode(
-                tok, caches, pos, gen, scfg.max_new_tokens - 1, scfg, stop, done
-            )
-            toks = torch.cat([tok[:, None], rest], dim=1)
-        return self._fetch(toks)
+        tok, caches, pos = self._prefill(prompts, scfg, gen)
+        done = _hit_stop(tok, stop)
+        rest, _, _, _ = self._decode(
+            tok, caches, pos, gen, scfg.max_new_tokens - 1, scfg, stop, done
+        )
+        return self._fetch(torch.cat([tok[:, None], rest], dim=1))
 
     def generate_stream(self, prompts, scfg: Optional[SamplerConfig] = None,
                         seed: int = 0, chunk: int = 8) -> Iterator[np.ndarray]:

@@ -1,5 +1,5 @@
-"""Profiler spans for the port (the ``annotate`` / ``maybe_profile`` part
-of ``repro.telemetry.tracing``; the rest of telemetry is not ported yet).
+"""Profiler spans for the port (the ``annotate`` part of
+``repro.telemetry.tracing``; the rest of telemetry is not ported yet).
 
 ``annotate(name)`` is a ``torch.profiler.record_function`` span while a
 profiler is recording and a no-op otherwise, so an unprofiled run pays
@@ -9,7 +9,6 @@ one flag check per span.
 from __future__ import annotations
 
 import contextlib
-import os
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -19,20 +18,3 @@ def annotate(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
-
-
-@contextlib.contextmanager
-def maybe_profile(name: str):
-    """Record a ``torch.profiler`` trace of the enclosed block into
-    ``$REPRO_PROFILE_DIR/<name>.json`` when that variable is set."""
-    out = os.environ.get("REPRO_PROFILE_DIR")
-    if not out or _autograd_profiler._is_profiler_enabled:
-        yield
-        return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, f"{name}.json"))

@@ -26,7 +26,6 @@ from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from repro_torch.kernels.w1a8_gemv import (
     decoupled_gemv,
     decoupled_gemv_plain,
-    quant_prologue,
     w1a8_gemv,
     w1a8_gemv_plain,
 )
@@ -68,7 +67,7 @@ def test_w1a8_gemv_matches_pallas_and_ref(m, k, n):
     port_ref = ref.w1a8_gemv_ref(_t(x), _t(packed), _t(lam))
     np.testing.assert_array_equal(port_ref.numpy(), np.asarray(want))
     # the integers underneath: act-quant codes and int32 accumulators
-    xq, gamma = quant_prologue(_t(x))
+    xq, gamma = ref.quantize_act_ref(_t(x))
     jxq, jgamma = jref.quantize_act_ref(jnp.asarray(x))
     np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
     np.testing.assert_array_equal(gamma.numpy(), np.asarray(jgamma))
