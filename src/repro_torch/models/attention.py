@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitlinear import bitlinear, init_linear, init_rmsnorm
-from repro_torch.models.layers import apply_rope, rope_table
+from repro_torch.models.layers import apply_rope, rope_table, rotate
 
 Tensor = torch.Tensor
 
@@ -112,17 +112,16 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, lead
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _rope_decode(x: Tensor, pos, head_dim: int, theta) -> Tensor:
-    """Rotate one decode token per slot.  x: (B, 1, H, D); pos scalar or (B,)."""
-    if not torch.is_tensor(pos) or pos.ndim == 0:
-        sin, cos = rope_table(_pos_matrix(pos, 1, x.device)[0], head_dim, theta)
-        return apply_rope(x, sin, cos)
-    sin, cos = rope_table(pos, head_dim, theta)  # (B, D/2)
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    sin = sin[:, None, None, :].to(x.dtype)
-    cos = cos[:, None, None, :].to(x.dtype)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+def rope_at(pos, t: int, head_dim: int, theta, device=None) -> tuple[Tensor, Tensor]:
+    """sin/cos tables of a T-token chunk at absolute positions ``pos``..,
+    shaped (B|1, T, 1, D/2) to broadcast over (B, T, H, D/2).  Every layer
+    rotates at the same positions, so a forward builds them once and hands
+    them to each layer (upstream's ``_rope_decode`` / ``_rope_at`` build them
+    per call; the angles, and so the products, are elementwise the same)."""
+    posmat = _pos_matrix(pos, t, device)
+    sin, cos = rope_table(posmat.reshape(-1), head_dim, theta)
+    shape = tuple(posmat.shape) + (1, -1)
+    return sin.reshape(shape), cos.reshape(shape)
 
 
 def _slot_write(cache: Tensor, new: Tensor, slot: Tensor, active: Tensor | None) -> Tensor:
@@ -147,17 +146,6 @@ def _decode_mask(pos, skv: int, device=None) -> Tensor:
     if pos.ndim == 0:
         return (j <= lim)[None, None, None].expand(1, 1, 1, skv)
     return (j[None, :] <= lim[:, None])[:, None, None, :]
-
-
-def _rope_at(x: Tensor, posmat: Tensor, head_dim: int, theta) -> Tensor:
-    """Rotate a chunk of tokens at absolute positions ``posmat`` (B|1, T);
-    x: (B, T, H, D)."""
-    sin, cos = rope_table(posmat.reshape(-1), head_dim, theta)
-    sin = sin.reshape(posmat.shape + (-1,))[:, :, None, :].to(x.dtype)
-    cos = cos.reshape(posmat.shape + (-1,))[:, :, None, :].to(x.dtype)
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 def _pos_matrix(pos, t: int, device=None) -> Tensor:
@@ -205,22 +193,23 @@ def _span_mask(posmat: Tensor, skv: int) -> Tensor:
 
 def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig, theta: float,
                     active: Tensor | None = None, lengths: Tensor | None = None,
-                    read_to: int | None = None):
+                    read_to: int | None = None, rope: tuple[Tensor, Tensor] | None = None):
     """Cache-resident multi-token attention on the dense cache: process T
     tokens per slot, write their K/V into the cache (in place) and let each
     query attend the resident prefix plus the in-chunk causal keys.  T = 1
     without ``lengths`` is :func:`attention_decode`.  ``read_to`` bounds
-    the read when no position >= read_to can be attended.
+    the read when no position >= read_to can be attended.  ``rope`` is
+    :func:`rope_at` of this chunk, if the caller already built it.
 
     Returns (y (B, T, D), cache)."""
     b, t = x.shape[:2]
     if t == 1 and lengths is None:
-        return attention_decode(params, x, cache, pos, cfg, theta, active=active)
+        return attention_decode(params, x, cache, pos, cfg, theta, active=active, rope=rope)
     q, k, v = _project_qkv(params, x, cfg)
     posmat = _pos_matrix(pos, t, x.device)
     if cfg.pos_embedding == "rope":
-        q = _rope_at(q, posmat, cfg.head_dim, theta)
-        k = _rope_at(k, posmat, cfg.head_dim, theta)
+        rope = rope if rope is not None else rope_at(pos, t, cfg.head_dim, theta, x.device)
+        q, k = rotate(q, *rope), rotate(k, *rope)
 
     valid = _chunk_valid(b, t, active, lengths, x.device)
     skv = cache["k"].shape[1]
@@ -240,14 +229,14 @@ def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig, theta
 
 
 def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig, theta: float,
-                     active: Tensor | None = None):
+                     active: Tensor | None = None, rope: tuple[Tensor, Tensor] | None = None):
     """One-token decode step on the dense cache (in place).  x: (B, 1, D).
     The write slot is ``pos % L`` and the mask covers min(pos+1, L) slots."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg)
     if cfg.pos_embedding == "rope":
-        q = _rope_decode(q, pos, cfg.head_dim, theta)
-        k = _rope_decode(k, pos, cfg.head_dim, theta)
+        rope = rope if rope is not None else rope_at(pos, 1, cfg.head_dim, theta, x.device)
+        q, k = rotate(q, *rope), rotate(k, *rope)
 
     skv = cache["k"].shape[1]
     if isinstance(pos, int) and active is None:

@@ -47,13 +47,17 @@ def rope_table(positions: Tensor, head_dim: int, theta: float) -> tuple[Tensor, 
     return torch.sin(angles), torch.cos(angles)
 
 
-def apply_rope(x: Tensor, sin: Tensor, cos: Tensor) -> Tensor:
-    """x: (B, S, H, D). sin/cos: (S, D/2). Rotate-half convention."""
+def rotate(x: Tensor, sin: Tensor, cos: Tensor) -> Tensor:
+    """Rotate-half RoPE of x (..., D) with sin/cos broadcastable to (..., D/2)."""
+    sin, cos = sin.to(x.dtype), cos.to(x.dtype)
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
-    sin = sin[None, :, None, :].to(x.dtype)
-    cos = cos[None, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope(x: Tensor, sin: Tensor, cos: Tensor) -> Tensor:
+    """x: (B, S, H, D). sin/cos: (S, D/2). Rotate-half convention."""
+    return rotate(x, sin[None, :, None, :], cos[None, :, None, :])
 
 
 # ---------------------------------------------------------------------------

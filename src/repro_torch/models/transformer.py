@@ -178,11 +178,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return caches
 
 
-def _chunk_block(bparams, x, cache, pos, cfg, active=None, lengths=None, read_to=None):
+def _chunk_block(bparams, x, cache, pos, cfg, active=None, lengths=None, read_to=None,
+                 rope=None):
     h = rmsnorm(bparams["pre_norm"], x)
     y, cache = attn_mod.attention_chunk(
         bparams["mixer"], h, cache, pos, cfg, cfg.rope_theta,
-        active=active, lengths=lengths, read_to=read_to,
+        active=active, lengths=lengths, read_to=read_to, rope=rope,
     )
     x = x + y
     h = rmsnorm(bparams["ffn_norm"], x)
@@ -194,13 +195,16 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
                      active=None, lengths=None, read_to: int | None = None):
     """Walk the layers over embedded inputs x (B, T, D), extending the caches
     in place.  Returns (hidden (B, T, D), caches)."""
+    rope = None
+    if cfg.pos_embedding == "rope":  # the same tables for every layer
+        rope = attn_mod.rope_at(pos, x.shape[1], cfg.head_dim, cfg.rope_theta, x.device)
     for si, seg in enumerate(build_segments(cfg)):
         layers_c = _seg_layers(seg, caches[si])
         for r, layer in enumerate(_seg_layers(seg, params["segments"][si])):
             for bi in range(len(seg.blocks)):
                 x, _ = _chunk_block(
                     layer[f"b{bi}"], x, layers_c[r][f"b{bi}"], pos, cfg,
-                    active, lengths, read_to,
+                    active, lengths, read_to, rope,
                 )
     return x, caches
 
