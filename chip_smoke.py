@@ -35,6 +35,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 The line before the last is the JSON record of the ported kernels; the
 last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --pairs OTHER_CHECKOUT N
+
+times phase 4's decode path of this checkout against another one (say, a
+``git archive`` of the parent commit unpacked under ``_checkouts/``) in N
+alternating pairs of fresh processes, and prints the comparison as JSON.
 """
 
 from __future__ import annotations
@@ -259,9 +265,10 @@ def _tree(fn, tree):
     return fn(tree)
 
 
-def phase_slice(torch):
+def _serving(torch):
+    """pquant-1.3b at full width from ``SEED``, exported packed, with its
+    ``DecodeEngine``, the prompts and the greedy sampler of the main path."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import _cuda
     from repro_torch.models import api
     from repro_torch.serve.engine import DecodeEngine, SamplerConfig
     from repro_torch.train.quantized_serving import quantize_params_for_serving
@@ -273,17 +280,49 @@ def phase_slice(torch):
     params = quantize_params_for_serving(latent, cfg, packed=True)
     del latent
     torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     log(f"[4] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
-        f"r {cfg.quant.r}; init + packed export {time.perf_counter() - t0:.1f} s; "
-        f"serving params {nbytes / 1e6:.1f} MB")
+        f"r {cfg.quant.r}; init + packed export {time.perf_counter() - t0:.1f} s")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=torch.Generator().manual_seed(SEED))
-    max_len = PROMPT + NEW_TOKENS
     greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=NEW_TOKENS)
-    eng = DecodeEngine(params, cfg, max_len=max_len, device=dev)
+    eng = DecodeEngine(params, cfg, max_len=PROMPT + NEW_TOKENS, device=dev)
+    return cfg, params, eng, prompts, greedy
 
-    logits, caches = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, max_len)
+
+def _time_generate(eng, prompts, greedy, stream):
+    """TTFT and full-generate wall times (s) over ``TIMED_RUNS`` runs, each
+    ended by its one device-to-host transfer; every stream must repeat
+    ``stream``.  Returns (median TTFT, median generate, summary line)."""
+    first = dataclasses.replace(greedy, max_new_tokens=1)
+    ttfts, gens = [], []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        eng.generate(prompts, first)
+        ttfts.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        again = eng.generate(prompts, greedy)
+        gens.append(time.perf_counter() - t0)
+        if not (again == stream).all():
+            raise AssertionError("a repeated generate gave another stream")
+    ttft, t_gen = statistics.median(ttfts), statistics.median(gens)
+    steps = NEW_TOKENS - 1
+    line = (f"over {TIMED_RUNS} runs (host clock, each ended by its one transfer): TTFT median "
+            f"{ttft * 1e3:.1f} ms (min {min(ttfts) * 1e3:.1f}, max {max(ttfts) * 1e3:.1f}); "
+            f"generate median {t_gen * 1e3:.1f} ms (min {min(gens) * 1e3:.1f}, max "
+            f"{max(gens) * 1e3:.1f}); decode {(t_gen - ttft) / steps * 1e3:.2f} ms/step, "
+            f"{BATCH * steps / (t_gen - ttft):.1f} tokens/s at batch {BATCH}")
+    return ttft, t_gen, line
+
+
+def phase_slice(torch):
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import api
+
+    cfg, params, eng, prompts, greedy = _serving(torch)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[4] serving params {nbytes / 1e6:.1f} MB")
+    dev = torch.device("cuda")
+    logits, caches = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, PROMPT + NEW_TOKENS)
     step_logits, _ = api.decode_step(params, logits.argmax(-1)[:, None], caches, PROMPT, cfg)
     if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
         raise AssertionError("non-finite logits")
@@ -307,25 +346,9 @@ def phase_slice(torch):
     log(f"[4] launches in one generate: {launches} (= {cfg.n_layers} layers x (5, 2, 1) x "
         f"{forwards} forwards)")
 
-    first = dataclasses.replace(greedy, max_new_tokens=1)
-    ttfts, gens = [], []
-    for _ in range(TIMED_RUNS):
-        t0 = time.perf_counter()
-        eng.generate(prompts, first)
-        ttfts.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        again = eng.generate(prompts, greedy)
-        gens.append(time.perf_counter() - t0)
-        if not (again == stream).all():
-            raise AssertionError("a repeated generate gave another stream")
-    ttft, t_gen = statistics.median(ttfts), statistics.median(gens)
-    steps = NEW_TOKENS - 1
+    _, t_gen, line = _time_generate(eng, prompts, greedy, stream)
     log(f"[4] stream (request 0): {stream[0].tolist()}")
-    log(f"[4] over {TIMED_RUNS} runs (host clock, each ended by its one transfer): TTFT median "
-        f"{ttft * 1e3:.1f} ms (min {min(ttfts) * 1e3:.1f}, max {max(ttfts) * 1e3:.1f}); "
-        f"generate median {t_gen * 1e3:.1f} ms (min {min(gens) * 1e3:.1f}, max "
-        f"{max(gens) * 1e3:.1f}); decode {(t_gen - ttft) / steps * 1e3:.2f} ms/step, "
-        f"{BATCH * steps / (t_gen - ttft):.1f} tokens/s at batch {BATCH}")
+    log(f"[4] {line}")
     _profile(torch, eng, prompts, greedy, t_gen)
     return params, cfg, prompts, launches
 
@@ -394,14 +417,75 @@ def phase_cut(torch, params, cfg, prompts):
 
 
 # ---------------------------------------------------------------------------
+# Decode timing of two checkouts, side by side
+# ---------------------------------------------------------------------------
 
 
-def main() -> int:
-    import torch
+def time_slice(torch, src: Path) -> int:
+    """Phase 4's timing alone, of the ``repro_torch`` package under ``src``
+    (no profile, no other phase): prints one JSON line of TTFT, generate
+    time and decode ms/step (medians of ``TIMED_RUNS``) and the stream's
+    digest."""
+    import hashlib
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _cuda
+
+    _cuda.build()
+    _, _, eng, prompts, greedy = _serving(torch)
+    eng.generate(prompts, greedy)  # warm-up
+    stream = eng.generate(prompts, greedy)
+    ttft, t_gen, _ = _time_generate(eng, prompts, greedy, stream)
+    print(json.dumps({"ttft_ms": ttft * 1e3, "generate_ms": t_gen * 1e3,
+                      "ms_per_step": (t_gen - ttft) / (NEW_TOKENS - 1) * 1e3,
+                      "stream": hashlib.sha256(stream.cpu().numpy().tobytes()).hexdigest()[:16]}))
+    return 0
+
+
+def pairs(other: Path, n: int) -> int:
+    """Decode timing of this checkout against ``other`` (another commit's
+    checkout, e.g. a ``git archive`` unpacked under ``_checkouts/``, which
+    git ignores): ``n`` pairs of fresh processes, each running this file's
+    :func:`time_slice` on one tree, in the order other, this / this, other
+    by turns.  Prints each run, then one JSON line: per-pair decode ms/step
+    and TTFT, this tree's wins, medians, the other tree's quartiles and the
+    median per-pair ratio.  Fails if the greedy streams differ."""
+    import numpy as np
+
+    runs = {"other": [], "this": []}
+    for i in range(n):
+        order = (("other", other), ("this", ROOT))
+        for side, tree in order if i % 2 == 0 else order[::-1]:
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--time-slice",
+                                str(tree / "src")], capture_output=True, text=True, timeout=900)
+            if p.returncode:
+                raise RuntimeError(f"{side} run {i} failed:\n{p.stdout[-2000:]}{p.stderr[-4000:]}")
+            r = json.loads(p.stdout.strip().splitlines()[-1])
+            runs[side].append(r)
+            log(f"[pairs] pair {i} {side}: {json.dumps(r)} ({time.perf_counter() - t0:.0f} s)")
+    step = {k: np.array([r["ms_per_step"] for r in v]) for k, v in runs.items()}
+    ttft = {k: np.array([r["ttft_ms"] for r in v]) for k, v in runs.items()}
+    streams = {r["stream"] for v in runs.values() for r in v}
+    print(json.dumps({
+        "pairs": n,
+        "ms_per_step": {k: v.tolist() for k, v in step.items()},
+        "ttft_ms": {k: v.tolist() for k, v in ttft.items()},
+        "wins_step": int((step["this"] < step["other"]).sum()),
+        "wins_ttft": int((ttft["this"] < ttft["other"]).sum()),
+        "median_step": {k: float(np.median(v)) for k, v in step.items()},
+        "median_ttft": {k: float(np.median(v)) for k, v in ttft.items()},
+        "other_step_quartiles": np.percentile(step["other"], [25, 75]).tolist(),
+        "median_step_ratio": float(np.median(step["this"] / step["other"])),
+        "streams_equal": len(streams) == 1,
+    }))
+    return 0 if len(streams) == 1 else 1
+
+
+# ---------------------------------------------------------------------------
+
+
+def main(torch) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
 
@@ -444,4 +528,20 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
+    ap.add_argument("--pairs", nargs=2, metavar=("CHECKOUT", "N"),
+                    help="time decode against another checkout in N alternating pairs")
+    ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    if args.time_slice:
+        sys.exit(time_slice(torch, Path(args.time_slice)))
+    if args.pairs:
+        sys.exit(pairs(Path(args.pairs[0]).resolve(), int(args.pairs[1])))
+    sys.exit(main(torch))

@@ -191,24 +191,24 @@ def _span_mask(posmat: Tensor, skv: int) -> Tensor:
     return (j[None, None, :] <= posmat[..., None])[:, None]
 
 
-def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig, theta: float,
-                    active: Tensor | None = None, lengths: Tensor | None = None,
-                    read_to: int | None = None, rope: tuple[Tensor, Tensor] | None = None):
+def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
+                    rope: tuple[Tensor, Tensor] | None, active: Tensor | None = None,
+                    lengths: Tensor | None = None, read_to: int | None = None):
     """Cache-resident multi-token attention on the dense cache: process T
     tokens per slot, write their K/V into the cache (in place) and let each
     query attend the resident prefix plus the in-chunk causal keys.  T = 1
     without ``lengths`` is :func:`attention_decode`.  ``read_to`` bounds
     the read when no position >= read_to can be attended.  ``rope`` is
-    :func:`rope_at` of this chunk, if the caller already built it.
+    :func:`rope_at` of this chunk (None when ``cfg.pos_embedding`` is not
+    rope).
 
     Returns (y (B, T, D), cache)."""
     b, t = x.shape[:2]
     if t == 1 and lengths is None:
-        return attention_decode(params, x, cache, pos, cfg, theta, active=active, rope=rope)
+        return attention_decode(params, x, cache, pos, cfg, rope, active=active)
     q, k, v = _project_qkv(params, x, cfg)
     posmat = _pos_matrix(pos, t, x.device)
     if cfg.pos_embedding == "rope":
-        rope = rope if rope is not None else rope_at(pos, t, cfg.head_dim, theta, x.device)
         q, k = rotate(q, *rope), rotate(k, *rope)
 
     valid = _chunk_valid(b, t, active, lengths, x.device)
@@ -228,14 +228,14 @@ def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig, theta
     return _out_proj(params, out, cfg), cache
 
 
-def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig, theta: float,
-                     active: Tensor | None = None, rope: tuple[Tensor, Tensor] | None = None):
-    """One-token decode step on the dense cache (in place).  x: (B, 1, D).
-    The write slot is ``pos % L`` and the mask covers min(pos+1, L) slots."""
+def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
+                     rope: tuple[Tensor, Tensor] | None, active: Tensor | None = None):
+    """One-token decode step on the dense cache (in place).  x: (B, 1, D);
+    ``rope`` is :func:`rope_at` of the step.  The write slot is ``pos % L``
+    and the mask covers min(pos+1, L) slots."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg)
     if cfg.pos_embedding == "rope":
-        rope = rope if rope is not None else rope_at(pos, 1, cfg.head_dim, theta, x.device)
         q, k = rotate(q, *rope), rotate(k, *rope)
 
     skv = cache["k"].shape[1]

@@ -178,12 +178,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return caches
 
 
-def _chunk_block(bparams, x, cache, pos, cfg, active=None, lengths=None, read_to=None,
-                 rope=None):
+def _chunk_block(bparams, x, cache, pos, cfg, rope, active=None, lengths=None, read_to=None):
     h = rmsnorm(bparams["pre_norm"], x)
     y, cache = attn_mod.attention_chunk(
-        bparams["mixer"], h, cache, pos, cfg, cfg.rope_theta,
-        active=active, lengths=lengths, read_to=read_to, rope=rope,
+        bparams["mixer"], h, cache, pos, cfg, rope,
+        active=active, lengths=lengths, read_to=read_to,
     )
     x = x + y
     h = rmsnorm(bparams["ffn_norm"], x)
@@ -203,8 +202,8 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
         for r, layer in enumerate(_seg_layers(seg, params["segments"][si])):
             for bi in range(len(seg.blocks)):
                 x, _ = _chunk_block(
-                    layer[f"b{bi}"], x, layers_c[r][f"b{bi}"], pos, cfg,
-                    active, lengths, read_to, rope,
+                    layer[f"b{bi}"], x, layers_c[r][f"b{bi}"], pos, cfg, rope,
+                    active, lengths, read_to,
                 )
     return x, caches
 
