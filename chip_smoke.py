@@ -438,7 +438,7 @@ def time_slice(torch, src: Path) -> int:
     ttft, t_gen, _ = _time_generate(eng, prompts, greedy, stream)
     print(json.dumps({"ttft_ms": ttft * 1e3, "generate_ms": t_gen * 1e3,
                       "ms_per_step": (t_gen - ttft) / (NEW_TOKENS - 1) * 1e3,
-                      "stream": hashlib.sha256(stream.cpu().numpy().tobytes()).hexdigest()[:16]}))
+                      "stream": hashlib.sha256(stream.tobytes()).hexdigest()[:16]}))
     return 0
 
 
