@@ -14,12 +14,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once);
 3. each kernel against its plain PyTorch version on the card at the
-   shapes of pquant-1.3b's decode path, M in {1, 4, 5, 8, 32}: outputs must
-   agree within rtol 1e-6 (the kernels are built to agree bit for bit);
-   prints the kernel's median time (CUDA events, weights rotated through
-   more copies than the 50 MB L2 holds), the plain version's, the bound
-   (bytes over the card's memory rate, or operations over its int8 rate)
-   and, where one PyTorch call computes the same product, its time;
+   shapes of pquant-1.3b: the decode tier at M in {1, 4, 5, 8, 32}, the
+   prefill tier (``w1a8_matmul``, ``decoupled_matmul``, ``int8_matmul``,
+   ``rmsnorm_quant``) at M in {33, 64, 512, 8192}.  The GEMMs and GEMVs
+   must agree within rtol 1e-6 (they are built to agree bit for bit, and
+   the prefill GEMMs are held in f32 and bf16); ``rmsnorm_quant`` within
+   its stated tolerance (RMSNORM_*).  Prints the kernel's median time
+   (CUDA events, weights rotated through more copies than the 50 MB L2
+   holds), the host's time to issue one call, the plain version's time,
+   the bound (bytes over the card's memory rate, or operations over its
+   int8 rate) and, where one PyTorch call computes the same product
+   (``torch._int_mm`` on the unpacked signs), its time;
 4. the slice at full width: pquant-1.3b from a fixed seed, exported packed,
    served by ``DecodeEngine`` to 4 requests of 8-token prompts (prefill M =
    32 rows) with 32 greedy new tokens.  Checks finite logits, one host
@@ -29,8 +34,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel time by name from torch.profiler;
 5. the same export cut to 2 layers on the card and on the CPU (plain
    versions): prefill logits allclose within the stated tolerance, equal
-   greedy streams;
-6. the status of every TPU kernel of the JAX package (ported and checked,
+   greedy streams — at 4 x 8 tokens (the decode tier) and at 40 x 8 tokens
+   (the prefill tier: 320 prefill rows, then 40 decode rows);
+6. the prefill tier at full width: the same model served by
+   ``DecodeEngine`` to 64 requests of 128-token prompts (8192 prefill
+   rows, then decode at 64 rows) with 16 greedy new tokens.  Checks finite
+   logits, one host transfer per call, a repeatable stream and the launch
+   counts (layers x (5, 2, 1) x forwards of ``w1a8_matmul`` /
+   ``decoupled_matmul`` / ``int8_matmul``, none of the decode GEMVs);
+   prints TTFT, ms/step and tokens/s (medians of 3) and the device's busy
+   share and kernel time by name, of the whole generate and of the
+   prefill alone; then drives ``ops.fused_rmsnorm_quant`` (the entry point of
+   ``rmsnorm_quant``, which no model calls) on the prompts' 8192 x 2048
+   embeddings and holds it to its plain version;
+7. the status of every TPU kernel of the JAX package (ported and checked,
    or still to port).
 
 The line before the last is the JSON record of the ported kernels; the
@@ -61,28 +78,47 @@ W1A8_SHAPES = ((2048, 2048), (5024, 2048))  # q/k/v/o; w1_down
 DECOUPLED_SHAPE = (2048, 5024, 384)  # up/gate pairs: K, N, r
 INT8_SHAPE = (384, 2048)  # w8_down: K, N
 ROWS = (1, 4, 5, 8, 32)
-MAIN_ROWS = 4  # decode rows of the main path (4 requests)
+PREFILL_ROWS = (33, 64, 512, 8192)
+MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
+PREFILL_MAIN_ROWS = 8192  # prefill rows of the prefill-tier path (64 x 128 tokens)
 RTOL = 1e-6  # kernel vs plain version (built to agree exactly)
+# rmsnorm_quant vs its plain version: the kernel sums the squares in
+# another order and its rsqrtf is not correctly rounded, so normed differs
+# in its last bits; gamma must agree to RMSNORM_RTOL, every int8 code
+# within one step, and at most RMSNORM_CODE_SHARE of the codes may differ
+RMSNORM_RTOL = 1e-5
+RMSNORM_CODE_SHARE = 1e-3
+D_MODEL = 2048
 
 # end-to-end run
 BATCH, PROMPT, NEW_TOKENS = 4, 8, 32
 TIMED_RUNS = 5
 CUT_LAYERS, CUT_NEW_TOKENS = 2, 8
-# card vs CPU logits: the float ops around the kernels (norms, attention,
-# SiLU, unembedding) round differently on the two devices, and a last-ulp
-# difference ahead of a per-token int8 quantization can move one code by
-# one step; that shifts logits by far less than this share of their range
+CUT_PREFILL_BATCH = 40  # 40 x 8 = 320 prefill rows, then 40 decode rows
+# the prefill tier end to end
+P_BATCH, P_PROMPT, P_NEW_TOKENS = 64, 128, 16
+P_TIMED_RUNS = 3
+# card vs CPU logits while no int8 activation code differs: the float ops
+# around the kernels (norms, attention, SiLU, unembedding) round
+# differently on the two devices and leave the logits ulps apart
 LOGIT_TOL = 1e-3
+# once a code differs (phase 5): the first one must be a rounding tie, its
+# scaled values x * gamma on the two devices within BOUNDARY_TOL (of one
+# int8 step), with the float inputs up to it within FLOAT_NOISE of max|x|
+BOUNDARY_TOL = 1e-3
+FLOAT_NOISE = 1e-5
 
 # every pl.pallas_call of the JAX package: (name, file:line, ported by this path)
 TPU_KERNELS = (
     ("w1a8_gemv", "src/repro/kernels/w1a8_gemv.py:119", "src/repro_torch/csrc/w1a8_gemv.cu"),
     ("decoupled_gemv", "src/repro/kernels/w1a8_gemv.py:223", "src/repro_torch/csrc/w1a8_gemv.cu"),
     ("int8_matmul", "src/repro/kernels/int8_matmul.py:61", "src/repro_torch/csrc/int8_matmul.cu"),
-    ("w1a8_matmul", "src/repro/kernels/w1a8_matmul.py:92", None),
-    ("decoupled_matmul", "src/repro/kernels/decoupled_matmul.py:108", None),
+    ("w1a8_matmul", "src/repro/kernels/w1a8_matmul.py:92", "src/repro_torch/csrc/w1a8_matmul.cu"),
+    ("decoupled_matmul", "src/repro/kernels/decoupled_matmul.py:108",
+     "src/repro_torch/csrc/decoupled_matmul.cu"),
     ("paged_attention", "src/repro/kernels/paged_attention.py:227", None),
-    ("rmsnorm_quant", "src/repro/kernels/rmsnorm_quant.py:51", None),
+    ("rmsnorm_quant", "src/repro/kernels/rmsnorm_quant.py:51",
+     "src/repro_torch/csrc/rmsnorm_quant.cu"),
 )
 
 
@@ -170,9 +206,30 @@ def _close(a, b) -> float:
     return err.max().item()
 
 
+def _codes_close(q, q_ref, g, g_ref) -> float:
+    """rmsnorm_quant against its plain version, to the stated tolerance:
+    gamma within RMSNORM_RTOL, codes within one step, at most
+    RMSNORM_CODE_SHARE of them different.  Returns max |gamma error|."""
+    import torch
+
+    g_err = (g - g_ref).abs()
+    if not torch.all(g_err <= RMSNORM_RTOL * g_ref.abs()):
+        raise AssertionError(f"rmsnorm_quant gamma off: max |err| {g_err.max().item()}")
+    diff = (q.int() - q_ref.int()).abs()
+    share = (diff > 0).float().mean().item()
+    if diff.max().item() > 1 or share > RMSNORM_CODE_SHARE:
+        raise AssertionError(f"rmsnorm_quant codes off: max step {diff.max().item()}, "
+                             f"{share:.2e} of them differ")
+    return g_err.max().item()
+
+
 def phase_kernels(torch, peaks):
     from repro_torch.kernels import w1a8_gemv as wg
+    from repro_torch.kernels.decoupled_matmul import decoupled_matmul, decoupled_matmul_plain
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+    from repro_torch.kernels.ref import unpack_ref
+    from repro_torch.kernels.rmsnorm_quant import rmsnorm_quant, rmsnorm_quant_plain
+    from repro_torch.kernels.w1a8_matmul import w1a8_matmul, w1a8_matmul_plain
 
     bw, ops_rate = peaks
     dev = torch.device("cuda")
@@ -188,27 +245,33 @@ def phase_kernels(torch, peaks):
     def int8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
+    def scales(m):
+        return torch.rand((m,), generator=gen, **f32) * 50 + 10
+
     def bound(nbytes, nops):
         t_b, t_o = nbytes / bw * 1e3, nops / ops_rate * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     results = {}
 
-    def record(name, m, shape, err, call, plain_call, b, library_call=None):
-        ms = _time(torch, call, 200)
+    def record(name, m, shape, err, call, plain_call, b, library_call=None, tag=""):
+        iters = 200 if m * shape[0] < 2**24 else 50
+        ms = _time(torch, call, iters)
         host_us = _host_us(torch, call)
         plain_ms = _time(torch, plain_call, 3, 3)
-        library_ms = None if library_call is None else _time(torch, library_call, 200)
-        log(f"[3] {name} M={m} {shape}: max|err| {err:.3g}, kernel {ms * 1e3:.2f} us "
+        library_ms = None if library_call is None else _time(torch, library_call, iters)
+        label = f"{name} {tag}" if tag else name
+        log(f"[3] {label} M={m} {shape}: max|err| {err:.3g}, kernel {ms * 1e3:.2f} us "
             f"(host {host_us:.1f} us/call), plain {plain_ms * 1e3:.1f} us, "
             f"bound {b[0] * 1e3:.3f} us ({b[1]}), "
             f"library {'none' if library_ms is None else f'{library_ms * 1e3:.2f} us'}")
         r = results.setdefault(name, {"max_abs_err": 0.0, "rows": {}})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["rows"][(m,) + shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                                       bound_by=b[1], library_ms=library_ms,
-                                       host_us=host_us)
+        r["rows"][(m,) + shape + ((tag,) if tag else ())] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=library_ms,
+            host_us=host_us)
 
+    # --- decode tier: fused act-quant GEMVs (M <= 32) ---
     lam = scalar(0.031)
     for k, n in W1A8_SHAPES:
         ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
@@ -234,12 +297,13 @@ def phase_kernels(torch, peaks):
                lambda i: wg.decoupled_gemv(x, w1s[i % len(w1s)], w8s[i % len(w8s)], *sc),
                lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b)
 
+    # --- int8_matmul serves every M: both tiers' row counts ---
     k, n = INT8_SHAPE
     ws = [int8(k, n) for _ in range(_copies(k * n))]
     wscale = scalar(1 / 0.0019)
-    for m in ROWS:
+    for m in ROWS + PREFILL_ROWS:
         x = int8(m, k)
-        gamma = torch.rand((m,), generator=gen, **f32) * 50 + 10
+        gamma = scales(m)
         err = _close(int8_matmul(x, ws[0], gamma, wscale), int8_matmul_plain(x, ws[0], gamma, wscale))
         b = bound(m * k + k * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
         # torch._int_mm's shape rule: M > 16, K and N multiples of 8
@@ -247,8 +311,61 @@ def phase_kernels(torch, peaks):
         record("int8_matmul", m, (k, n), err,
                lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale),
                lambda i: int8_matmul_plain(x, ws[0], gamma, wscale), b, library)
-    log("[3] library call: none computes a packed 1-bit product (w1a8_gemv, decoupled_gemv); "
-        "int8_matmul's is torch._int_mm (integer product only, M > 16)")
+
+    # --- prefill tier: tiled GEMMs on pre-quantized rows (M > 32) ---
+    # held exactly in f32 (the main path's activation type) and in bf16
+    # (what upstream's ops write); timed in f32
+    for k, n in W1A8_SHAPES:
+        ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+        w_lib = unpack_ref(ws[0])  # the library call's unpacked +-1 weight
+        for m in PREFILL_ROWS:
+            x, gamma = int8(m, k), scales(m)
+            err = max(_close(w1a8_matmul(x, ws[0], gamma, lam, dt).float(),
+                             w1a8_matmul_plain(x, ws[0], gamma, lam, dt).float())
+                      for dt in (torch.float32, torch.bfloat16))
+            b = bound(m * k + k // 8 * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("w1a8_matmul", m, (k, n), err,
+                   lambda i: w1a8_matmul(x, ws[i % len(ws)], gamma, lam),
+                   lambda i: w1a8_matmul_plain(x, ws[0], gamma, lam), b,
+                   lambda i: torch._int_mm(x, w_lib))
+
+    k, n, r = DECOUPLED_SHAPE
+    w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+    w8s = [int8(k, r) for _ in w1s]
+    w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)  # both products in one call
+    for m in PREFILL_ROWS:
+        x, gamma = int8(m, k), scales(m)
+        err = 0.0
+        for dt in (torch.float32, torch.bfloat16):
+            got = decoupled_matmul(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+            want = decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+            err = max(err, _close(got[0].float(), want[0].float()),
+                      _close(got[1].float(), want[1].float()))
+        b = bound(m * k + k // 8 * n + k * r + m * 4 + 16 + m * (n + r) * 4,
+                  2 * m * k * (n + r))
+        record("decoupled_matmul", m, (k, n, r), err,
+               lambda i: decoupled_matmul(x, w1s[i % len(w1s)], w8s[i % len(w8s)], gamma, *sc),
+               lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
+               lambda i: torch._int_mm(x, w_lib))
+
+    # rmsnorm_quant on bf16 and f32 rows of d_model; no PyTorch call
+    # computes the same function
+    d = D_MODEL
+    norm_scale = torch.rand((d,), generator=gen, **f32) + 0.5
+    for dt in (torch.bfloat16, torch.float32):
+        for m in PREFILL_ROWS:
+            x = (torch.randn((m, d), generator=gen, **f32) * 3).to(dt)
+            q, g = rmsnorm_quant(x, norm_scale)
+            q_ref, g_ref = rmsnorm_quant_plain(x, norm_scale)
+            err = _codes_close(q, q_ref, g, g_ref)
+            b = bound(m * d * x.element_size() + d * 4 + m * d + m * 4, 0)
+            record("rmsnorm_quant", m, (d,), err, lambda i: rmsnorm_quant(x, norm_scale),
+                   lambda i: rmsnorm_quant_plain(x, norm_scale), b,
+                   tag="" if dt == torch.bfloat16 else "f32")
+    log("[3] library call: none computes a packed 1-bit product, so w1a8_gemv and "
+        "decoupled_gemv have none; int8_matmul's is torch._int_mm (integer product only, "
+        "M > 16); w1a8_matmul's and decoupled_matmul's are torch._int_mm on the unpacked "
+        "+-1 signs (8x the weight bytes, no epilogue); rmsnorm_quant has none")
     return results
 
 
@@ -289,13 +406,13 @@ def _serving(torch):
     return cfg, params, eng, prompts, greedy
 
 
-def _time_generate(eng, prompts, greedy, stream):
-    """TTFT and full-generate wall times (s) over ``TIMED_RUNS`` runs, each
-    ended by its one device-to-host transfer; every stream must repeat
+def _time_generate(eng, prompts, greedy, stream, runs: int = TIMED_RUNS):
+    """TTFT and full-generate wall times (s) over ``runs`` runs, each ended
+    by its one device-to-host transfer; every stream must repeat
     ``stream``.  Returns (median TTFT, median generate, summary line)."""
     first = dataclasses.replace(greedy, max_new_tokens=1)
     ttfts, gens = [], []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         t0 = time.perf_counter()
         eng.generate(prompts, first)
         ttfts.append(time.perf_counter() - t0)
@@ -305,17 +422,42 @@ def _time_generate(eng, prompts, greedy, stream):
         if not (again == stream).all():
             raise AssertionError("a repeated generate gave another stream")
     ttft, t_gen = statistics.median(ttfts), statistics.median(gens)
-    steps = NEW_TOKENS - 1
-    line = (f"over {TIMED_RUNS} runs (host clock, each ended by its one transfer): TTFT median "
+    steps, batch = greedy.max_new_tokens - 1, prompts.shape[0]
+    line = (f"over {runs} runs (host clock, each ended by its one transfer): TTFT median "
             f"{ttft * 1e3:.1f} ms (min {min(ttfts) * 1e3:.1f}, max {max(ttfts) * 1e3:.1f}); "
             f"generate median {t_gen * 1e3:.1f} ms (min {min(gens) * 1e3:.1f}, max "
             f"{max(gens) * 1e3:.1f}); decode {(t_gen - ttft) / steps * 1e3:.2f} ms/step, "
-            f"{BATCH * steps / (t_gen - ttft):.1f} tokens/s at batch {BATCH}")
+            f"{batch * steps / (t_gen - ttft):.1f} tokens/s at batch {batch}")
     return ttft, t_gen, line
 
 
-def phase_slice(torch):
+def _counted_generate(torch, eng, prompts, greedy, cfg, want: dict, tag: str):
+    """One ``generate`` between a reset and a read of the launch counters:
+    checks one host transfer and, for each kernel in ``want`` (name ->
+    launches per layer per forward), layers x that x forwards launches.
+    Returns (stream, launches, wall seconds)."""
     from repro_torch.kernels import _cuda
+
+    before = eng.host_transfers
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    stream = eng.generate(prompts, greedy)
+    t_gen = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    if eng.host_transfers - before != 1:
+        raise AssertionError(f"{eng.host_transfers - before} host transfers in one generate")
+    forwards = greedy.max_new_tokens  # one prefill + max_new_tokens - 1 decode steps
+    for name, per_layer in want.items():
+        if launches.get(name, 0) != cfg.n_layers * per_layer * forwards:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches, want "
+                                 f"{cfg.n_layers} x {per_layer} x {forwards}")
+    log(f"[{tag}] launches in one generate: {launches} (= {cfg.n_layers} layers x "
+        f"{tuple(v for v in want.values() if v)} x {forwards} forwards)")
+    return stream, launches, t_gen
+
+
+def phase_slice(torch):
     from repro_torch.models import api
 
     cfg, params, eng, prompts, greedy = _serving(torch)
@@ -327,24 +469,9 @@ def phase_slice(torch):
     if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
         raise AssertionError("non-finite logits")
     eng.generate(prompts, greedy)  # warm-up (kernel libraries load)
-    torch.cuda.synchronize()
-
-    before = eng.host_transfers
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    stream = eng.generate(prompts, greedy)
-    t_gen = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    if eng.host_transfers - before != 1:
-        raise AssertionError(f"{eng.host_transfers - before} host transfers in one generate")
-    forwards = NEW_TOKENS  # one prefill + NEW_TOKENS - 1 decode steps
-    want = {"w1a8_gemv": 5, "decoupled_gemv": 2, "int8_matmul": 1}
-    for name, per_layer in want.items():
-        if launches.get(name, 0) != cfg.n_layers * per_layer * forwards:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches, want "
-                                 f"{cfg.n_layers} x {per_layer} x {forwards}")
-    log(f"[4] launches in one generate: {launches} (= {cfg.n_layers} layers x (5, 2, 1) x "
-        f"{forwards} forwards)")
+    want = {"w1a8_gemv": 5, "decoupled_gemv": 2, "int8_matmul": 1,
+            "w1a8_matmul": 0, "decoupled_matmul": 0}
+    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg, want, "4")
 
     _, t_gen, line = _time_generate(eng, prompts, greedy, stream)
     log(f"[4] stream (request 0): {stream[0].tolist()}")
@@ -353,7 +480,7 @@ def phase_slice(torch):
     return params, cfg, prompts, launches
 
 
-def _profile(torch, eng, prompts, greedy, wall):
+def _profile(torch, eng, prompts, greedy, wall, tag: str = "4") -> float:
     """Where a generate's time goes on the device: torch.profiler's device
     time of every kernel, summed by name, and the device's busy share of an
     unprofiled generate's wall time ``wall`` (the profiler slows the host,
@@ -371,10 +498,11 @@ def _profile(torch, eng, prompts, greedy, wall):
         us, n = rows.get(e.name, (0.0, 0))
         rows[e.name] = (us + e.device_time_total, n + 1)
     busy = sum(us for us, _ in rows.values()) / 1e6
-    log(f"[4] device busy {busy * 1e3:.2f} ms in a {wall * 1e3:.1f} ms generate "
+    log(f"[{tag}] device busy {busy * 1e3:.2f} ms in a {wall * 1e3:.1f} ms generate "
         f"({100 * busy / wall:.1f}%); kernels by device time:")
     for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"[4]   {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
+        log(f"[{tag}]   {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
+    return busy
 
 
 def _leaves(tree):
@@ -388,7 +516,112 @@ def _leaves(tree):
         yield tree
 
 
+class _ActQuantTrace:
+    """Records every prefill-tier act-quant pass (``ops.quantize_act_int8``:
+    its float input, codes and scales, on the host) while active, so two
+    runs of one forward can be compared pass by pass."""
+
+    def __init__(self):
+        self.passes = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._ops, self._orig = ops, ops.quantize_act_int8
+
+        def traced(x):
+            q, g = self._orig(x)
+            self.passes.append((x.float().cpu(), q.cpu(), g.cpu()))
+            return q, g
+
+        ops.quantize_act_int8 = traced
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.quantize_act_int8 = self._orig
+
+
+class _PlainKernels:
+    """While active, ``ops`` calls each kernel's plain PyTorch version in
+    place of the kernel (on the same device, with the same float ops around
+    it): the reference a kernel path must equal bit for bit."""
+
+    NAMES = ("w1a8_gemv", "decoupled_gemv", "int8_matmul", "w1a8_matmul", "decoupled_matmul")
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import decoupled_matmul, int8_matmul, w1a8_gemv, w1a8_matmul
+
+        self._ops = ops
+        self._orig = {n: getattr(ops, n) for n in self.NAMES}
+        plain = {"w1a8_gemv": w1a8_gemv.w1a8_gemv_plain,
+                 "decoupled_gemv": w1a8_gemv.decoupled_gemv_plain,
+                 "int8_matmul": int8_matmul.int8_matmul_plain,
+                 "w1a8_matmul": w1a8_matmul.w1a8_matmul_plain,
+                 "decoupled_matmul": decoupled_matmul.decoupled_matmul_plain}
+        for n, fn in plain.items():
+            setattr(ops, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self._ops, n, fn)
+
+
+def _compare_act_quant(torch, card, cpu) -> dict:
+    """Where two traces of one run part: the first pass whose float input
+    differs, the first whose int8 codes differ (with the scaled values x *
+    gamma of its first differing code on each side), and the largest float
+    difference, relative to the pass's max |x|, up to that pass."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} act-quant passes on the card, {len(cpu)} on the cpu")
+    first_x = first_q = None
+    flips, noise = 0, 0.0
+    for i, ((xa, qa, ga), (xb, qb, gb)) in enumerate(zip(card, cpu)):
+        if first_q is None:
+            noise = max(noise, ((xa - xb).abs().max() / xb.abs().max()).item())
+        if first_x is None and not torch.equal(xa, xb):
+            first_x = (i, tuple(xa.shape), (xa - xb).abs().max().item())
+        bad = (qa != qb).nonzero()
+        flips += len(bad)
+        if first_q is None and len(bad):
+            r, c = bad[0].tolist()
+            first_q = (i, tuple(xa.shape), len(bad), (xa[r, c] * ga[r]).item(),
+                       (xb[r, c] * gb[r]).item())
+    line = f"{len(card)} act-quant passes, {flips} codes differ in all"
+    if first_x:
+        line += (f"; float inputs first differ at pass {first_x[0]} {first_x[1]} "
+                 f"(max |card - cpu| {first_x[2]:.3g})")
+    if first_q:
+        line += (f"; codes first differ at pass {first_q[0]} {first_q[1]} ({first_q[2]} of "
+                 f"them; the first scaled to {first_q[3]!r} on the card, {first_q[4]!r} on "
+                 f"the cpu); float inputs up to there differ by at most {noise:.3g} of max|x|")
+    return {"flips": flips, "first_code": first_q, "noise": noise, "line": line}
+
+
 def phase_cut(torch, params, cfg, prompts):
+    """The first CUT_LAYERS layers at the decode-tier prompts (PR 11's
+    check) and at CUT_PREFILL_BATCH x PROMPT tokens (the prefill tier in
+    every forward), each run three ways: on the card, on the card with
+    every kernel swapped for its plain version, and on the CPU (plain
+    versions).
+
+    * kernels vs plain versions on the card: logits and streams equal bit
+      for bit (the same float ops around both);
+    * card vs CPU: the float ops around the kernels (norms, attention)
+      reduce in another order on each device, which leaves their outputs
+      a few ulps apart.  Where that never moves an int8 activation code,
+      logits must agree within LOGIT_TOL and the greedy streams must be
+      equal (always, at the decode-tier prompts).  Where it does, at the
+      prefill-tier prompts, the first code that differs must be a
+      rounding tie broken by that noise (its scaled values on the two
+      devices within BOUNDARY_TOL of each other, the float inputs up to
+      it within FLOAT_NOISE), and the two devices may part from there: one
+      code step moves the next layers' inputs by far more than an ulp and
+      the difference spreads."""
+    import contextlib
+
+    from repro_torch.kernels import _cuda
     from repro_torch.models import api
     from repro_torch.serve.engine import DecodeEngine, SamplerConfig
 
@@ -398,22 +631,119 @@ def phase_cut(torch, params, cfg, prompts):
     cpu = _tree(lambda t: t.cpu(), gpu)
     max_len = PROMPT + CUT_NEW_TOKENS
     greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=CUT_NEW_TOKENS)
-    out = {}
-    for name, tree, dev in (("card", gpu, torch.device("cuda")), ("cpu", cpu, torch.device("cpu"))):
-        t0 = time.perf_counter()
-        logits, _ = api.prefill(tree, {"tokens": prompts.to(dev)}, cut, max_len)
-        stream = DecodeEngine(tree, cut, max_len=max_len, device=dev).generate(prompts, greedy)
-        out[name] = (logits.cpu(), stream)
-        log(f"[5] {CUT_LAYERS}-layer cut on the {name}: {time.perf_counter() - t0:.1f} s")
-    (lg, sg), (lc, sc) = out["card"], out["cpu"]
-    diff = (lg - lc).abs().max().item()
-    scale = lc.abs().max().item()
-    log(f"[5] prefill logits max|card - cpu| {diff:.3g} (|logits| <= {scale:.3g}, "
-        f"tolerance {LOGIT_TOL} x that); streams equal: {bool((sg == sc).all())}")
-    if diff > LOGIT_TOL * scale:
-        raise AssertionError("card and CPU logits disagree")
-    if not (sg == sc).all():
-        raise AssertionError(f"card and CPU greedy streams differ:\n{sg}\n{sc}")
+    wide = torch.randint(0, cfg.vocab_size, (CUT_PREFILL_BATCH, PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    cuda = torch.device("cuda")
+    # PR 11's check at the decode-tier prompts stays as it was: no parting
+    for batch_prompts, may_part in ((prompts, False), (wide, True)):
+        rows = batch_prompts.numel()
+        out = {}
+        for name, tree, dev, plain in (("card", gpu, cuda, False),
+                                       ("card, plain versions", gpu, cuda, True),
+                                       ("cpu", cpu, torch.device("cpu"), False)):
+            t0 = time.perf_counter()
+            _cuda.reset_launches()
+            kernels = _PlainKernels() if plain else contextlib.nullcontext()
+            with _ActQuantTrace() as trace, kernels:
+                logits, _ = api.prefill(tree, {"tokens": batch_prompts.to(dev)}, cut, max_len)
+                stream = DecodeEngine(tree, cut, max_len=max_len, device=dev).generate(
+                    batch_prompts, greedy)
+            launched = sum(_cuda.LAUNCHES.values())
+            if launched == 0 if name == "card" else launched:
+                raise AssertionError(f"{name}: {launched} kernel launches")
+            out[name] = (logits.cpu(), stream, trace.passes)
+            log(f"[5] {CUT_LAYERS}-layer cut, {rows} prefill rows, on the {name}: "
+                f"{time.perf_counter() - t0:.1f} s, {launched} kernel launches")
+        (lg, sg, tg), (lc, sc, tc) = out["card"], out["cpu"]
+        lp, sp, _ = out["card, plain versions"]
+        same = torch.equal(lg, lp) and bool((sg == sp).all())
+        log(f"[5] {rows} prefill rows: kernels vs plain versions on the card: logits max|diff| "
+            f"{(lg - lp).abs().max().item():.3g}, streams equal: {bool((sg == sp).all())}")
+        if not same:
+            raise AssertionError("the kernels and their plain versions part on the card")
+        cmp = _compare_act_quant(torch, tg, tc)
+        diff = (lg - lc).abs().max().item()
+        scale = lc.abs().max().item()
+        log(f"[5] {rows} prefill rows, card vs cpu: {cmp['line']}")
+        log(f"[5] {rows} prefill rows: logits max|card - cpu| {diff:.3g} (|logits| <= "
+            f"{scale:.3g}, tolerance {LOGIT_TOL} x that); streams equal: {bool((sg == sc).all())}")
+        if cmp["flips"] == 0 or not may_part:
+            if diff > LOGIT_TOL * scale:
+                raise AssertionError("card and CPU logits disagree")
+            if not (sg == sc).all():
+                raise AssertionError(f"card and CPU greedy streams differ:\n{sg}\n{sc}")
+            continue
+        s_card, s_cpu = cmp["first_code"][3:]
+        if abs(s_card - s_cpu) > BOUNDARY_TOL or cmp["noise"] > FLOAT_NOISE:
+            raise AssertionError("card and CPU act-quant codes part beyond float noise")
+        log(f"[5] {rows} prefill rows: the first differing code is a rounding tie (scaled "
+            f"values {abs(s_card - s_cpu):.3g} apart, tolerance {BOUNDARY_TOL}); card and CPU "
+            f"part from there")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the prefill tier end to end
+# ---------------------------------------------------------------------------
+
+
+def phase_prefill(torch, params, cfg):
+    """pquant-1.3b at full width, served to P_BATCH requests of P_PROMPT
+    tokens: every packed linear of every forward runs the prefill tier.
+    Returns ({kernel: launches}, summary dict)."""
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.kernels.rmsnorm_quant import rmsnorm_quant_plain
+    from repro_torch.models import api
+    from repro_torch.models.layers import embed
+    from repro_torch.serve.engine import DecodeEngine, SamplerConfig
+
+    dev = torch.device("cuda")
+    max_len = P_PROMPT + P_NEW_TOKENS
+    prompts = torch.randint(0, cfg.vocab_size, (P_BATCH, P_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 2))
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=P_NEW_TOKENS)
+    eng = DecodeEngine(params, cfg, max_len=max_len, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    logits, caches = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, max_len)
+    step_logits, _ = api.decode_step(params, logits.argmax(-1)[:, None], caches, P_PROMPT, cfg)
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
+        raise AssertionError("non-finite logits")
+    kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(caches))
+    del logits, caches, step_logits
+    log(f"[6] {P_BATCH} requests x {P_PROMPT} tokens = {P_BATCH * P_PROMPT} prefill rows, "
+        f"then {P_BATCH} decode rows; dense KV cache of {max_len} positions "
+        f"{kv_bytes / 1e9:.2f} GB; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    eng.generate(prompts, greedy)  # warm-up
+    want = {"w1a8_matmul": 5, "decoupled_matmul": 2, "int8_matmul": 1,
+            "w1a8_gemv": 0, "decoupled_gemv": 0}
+    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg, want, "6")
+    ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream, P_TIMED_RUNS)
+    log(f"[6] stream (request 0): {stream[0].tolist()}")
+    log(f"[6] {line}")
+    busy = _profile(torch, eng, prompts, greedy, t_gen, "6")
+    log("[6] the prefill alone (a one-token generate):")
+    busy_first = _profile(torch, eng, prompts, dataclasses.replace(greedy, max_new_tokens=1),
+                          ttft, "6")
+
+    # rmsnorm_quant through its entry point, on the prompts' embeddings
+    # with the first layer's pre-norm scale
+    h = embed(params["embed"], prompts.to(dev), cfg)
+    norm_scale = params["segments"][0]["b0"]["pre_norm"]["scale"][0]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    q, g = ops.fused_rmsnorm_quant(h, norm_scale)
+    launches["rmsnorm_quant"] = _cuda.LAUNCHES["rmsnorm_quant"]
+    if launches["rmsnorm_quant"] != 1:
+        raise AssertionError(f"fused_rmsnorm_quant launched rmsnorm_quant "
+                             f"{launches['rmsnorm_quant']} times, want 1")
+    q_ref, g_ref = rmsnorm_quant_plain(h.reshape(-1, h.shape[-1]), norm_scale)
+    err = _codes_close(q.reshape(q_ref.shape), q_ref, g.reshape(-1), g_ref)
+    log(f"[6] ops.fused_rmsnorm_quant on {tuple(h.shape)} {h.dtype}: 1 launch, gamma max|err| "
+        f"{err:.3g}, codes within the stated tolerance")
+    summary = {"ttft_ms": ttft * 1e3, "ms_per_step": (t_gen - ttft) / (P_NEW_TOKENS - 1) * 1e3,
+               "tokens_per_s": P_BATCH * (P_NEW_TOKENS - 1) / (t_gen - ttft),
+               "device_busy_share": busy / t_gen, "prefill_busy_share": busy_first / ttft}
+    return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -500,26 +830,39 @@ def main(torch) -> int:
     results = phase_kernels(torch, peaks)
     params, cfg, prompts, launches = phase_slice(torch)
     phase_cut(torch, params, cfg, prompts)
+    p_launches, p_summary = phase_prefill(torch, params, cfg)
+    log(f"[6] summary: {json.dumps(p_summary)}")
 
     status = [{"name": n, "replaces": rep,
                "status": "ported" if src else "to port",
                **({"checked": n in results} if src else {})}
               for n, rep, src in TPU_KERNELS]
-    log("[6] kernel status: " + json.dumps(status))
+    log("[7] kernel status: " + json.dumps(status))
 
+    # each kernel's row in the record: the shape its path runs most (the
+    # decode GEMVs at the decode tier's 4 rows; the prefill kernels at the
+    # 8192 prefill rows, against q/k/v/o for w1a8_matmul and on the
+    # path's f32 rows for rmsnorm_quant); launches from each path's counted
+    # run (int8_matmul runs on both)
+    main_key = {
+        "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
+        "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
+        "int8_matmul": (PREFILL_MAIN_ROWS,) + INT8_SHAPE,
+        "w1a8_matmul": (PREFILL_MAIN_ROWS,) + W1A8_SHAPES[0],
+        "decoupled_matmul": (PREFILL_MAIN_ROWS,) + DECOUPLED_SHAPE,
+        "rmsnorm_quant": (PREFILL_MAIN_ROWS, D_MODEL, "f32"),
+    }
     record = []
     for n, rep, src in TPU_KERNELS:
         if not src:
             continue
         res = results[n]
-        # the main path's decode shape: 4 rows against q/k/v/o, the up/gate
-        # pairs, and w8_down
-        key = next(k for k in res["rows"] if k[0] == MAIN_ROWS)
-        row = res["rows"][key]
+        key = main_key[n]
+        by_path = {"decode": launches.get(n, 0), "prefill": p_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
-            "shape": list(key), "launches": launches.get(n, 0),
-            "max_abs_err": res["max_abs_err"], **row,
+            "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": res["max_abs_err"], **res["rows"][key],
         })
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels of the decode tier, their plain PyTorch
-versions, and the shape-dispatching inference linears (``ops``)."""
+"""Hand-written CUDA kernels of the decode and prefill tiers, their plain
+PyTorch versions, and the shape-dispatching inference linears (``ops``)."""

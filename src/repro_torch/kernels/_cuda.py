@@ -29,8 +29,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 # one shared library per source file; the header is part of every digest
-SOURCES = {"w1a8_gemv": "w1a8_gemv.cu", "int8_matmul": "int8_matmul.cu"}
-HEADERS = ("gemv_common.cuh",)
+SOURCES = {
+    "w1a8_gemv": "w1a8_gemv.cu",
+    "int8_matmul": "int8_matmul.cu",
+    "w1a8_matmul": "w1a8_matmul.cu",
+    "decoupled_matmul": "decoupled_matmul.cu",
+    "rmsnorm_quant": "rmsnorm_quant.cu",
+}
+HEADERS = ("gemv_common.cuh", "tile_gemm.cuh")
 
 # IEEE division and rounding throughout: no --use_fast_math (gamma and the
 # epilogue scales must equal the plain versions' bit for bit)
@@ -161,3 +167,14 @@ def scalar_ptr(t: "torch.Tensor", device: int, what: str) -> int:
         raise ValueError(f"{what} must have one element, got {tuple(t.shape)}")
     on_device(t, torch.float32, device, what)
     return t.data_ptr()
+
+
+# the float types the prefill-tier kernels read or write, by launch code
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def float_code(dtype, what: str) -> int:
+    """The launch code of a float type the kernels take; raises for others."""
+    if dtype not in FLOAT_CODES:
+        raise ValueError(f"{what} must be float32 or bfloat16, got {dtype}")
+    return FLOAT_CODES[dtype]

@@ -1,24 +1,24 @@
 """Port of ``repro.kernels.ops``: the inference linears of the packed
 serving path, shape-dispatched onto the kernels.
 
-Dispatch:
+Tiers, as upstream:
 
-* a CPU tensor runs the kernels' plain PyTorch versions (at every M);
-* a CUDA tensor launches the hand-written kernels — there is no fallback;
-* a CUDA tensor with more than ``DECODE_M_MAX`` flattened rows raises
-  ``NotImplementedError``: upstream sends those to the prefill-tier
-  kernels ``w1a8_matmul`` / ``decoupled_matmul``, which are not ported yet.
+* at most ``DECODE_M_MAX`` flattened rows: the decode GEMVs
+  ``w1a8_gemv`` / ``decoupled_gemv``, which quantize the activations in
+  their prologue;
+* above it: the prefill tier — a plain per-token act-quant pass
+  (``quantize_act_int8``, which upstream leaves to XLA), then the tiled
+  GEMMs ``w1a8_matmul`` / ``decoupled_matmul`` on the int8 rows, writing
+  ``out_dtype`` directly;
+* ``int8_matmul`` serves every M.
 
-``int8_matmul`` serves every M, as upstream.  The CUDA kernels take any
-row count directly (their pad rows are internal: zero codes, unit scale,
-as upstream's ``_pad_rows`` / ``_pad_gamma`` give them), and they take no
-tile sizes, so the port has no ``decode_tiles`` table.
-
-Upstream's prefill tier computes the W1A8 epilogue as ``acc * (lam *
-(1/gamma))`` where the decode tier computes ``acc * (lam / gamma)``; the
-CPU path here uses the decode-tier arithmetic at every M, so above
-``DECODE_M_MAX`` it agrees with the JAX package to f32 rounding, not bit
-for bit.
+A CPU tensor runs the kernels' plain PyTorch versions, in each Pallas
+kernel's order of operations; a CUDA tensor launches the hand-written
+kernels, and a shape a kernel cannot take raises ``ValueError`` — there
+is no fallback.  The kernels take any row count directly (pad rows are
+internal, with zero codes and unit scale, as upstream's ``_pad_rows`` /
+``_pad_gamma`` give them) and take no tile sizes, so the port has no
+``decode_tiles`` table.
 """
 
 from __future__ import annotations
@@ -26,8 +26,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantization import quantize_act_int8
+from repro_torch.kernels.decoupled_matmul import decoupled_matmul
 from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.rmsnorm_quant import rmsnorm_quant
 from repro_torch.kernels.w1a8_gemv import decoupled_gemv, w1a8_gemv
+from repro_torch.kernels.w1a8_matmul import w1a8_matmul
 from repro_torch.telemetry.tracing import annotate
 
 Tensor = torch.Tensor
@@ -44,24 +47,28 @@ def _rows(x: Tensor) -> Tensor:
     return xf.clone() if xf.data_ptr() % 16 else xf
 
 
-def _decode_tier_only(xf: Tensor, kernel: str) -> None:
-    if xf.is_cuda and xf.shape[0] > DECODE_M_MAX:
-        raise NotImplementedError(
-            f"{xf.shape[0]} rows > DECODE_M_MAX={DECODE_M_MAX} on CUDA needs the "
-            f"prefill-tier kernel {kernel}, which is not yet ported"
-        )
+def _bit_linear_prefill(xf: Tensor, w_packed: Tensor, lam: Tensor, out_dtype) -> Tensor:
+    """Prefill tier: plain act-quant pass + tiled W1A8 GEMM."""
+    xq, gamma = quantize_act_int8(xf)
+    with annotate("kernels/w1a8_matmul"):
+        return w1a8_matmul(xq, w_packed, gamma, lam, out_dtype)
+
+
+def _bit_linear_decode(xf: Tensor, w_packed: Tensor, lam: Tensor, out_dtype) -> Tensor:
+    """Decode tier: act-quant fused into the GEMV's prologue."""
+    with annotate("kernels/w1a8_gemv"):
+        y = w1a8_gemv(_rows(xf), w_packed, lam)
+    return y.to(out_dtype)
 
 
 def bit_linear_infer(x: Tensor, w_packed: Tensor, lam: Tensor,
                      out_dtype=torch.bfloat16) -> Tensor:
-    """Full W1A8 inference linear: fused act-quant + packed 1-bit GEMV.
+    """Full W1A8 inference linear: quantize acts -> packed 1-bit matmul.
     x: (..., K) float; w_packed: (K//8, N) uint8; lam: AbsMean scale."""
     lead = x.shape[:-1]
-    xf = _rows(x)
-    _decode_tier_only(xf, "w1a8_matmul")
-    with annotate("kernels/w1a8_gemv"):
-        y = w1a8_gemv(xf, w_packed, lam)
-    return y.to(out_dtype).reshape(*lead, -1)
+    xf = x.reshape(-1, x.shape[-1])
+    tier = _bit_linear_decode if xf.shape[0] <= DECODE_M_MAX else _bit_linear_prefill
+    return tier(xf, w_packed, lam, out_dtype).reshape(*lead, -1)
 
 
 def int8_linear_infer(x: Tensor, w_q: Tensor, wscale: Tensor,
@@ -75,14 +82,37 @@ def int8_linear_infer(x: Tensor, w_q: Tensor, wscale: Tensor,
     return y.to(out_dtype).reshape(*lead, -1)
 
 
+def fused_rmsnorm_quant(x: Tensor, scale: Tensor):
+    """(..., D) -> (int8 (..., D), gamma (...)): RMSNorm (eps 1e-6) times
+    scale, then per-token AbsMax INT8, in one kernel."""
+    lead = x.shape[:-1]
+    q, gamma = rmsnorm_quant(x.reshape(-1, x.shape[-1]).contiguous(), scale.contiguous())
+    return q.reshape(*lead, -1), gamma.reshape(lead)
+
+
+def _decoupled_prefill(xf, w1_packed, w8_q, lam, w8scale, alpha, beta, out_dtype):
+    """Prefill tier: plain act-quant pass + both up-projections in one GEMM."""
+    xq, gamma = quantize_act_int8(xf)
+    with annotate("kernels/decoupled_matmul"):
+        return decoupled_matmul(xq, w1_packed, w8_q.contiguous(), gamma, lam, w8scale,
+                                alpha, beta, out_dtype)
+
+
+def _decoupled_decode(xf, w1_packed, w8_q, lam, w8scale, alpha, beta, out_dtype):
+    """Decode tier: one act-quant prologue feeds both branches."""
+    with annotate("kernels/decoupled_gemv"):
+        y1, y8 = decoupled_gemv(_rows(xf), w1_packed, w8_q.contiguous(), lam, w8scale,
+                                alpha, beta)
+    return y1.to(out_dtype), y8.to(out_dtype)
+
+
 def decoupled_first_gemm(x: Tensor, w1_packed: Tensor, w8_q: Tensor, lam: Tensor,
                          w8scale: Tensor, alpha: Tensor, beta: Tensor,
                          out_dtype=torch.bfloat16):
     """Fused dual-branch up-projection for serving: reads the activations
     once.  Returns (y1 (..., N), y8 (..., R)), pre-scaled by beta / alpha."""
     lead = x.shape[:-1]
-    xf = _rows(x)
-    _decode_tier_only(xf, "decoupled_matmul")
-    with annotate("kernels/decoupled_gemv"):
-        y1, y8 = decoupled_gemv(xf, w1_packed, w8_q.contiguous(), lam, w8scale, alpha, beta)
-    return y1.to(out_dtype).reshape(*lead, -1), y8.to(out_dtype).reshape(*lead, -1)
+    xf = x.reshape(-1, x.shape[-1])
+    tier = _decoupled_decode if xf.shape[0] <= DECODE_M_MAX else _decoupled_prefill
+    y1, y8 = tier(xf, w1_packed, w8_q, lam, w8scale, alpha, beta, out_dtype)
+    return y1.reshape(*lead, -1), y8.reshape(*lead, -1)

@@ -1,5 +1,6 @@
-"""Port of ``repro.kernels.ref``: plain PyTorch oracles for the kernels of
-the decode tier (and the matmul oracles they are built from).
+"""Port of ``repro.kernels.ref``: plain PyTorch oracles for the packed
+linears' kernels (and the matmul oracles they are built from); the
+``rmsnorm_quant`` oracle is ``kernels.rmsnorm_quant.rmsnorm_quant_plain``.
 
 The order of operations is upstream ``ref.py``'s, which is not always the
 kernels' (``w1a8_matmul_ref`` computes ``acc * lam / gamma`` where the

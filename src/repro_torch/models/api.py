@@ -3,8 +3,9 @@ the server calls.  Other families raise ``NotImplementedError``.
 
     init_model(seed, cfg, device)                 -> params
     forward(params, batch, cfg)                   -> (logits, aux)
-    forward_chunk(params, toks, caches, pos, cfg) -> (logits (B,T,V), caches)
-    prefill(params, batch, cfg, cache_len)        -> (logits_last, caches)
+    forward_chunk(params, toks, caches, pos, cfg, logits_at=None)
+                                                  -> (logits (B,T,V) or (B,V), caches)
+    prefill(params, batch, cfg, cache_len, last_pos=None) -> (logits_last, caches)
     decode_step(params, tokens, caches, pos, cfg) -> (logits, caches)
     init_cache(cfg, batch, max_len, dtype, device)
 """
@@ -31,16 +32,20 @@ def forward(params, batch, cfg: ModelConfig):
     return _mod(cfg).forward(params, batch, cfg)
 
 
-def prefill(params, batch, cfg: ModelConfig, cache_len: int):
-    return _mod(cfg).prefill(params, batch, cfg, cache_len)
+def prefill(params, batch, cfg: ModelConfig, cache_len: int, last_pos=None):
+    """``last_pos`` selects the logits position of a right-padded prompt."""
+    return _mod(cfg).prefill(params, batch, cfg, cache_len, last_pos)
 
 
 def decode_step(params, tokens, caches, pos, cfg: ModelConfig, active=None):
     return _mod(cfg).decode_step(params, tokens, caches, pos, cfg, active)
 
 
-def forward_chunk(params, tokens, caches, pos, cfg: ModelConfig, active=None, lengths=None):
-    return _mod(cfg).forward_chunk(params, tokens, caches, pos, cfg, active=active, lengths=lengths)
+def forward_chunk(params, tokens, caches, pos, cfg: ModelConfig, active=None, lengths=None,
+                  logits_at=None):
+    """``logits_at`` (B,) returns only each slot's logits at that chunk index."""
+    return _mod(cfg).forward_chunk(params, tokens, caches, pos, cfg, active=active,
+                                   lengths=lengths, logits_at=logits_at)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

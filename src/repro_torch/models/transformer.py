@@ -4,8 +4,9 @@ API (as upstream, with a generator or seed where upstream takes a key):
   init_model(seed, cfg, device)                    -> params
   forward(params, batch, cfg)                      -> (logits, aux_loss)
   init_cache(cfg, batch, max_len, dtype, device)   -> caches
-  forward_chunk(params, toks, caches, pos, cfg)    -> (logits (B,T,V), caches)
-  prefill(params, batch, cfg, cache_len)           -> (logits_last, caches)
+  forward_chunk(params, toks, caches, pos, cfg, logits_at=None)
+                                                   -> (logits (B,T,V) or (B,V), caches)
+  prefill(params, batch, cfg, cache_len, last_pos=None) -> (logits_last, caches)
   decode_step(params, token, caches, pos, cfg)     -> (logits, caches)
 
 Layer stacks keep upstream's layout: a segment of R > 1 repeated blocks
@@ -209,25 +210,46 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
 
 
 def forward_chunk(params, tokens: Tensor, caches, pos, cfg: ModelConfig,
-                  active: Tensor | None = None, lengths: Tensor | None = None):
+                  active: Tensor | None = None, lengths: Tensor | None = None,
+                  logits_at: Tensor | None = None):
     """Cache-resident multi-token forward, the single serving code path:
     tokens (B, T) at absolute positions pos.. (int, 0-d or (B,) tensor)
     extend the caches; each token attends the resident prefix plus its
-    in-chunk causal predecessors.  Returns (logits (B, T, V), caches)."""
+    in-chunk causal predecessors.  Returns (logits (B, T, V), caches); with
+    ``logits_at`` — a per-slot (B,) chunk-relative index — only that
+    position's logits (B, V), without unembedding the whole chunk (what
+    admission prefill reads: each slot's last real prompt token)."""
     x = embed(params["embed"], tokens, cfg)
     x, caches = _forward_chunk_x(params, x, caches, pos, cfg, active, lengths)
+    head = params.get("lm_head", params["embed"])
+    if logits_at is not None:
+        idx = torch.as_tensor(logits_at, device=x.device).long()
+        xl = torch.take_along_dim(x, idx.reshape(-1, 1, 1), dim=1)
+        return unembed(head, rmsnorm(params["final_norm"], xl), cfg)[:, 0], caches
     x = rmsnorm(params["final_norm"], x)
-    return unembed(params.get("lm_head", params["embed"]), x, cfg), caches
+    return unembed(head, x, cfg), caches
 
 
-def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int):
+def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, last_pos=None):
     """The whole prompt as one :func:`forward_chunk` from an empty cache of
-    length ``cache_len``: last-position logits (B, V) and the caches."""
+    length ``cache_len``: last-position logits (B, V) and the caches.
+
+    ``last_pos`` (int or 0-d tensor) reads the logits at position
+    ``last_pos - 1`` instead of the final one: the hook for a prompt
+    right-padded to a shared length.  Causal masking keeps every position
+    before ``last_pos`` as an exact-length prefill computes it; as
+    upstream's ``dynamic_slice``, an index outside the prompt is clamped
+    into it."""
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg)
     caches = init_cache(cfg, x.shape[0], cache_len, dtype=x.dtype, device=x.device)
     x, caches = _forward_chunk_x(params, x, caches, 0, cfg, read_to=x.shape[1])
-    x = rmsnorm(params["final_norm"], x[:, -1:])
+    if last_pos is None:
+        xl = x[:, -1:]
+    else:
+        idx = torch.as_tensor(last_pos, device=x.device).long().reshape(1) - 1
+        xl = x.index_select(1, idx.clamp(0, x.shape[1] - 1))
+    x = rmsnorm(params["final_norm"], xl)
     head = params.get("lm_head", params["embed"])
     return unembed(head, x, cfg)[:, 0], caches
 

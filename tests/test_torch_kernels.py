@@ -1,7 +1,10 @@
 """The port's decode-tier kernels (``w1a8_gemv``, ``decoupled_gemv``,
 ``int8_matmul``) against the JAX package: the Pallas kernels run in
 interpret mode through ``repro.kernels.ops`` (as ``tests/test_gemv.py``
-runs them), and the plain oracles of ``repro.kernels.ref``.
+runs them), and the plain oracles of ``repro.kernels.ref``.  The
+prefill tier above ``DECODE_M_MAX`` rows has its own file,
+``test_torch_prefill.py``; here it is checked only where the two tiers
+meet (the dispatch on the CPU, and the kernels on the card).
 
 On the CPU every wrapper runs its plain PyTorch version.  Integer results
 (int8 codes, int32 accumulators) must be exactly equal.  The f32 outputs
@@ -21,7 +24,9 @@ import torch
 from repro.core.packing import pack_signs
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core.quantization import fdiv, quantize_act_int8
 from repro_torch.kernels import _cuda, ops, ref
+from repro_torch.kernels.decoupled_matmul import decoupled_matmul_plain
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from repro_torch.kernels.w1a8_gemv import (
     decoupled_gemv,
@@ -29,6 +34,7 @@ from repro_torch.kernels.w1a8_gemv import (
     w1a8_gemv,
     w1a8_gemv_plain,
 )
+from repro_torch.kernels.w1a8_matmul import w1a8_matmul_plain
 
 RTOL = 1e-6
 ROWS = [1, 5, 8, 32]
@@ -143,8 +149,9 @@ def test_cpu_plain_versions_touch_no_launch_counter():
 
 
 def test_cpu_dispatch_above_decode_tier_runs_plain_version():
-    """On the CPU, M > DECODE_M_MAX still runs (upstream switches to its
-    prefill-tier kernel there, whose epilogue rounds in another order)."""
+    """On the CPU, M > DECODE_M_MAX runs the prefill tier's plain version:
+    the act-quant pass, then upstream's prefill epilogue ``acc * (lam *
+    (1/gamma))`` (the decode tier computes ``acc * (lam / gamma)``)."""
     m = ops.DECODE_M_MAX + 8
     x, packed, _ = _inputs(m, 64, 48, seed=2)
     lam = _scalar(0.05)
@@ -152,6 +159,10 @@ def test_cpu_dispatch_above_decode_tier_runs_plain_version():
     want = jops.bit_linear_infer(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(lam),
                                  out_dtype=jnp.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=0)
+    xq, gamma = quantize_act_int8(_t(x))
+    acc = ref.int_matmul(xq, ref.unpack_ref(_t(packed))).float()
+    prefill_order = acc * (_t(lam) * fdiv(1.0, gamma))[:, None]
+    np.testing.assert_array_equal(got.numpy(), prefill_order.numpy())
 
 
 def test_zero_rows_stay_finite():
@@ -203,12 +214,23 @@ def test_cuda_kernels_equal_plain_versions(cuda_device, m):
 
 
 @pytest.mark.cuda
-def test_cuda_rows_above_decode_tier_raise(cuda_device):
-    x = torch.zeros((ops.DECODE_M_MAX + 1, 64), device=cuda_device)
-    packed = torch.zeros((8, 16), dtype=torch.uint8, device=cuda_device)
-    one = torch.ones((), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="w1a8_matmul"):
-        ops.bit_linear_infer(x, packed, one)
-    w8 = torch.zeros((64, 8), dtype=torch.int8, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="decoupled_matmul"):
-        ops.decoupled_first_gemm(x, packed, w8, one, one, one, one)
+@pytest.mark.parametrize("m", [33, 136])
+def test_cuda_rows_above_decode_tier_launch_prefill_kernels(cuda_device, m):
+    """Above DECODE_M_MAX rows ops launches w1a8_matmul / decoupled_matmul
+    (never a GEMV, never a plain version), equal to their plain versions."""
+    x, packed, w8 = _inputs(m, 256, 160, 32, seed=m)
+    dev = cuda_device
+    xs, ps, ws = _t(x).to(dev), _t(packed).to(dev), _t(w8).to(dev)
+    sc = [torch.tensor(v, device=dev) for v in (0.03, 410.0, 1.5, 0.25)]
+    before = dict(_cuda.LAUNCHES)
+    y = ops.bit_linear_infer(xs, ps, sc[0], out_dtype=torch.float32)
+    y1, y8 = ops.decoupled_first_gemm(xs, ps, ws, *sc, out_dtype=torch.bfloat16)
+    assert _cuda.LAUNCHES["w1a8_matmul"] == before.get("w1a8_matmul", 0) + 1
+    assert _cuda.LAUNCHES["decoupled_matmul"] == before.get("decoupled_matmul", 0) + 1
+    for name in ("w1a8_gemv", "decoupled_gemv"):
+        assert _cuda.LAUNCHES[name] == before.get(name, 0)
+    q, g = quantize_act_int8(xs)
+    torch.testing.assert_close(y, w1a8_matmul_plain(q, ps, g, sc[0]), rtol=0, atol=0)
+    p1, p8 = decoupled_matmul_plain(q, ps, ws, g, *sc, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(y1, p1, rtol=0, atol=0)
+    torch.testing.assert_close(y8, p8, rtol=0, atol=0)
