@@ -48,7 +48,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``rmsnorm_quant``, which no model calls) on the prompts' 8192 x 2048
    embeddings and holds it to its plain version;
 7. the status of every TPU kernel of the JAX package (ported and checked,
-   or still to port).
+   or still to port);
+8. continuous batching at full width: ``ContinuousBatchingEngine`` serves
+   the same model (16 slots, 512 positions, blocks of 16, chunks of 8,
+   greedy) to 32 requests from seed 0 (prompts of 16-384 tokens, 8-32 new
+   tokens; 16 arrive at tick 0, then one per tick) in five configurations:
+   (a) paged, one-shot admission; (b) paged, ``prefill_chunk`` 64; (c)
+   paged with ``REPRO_PAGED_ATTN=0`` (the gather path); (d) dense; (e)
+   paged with a third of the blocks (forces preemption).  Prints TTFT p50
+   and p99, tokens/s, ms per engine step, the device busy share (engine
+   steps 4-9 profiled on a second run), preemptions and launches per
+   kernel; fails unless (c) equals (d) and (e) equals (a) stream for
+   stream, (e) preempted, every pool drained, ``paged_attention`` launched
+   layers x (decode steps + chunked slices) times on (a), (b), (e) and
+   never on (c), (d), and every request finished once by length;
+9. the kernel route against the gather route on a 2-layer cut of the same
+   model and load: every paged attention call of (a) and (b) held to the
+   gather on the same inputs (``PA_ATOL``); (a) against (c) with their
+   decode-tier act-quant passes traced: each slot's decode logits within
+   ``LOGIT_TOL`` of their scale before its first act-quant code that
+   differs, and that code a rounding tie (as in phase 5); then the streams
+   (a) vs (c), (b) vs (a) and (a) vs ``DecodeEngine`` batch-1 (8
+   requests), equal or parting (with the top-2 gap of the teacher-forced
+   reference at the parting, against ``NEAR_TIE``), and how many phase 8
+   streams matched at full depth.
+
+Phase 3 also holds ``paged_attention`` against its plain version at phase
+8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
+a 64-token chunked slice) within ``PA_ATOL``, beside its bound and the
+time of ``scaled_dot_product_attention`` on the gathered view.
 
 The line before the last is the JSON record of the ported kernels; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -116,7 +144,8 @@ TPU_KERNELS = (
     ("w1a8_matmul", "src/repro/kernels/w1a8_matmul.py:92", "src/repro_torch/csrc/w1a8_matmul.cu"),
     ("decoupled_matmul", "src/repro/kernels/decoupled_matmul.py:108",
      "src/repro_torch/csrc/decoupled_matmul.cu"),
-    ("paged_attention", "src/repro/kernels/paged_attention.py:227", None),
+    ("paged_attention", "src/repro/kernels/paged_attention.py:227",
+     "src/repro_torch/csrc/paged_attention.cu"),
     ("rmsnorm_quant", "src/repro/kernels/rmsnorm_quant.py:51",
      "src/repro_torch/csrc/rmsnorm_quant.cu"),
 )
@@ -369,6 +398,110 @@ def phase_kernels(torch, peaks):
     return results
 
 
+# paged_attention at the shapes of phase 8 (pquant-1.3b: 32 heads of 64,
+# block 16, 512 positions a slot, 16 slots)
+PA_SLOTS, PA_MAX_LEN, PA_BLOCK, PA_HEADS, PA_HEAD_DIM = 16, 512, 16, 32, 64
+PA_CHUNK = 64  # the chunked-prefill slice of phase 8 (b)
+PA_GQA_KV_HEADS = 8
+PA_ATOL = 1e-5  # kernel vs plain version: the softmax reduction is reassociated
+F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
+
+
+def phase_paged_attention(torch, peaks, results):
+    """``paged_attention`` against its plain version on the card at the
+    shapes phase 8 gives it: decode (T = 1) over 16 slots with ragged
+    resident lengths up to 512, in f32 and bf16 pools and with GQA (32 query
+    heads on 8 KV heads); and a chunked-prefill slice (T = 64 for one slot
+    at position 256, the other 15 slots masked, as the engine sends it).
+    Holds max |err| <= PA_ATOL; times the kernel (CUDA events, pools
+    rotated past the 50 MB L2), the plain version, and the library call
+    ``scaled_dot_product_attention`` on the already-gathered dense view
+    under the same mask (the gather excluded: it is the work the kernel
+    avoids).  Bound: the live K/V bytes plus q and the output over the
+    card's memory rate, or the f32 operations over F32_PEAK."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+
+    bw = peaks[0]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    b, bs, d = PA_SLOTS, PA_BLOCK, PA_HEAD_DIM
+    mb = PA_MAX_LEN // bs
+    nb = b * mb
+    lens_decode = torch.randint(1, PA_MAX_LEN + 1, (b,), generator=torch.Generator().manual_seed(SEED))
+    lens_decode[0] = PA_MAX_LEN
+    cases = (
+        ("decode", 1, PA_HEADS, PA_HEADS, torch.float32),
+        ("decode", 1, PA_HEADS, PA_HEADS, torch.bfloat16),
+        ("decode", 1, PA_HEADS, PA_GQA_KV_HEADS, torch.float32),
+        ("chunk", PA_CHUNK, PA_HEADS, PA_HEADS, torch.float32),
+        ("chunk", PA_CHUNK, PA_HEADS, PA_HEADS, torch.bfloat16),
+    )
+    for kind, t, hq, hkv, kv_dtype in cases:
+        if kind == "decode":
+            kv_lens = lens_decode.clone()
+            start = kv_lens - 1
+        else:  # one admitting slot; the others masked out (start 0, length 0)
+            start = torch.zeros((b,), dtype=torch.int64)
+            start[0] = 256
+            kv_lens = torch.ones((b,), dtype=torch.int64)
+            kv_lens[0] = 256 + t
+        start_d = start.to(torch.int32).to(dev)
+        lens_d = kv_lens.to(torch.int32).to(dev)
+        q = torch.randn((b, t, hq, d), generator=gen, device=dev)
+        pool_bytes = nb * bs * hkv * d * (4 if kv_dtype == torch.float32 else 2)
+        n_copies = max(2, -(-120 * 2**20 // (2 * pool_bytes)))
+        pools = [tuple(torch.randn((nb, bs, hkv, d), generator=gen, device=dev).to(kv_dtype)
+                       for _ in range(2)) for _ in range(n_copies)]
+        table = torch.stack([torch.randperm(nb, generator=gen, device=dev)[:mb]
+                             for _ in range(b)]).to(torch.int32)
+        kp, vp = pools[0]
+        got = paged_attention(q, kp, vp, table, start_d, lens_d)
+        want = paged_attention_plain(q, kp, vp, table, start_d, lens_d)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or err > PA_ATOL:
+            raise AssertionError(f"paged_attention {kind} {kv_dtype}: max |err| {err} > {PA_ATOL}")
+        # attended columns: row t of slot b sees min(start + t + 1, kv_len) of them
+        rows = torch.arange(t)[None, :]
+        cols = torch.minimum(start[:, None] + rows + 1, kv_lens[:, None]).sum().item() * hkv
+        live = int(kv_lens.sum().item())
+        elem = 4 if kv_dtype == torch.float32 else 2
+        nbytes = 2 * live * hkv * d * elem + 2 * q.numel() * 4 + table.numel() * 4 + 8 * b
+        nflops = 4 * d * cols * (hq // hkv)
+        t_b, t_o = nbytes / bw * 1e3, nflops / F32_PEAK * 1e3
+        bound = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+        # the library yardstick on the gathered dense (B, L, H, D) view
+        kd = kp[table.long()].reshape(b, -1, hkv, d).float().transpose(1, 2)
+        vd = vp[table.long()].reshape(b, -1, hkv, d).float().transpose(1, 2)
+        col = torch.arange(kd.shape[2], device=dev)
+        pos_rows = start_d.long()[:, None] + torch.arange(t, device=dev)[None]
+        mask = ((col[None, None, :] <= pos_rows[:, :, None])
+                & (col[None, None, :] < lens_d.long()[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        lib = F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=hq != hkv)
+        lib_err = (lib.transpose(1, 2) - want).abs().max().item()
+        ms = _time(torch, lambda i: paged_attention(q, *pools[i % n_copies], table, start_d,
+                                                    lens_d), 50)
+        plain_ms = _time(torch, lambda i: paged_attention_plain(q, kp, vp, table, start_d,
+                                                                lens_d), 3, 3)
+        library_ms = _time(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, enable_gqa=hq != hkv), 50)
+        tag = f"{kind} T={t} Hq={hq} Hkv={hkv} {str(kv_dtype).split('.')[-1]}"
+        log(f"[3] paged_attention {tag}: max|err| {err:.3g} (sdpa {lib_err:.3g}), kernel "
+            f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bound {bound[0] * 1e3:.3f} us "
+            f"({bound[1]}; {nbytes / 1e6:.2f} MB, {nflops / 1e9:.3f} GFLOP), sdpa on the "
+            f"gathered view {library_ms * 1e3:.2f} us")
+        r = results.setdefault("paged_attention", {"max_abs_err": 0.0, "rows": {}})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["rows"][(kind, t, hq, hkv, str(kv_dtype).split(".")[-1])] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=library_ms)
+        del pools, kd, vd
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the slice end to end
 # ---------------------------------------------------------------------------
@@ -568,13 +701,15 @@ class _PlainKernels:
             setattr(self._ops, n, fn)
 
 
-def _compare_act_quant(torch, card, cpu) -> dict:
+def _compare_act_quant(torch, card, cpu, names=("card", "cpu")) -> dict:
     """Where two traces of one run part: the first pass whose float input
     differs, the first whose int8 codes differ (with the scaled values x *
     gamma of its first differing code on each side), and the largest float
-    difference, relative to the pass's max |x|, up to that pass."""
+    difference, relative to the pass's max |x|, up to that pass.  ``names``
+    label the two runs."""
+    a, b = names
     if len(card) != len(cpu):
-        raise AssertionError(f"{len(card)} act-quant passes on the card, {len(cpu)} on the cpu")
+        raise AssertionError(f"{len(card)} act-quant passes on the {a}, {len(cpu)} on the {b}")
     first_x = first_q = None
     flips, noise = 0, 0.0
     for i, ((xa, qa, ga), (xb, qb, gb)) in enumerate(zip(card, cpu)):
@@ -591,11 +726,11 @@ def _compare_act_quant(torch, card, cpu) -> dict:
     line = f"{len(card)} act-quant passes, {flips} codes differ in all"
     if first_x:
         line += (f"; float inputs first differ at pass {first_x[0]} {first_x[1]} "
-                 f"(max |card - cpu| {first_x[2]:.3g})")
+                 f"(max |{a} - {b}| {first_x[2]:.3g})")
     if first_q:
         line += (f"; codes first differ at pass {first_q[0]} {first_q[1]} ({first_q[2]} of "
-                 f"them; the first scaled to {first_q[3]!r} on the card, {first_q[4]!r} on "
-                 f"the cpu); float inputs up to there differ by at most {noise:.3g} of max|x|")
+                 f"them; the first scaled to {first_q[3]!r} on the {a}, {first_q[4]!r} on "
+                 f"the {b}); float inputs up to there differ by at most {noise:.3g} of max|x|")
     return {"flips": flips, "first_code": first_q, "noise": noise, "line": line}
 
 
@@ -747,6 +882,474 @@ def phase_prefill(torch, params, cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phases 8 and 9: continuous batching on the paged KV pool
+# ---------------------------------------------------------------------------
+
+CB_SLOTS, CB_MAX_LEN, CB_BLOCK, CB_CHUNK, CB_PREFILL_CHUNK = 16, 512, 16, 8, 64
+CB_REQUESTS, CB_FIRST_WAVE = 32, 16  # 16 arrive at tick 0, then one per tick
+CB_PROMPT, CB_NEW = (16, 384), (8, 32)  # inclusive ranges of the load
+CB_PROFILE_STEPS = (4, 6)  # engine steps [a, b) profiled for the device busy share
+NEAR_TIE = 1e-3  # top-2 logit gap under which two greedy streams may part
+CB_CONFIGS = (  # name, layout, prefill_chunk, pool size (fraction of default), REPRO_PAGED_ATTN
+    ("a", "paged", None, 1, "auto"),
+    ("b", "paged", CB_PREFILL_CHUNK, 1, "auto"),
+    ("c", "paged", None, 1, "0"),
+    ("d", "dense", None, 1, "auto"),
+    ("e", "paged", None, 3, "auto"),
+)
+
+
+def _cb_load(vocab: int):
+    """The phase 8 load from SEED: (uid, prompt, max_new_tokens, arrival)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(CB_PROMPT[0], CB_PROMPT[1] + 1, CB_REQUESTS)
+    news = rng.integers(CB_NEW[0], CB_NEW[1] + 1, CB_REQUESTS)
+    return [(i, rng.integers(0, vocab, int(n)).astype(np.int32), int(m),
+             float(max(0, i - CB_FIRST_WAVE + 1)))
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
+class _PagedEnv:
+    """Sets ``REPRO_PAGED_ATTN`` while active (None leaves it unset)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        import os
+
+        self._old = os.environ.pop("REPRO_PAGED_ATTN", None)
+        if self.value is not None:
+            os.environ["REPRO_PAGED_ATTN"] = self.value
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        os.environ.pop("REPRO_PAGED_ATTN", None)
+        if self._old is not None:
+            os.environ["REPRO_PAGED_ATTN"] = self._old
+
+
+def _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div):
+    from repro_torch.serve import ContinuousBatchingEngine, SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=CB_NEW[1])
+    default = CB_SLOTS * CB_MAX_LEN // CB_BLOCK
+    eng = ContinuousBatchingEngine(
+        params, cfg, CB_SLOTS, CB_MAX_LEN, greedy, layout=layout, block_size=CB_BLOCK,
+        num_blocks=default // pool_div, chunk=CB_CHUNK, prefill_chunk=prefill_chunk,
+        device=torch.device("cuda"))
+    for uid, prompt, new, arrival in _cb_load(cfg.vocab_size):
+        eng.submit(prompt, max_new_tokens=new, seed=uid, uid=uid, arrival=arrival)
+    counts = {"chunks": 0, "slices": 0, "owners": []}
+    run_chunk, prefill_tick = eng._run_chunk, eng._prefill_tick
+
+    def chunk():  # counts decode chunks and notes each slot's request
+        counts["chunks"] += 1
+        counts["owners"].append([None if rs is None else rs.request.uid for rs in eng._slots])
+        return run_chunk()
+
+    def tick():
+        before = eng.prefill_tokens
+        out = prefill_tick()
+        counts["slices"] += eng.prefill_tokens != before
+        return out
+
+    eng._run_chunk, eng._prefill_tick = chunk, tick
+    return eng, counts
+
+
+def _cb_run(torch, params, cfg, name, layout, prefill_chunk, pool_div, env):
+    """One phase 8 run: serve the load to the end on a fresh engine, each
+    engine step ended by a synchronize.  Returns the run's record, the
+    streams (uid -> tokens), the finish reasons and, per decode chunk, the
+    request in each slot."""
+    from repro_torch.kernels import _cuda
+
+    with _PagedEnv(env):
+        eng, counts = _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        steps, finished = [], []
+        t_start = time.perf_counter()
+        while eng._queue or eng._live() or eng._pending_finished:
+            now, t0 = eng.now(), time.perf_counter()
+            finished.extend(eng.step())
+            torch.cuda.synchronize()
+            steps.append((now, t0, time.perf_counter()))
+        wall = time.perf_counter() - t_start
+        launches = dict(_cuda.LAUNCHES)
+    # wall-clock TTFT: from the start of the first step at or after the
+    # arrival tick to the end of the step that sampled the first token
+    ttft = []
+    for f in finished:
+        t_arr = min(t0 for now, t0, _ in steps if now >= f.arrival)
+        t_first = max(t1 for now, _, t1 in steps if now == f.first_token_at)
+        ttft.append((t_first - t_arr) * 1e3)
+    rec = {
+        "name": name, "layout": layout, "prefill_chunk": prefill_chunk,
+        "num_blocks": eng.num_blocks, "paged_attn": env, "wall_s": wall,
+        "engine_steps": len(steps), "ms_per_step": wall / len(steps) * 1e3,
+        "tokens": eng.tokens_generated, "tokens_per_s": eng.tokens_generated / wall,
+        "ttft_ms_p50": statistics.quantiles(ttft, n=100, method="inclusive")[49],
+        "ttft_ms_p99": statistics.quantiles(ttft, n=100, method="inclusive")[98],
+        "ttft_ticks_p50": sorted(f.first_token_at - f.arrival for f in finished)[
+            len(finished) // 2],
+        "preemptions_total": eng.preemptions, "decode_chunks": counts["chunks"],
+        "decode_steps": counts["chunks"] * CB_CHUNK, "chunked_slices": counts["slices"],
+        "host_transfers": eng.host_transfers, "launches": launches,
+        "free_blocks": None if eng.allocator is None else eng.allocator.free_count,
+        "step_walls": [t1 - t0 for _, t0, t1 in steps],
+    }
+    streams = {f.uid: f.tokens for f in finished}
+    reasons = [f.finish_reason for f in finished]
+    del eng
+    torch.cuda.empty_cache()
+    return rec, streams, reasons, counts["owners"]
+
+
+def _cb_busy(torch, params, cfg, layout, prefill_chunk, pool_div, env, step_walls):
+    """Device busy share of engine steps CB_PROFILE_STEPS: a second,
+    deterministic run of the same load is profiled over those steps
+    (device activity only, read from the exported trace: parsing every
+    host op of a window this long takes the profiler minutes); the device
+    time of its kernels, copies and sets is divided by the same steps'
+    wall time in the unprofiled run (the profiler slows the host, not the
+    kernels).  Returns (busy share, the six kernels with the most device
+    time: [(name, (us, launches))])."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    lo, hi = CB_PROFILE_STEPS
+    with _PagedEnv(env):
+        eng, _ = _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div)
+        for _ in range(lo):
+            eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(hi - lo):
+                eng.step()
+                torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            us, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (us + e.get("dur", 0), n + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    if busy_us == 0:
+        raise AssertionError("the profiler recorded no device activity")
+    del eng
+    torch.cuda.empty_cache()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return busy_us / 1e6 / sum(step_walls[lo:hi]), top
+
+
+def phase_continuous(torch, params, cfg):
+    """Phase 8: ``ContinuousBatchingEngine`` serving full-width pquant-1.3b
+    (packed, greedy) to CB_REQUESTS ragged requests in five
+    configurations; fails unless (c) equals (d) and (e) equals (a) stream
+    for stream, (e) preempted, every paged pool drains, paged_attention
+    launched layers x (decode steps + chunked slices) times on (a), (b),
+    (e) and never on (c), (d), and every request finished once by length.
+    Returns ({config: record}, {config: streams})."""
+    recs, streams = {}, {}
+    for name, layout, pc, div, env in CB_CONFIGS:
+        rec, st, reasons, _ = _cb_run(torch, params, cfg, name, layout, pc, div, env)
+        rec["device_busy_share"], top = _cb_busy(torch, params, cfg, layout, pc, div, env,
+                                                 rec.pop("step_walls"))
+        recs[name], streams[name] = rec, st
+        log(f"[8] ({name}) {json.dumps(rec)}")
+        lo, hi = CB_PROFILE_STEPS
+        log(f"[8] ({name}) device time by kernel over engine steps {lo}-{hi - 1}: " + "; ".join(
+            f"{us / 1e3:.3f} ms {n}x {k[:60]}" for k, (us, n) in top))
+        if sorted(st) != list(range(CB_REQUESTS)) or set(reasons) != {"length"} \
+                or len(reasons) != CB_REQUESTS:
+            raise AssertionError(f"({name}): requests did not each finish once by length")
+        if rec["free_blocks"] is not None and rec["free_blocks"] != rec["num_blocks"]:
+            raise AssertionError(f"({name}): {rec['free_blocks']} of {rec['num_blocks']} "
+                                 "blocks free after the run")
+        pa = rec["launches"].get("paged_attention", 0)
+        want = 0 if env == "0" or layout == "dense" else \
+            cfg.n_layers * (rec["decode_steps"] + rec["chunked_slices"])
+        if pa != want:
+            raise AssertionError(f"({name}): paged_attention launched {pa} times, want {want}")
+    same = lambda x, y: all((streams[x][u] == streams[y][u]).all() for u in streams[x])
+    if not same("c", "d"):
+        raise AssertionError("(c) paged gather and (d) dense streams differ")
+    if not same("e", "a") or recs["e"]["preemptions_total"] == 0:
+        raise AssertionError("(e) did not preempt, or its streams differ from (a)")
+    log("[8] (c) == (d) and (e) == (a) stream for stream; every paged pool drained")
+    return recs, streams
+
+
+def _first_parting(a, b):
+    """Index of the first token where two streams differ, or None."""
+    n = min(len(a), len(b))
+    diff = [i for i in range(n) if a[i] != b[i]]
+    return diff[0] if diff else (None if len(a) == len(b) else n)
+
+
+def _near_tie(torch, params, cfg, prompt, ref, k) -> float:
+    """Top-2 logit gap at step k of the reference stream, teacher-forced
+    through ``forward`` (prompt + ref[:k])."""
+    from repro_torch.models import api
+
+    toks = torch.as_tensor(list(prompt) + list(ref[:k]), device="cuda")[None].long()
+    logits, _ = api.forward(params, {"tokens": toks}, cfg)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def _compare_streams(torch, params, cfg, load, x, y, label) -> int:
+    """Streams x (the reference) vs y, uid -> tokens: prints how many are
+    equal and, for each that parts, the top-2 gap of the teacher-forced
+    reference at the first parted token against NEAR_TIE.  Returns how
+    many are equal."""
+    prompts = {uid: p for uid, p, _, _ in load}
+    equal, ties = 0, 0
+    for uid in y:
+        k = _first_parting(x[uid], y[uid])
+        if k is None:
+            equal += 1
+            continue
+        gap = _near_tie(torch, params, cfg, prompts[uid], x[uid], k)
+        ties += gap < NEAR_TIE
+        log(f"[9] {label}: request {uid} parts at token {k} ({x[uid][k]} vs {y[uid][k]}), "
+            f"top-2 gap {gap:.3g}{' (a near-tie)' if gap < NEAR_TIE else ''}")
+    log(f"[9] {label}: {equal} of {len(y)} streams equal; of the {len(y) - equal} that part, "
+        f"{ties} part at a near-tie (gap < {NEAR_TIE})")
+    return equal
+
+
+def _first_flips_by_slot(torch, passes_a, passes_b, steps) -> dict:
+    """Per slot (a row of the CB_SLOTS-row decode passes), where two
+    decode-tier act-quant traces of one engine trace first give a
+    different int8 code while the slot decodes: slot -> (pass index,
+    scaled value x * gamma of that code in a and in b, the largest float
+    difference of the slot's inputs up to and in that pass, relative to its
+    max |x|).  ``steps`` holds each decode step's (active mask, passes so
+    far); an idle slot's row is skipped (its output is discarded, and its
+    stale block table may name blocks another slot now writes).  Slots are
+    independent rows: a code that differs in one slot moves no other
+    slot's numbers."""
+    if len(passes_a) != len(passes_b):
+        raise AssertionError(f"{len(passes_a)} vs {len(passes_b)} act-quant passes")
+    flips, noise = {}, torch.zeros(CB_SLOTS, dtype=torch.float64)
+    step = 0
+    for i, ((xa, qa, ga), (xb, qb, gb)) in enumerate(zip(passes_a, passes_b)):
+        while step < len(steps) and steps[step][1] <= i:
+            step += 1
+        if xa.shape[0] != CB_SLOTS or step == len(steps):
+            continue  # an admission prefill's rows are tokens, not slots
+        active = steps[step][0]
+        rel = ((xa - xb).abs().amax(dim=1) / xb.abs().amax(dim=1)).double().cpu()
+        diff = (qa != qb)
+        rows = diff.any(dim=1).cpu()
+        for slot in range(CB_SLOTS):
+            if slot in flips or not active[slot]:
+                continue
+            noise[slot] = max(noise[slot], rel[slot])
+            if rows[slot]:
+                c = diff[slot].nonzero()[0, 0].item()
+                flips[slot] = (i, (xa[slot, c] * ga[slot]).item(),
+                               (xb[slot, c] * gb[slot]).item(), noise[slot].item())
+    return flips
+
+
+class _DecodeLogits:
+    """Records each decode step's (B, V) logits and active mask (on the
+    host) while active, with ``count()`` at that step (the act-quant passes
+    so far): the scheduler's ``api.decode_step`` is wrapped."""
+
+    def __init__(self, count):
+        self.count, self.steps = count, []
+
+    def __enter__(self):
+        from repro_torch.models import api
+
+        self._api, self._orig = api, api.decode_step
+
+        def traced(params, tokens, caches, pos, cfg, active=None):
+            logits, caches = self._orig(params, tokens, caches, pos, cfg, active)
+            self.steps.append((logits[:, -1].float().cpu(), active.cpu(), self.count()))
+            return logits, caches
+
+        api.decode_step = traced
+        return self
+
+    def __exit__(self, *exc):
+        self._api.decode_step = self._orig
+
+
+class _DecodeActQuantTrace:
+    """Records every decode-tier act-quant pass while active: the float
+    rows the GEMV kernels quantize in their prologue (``ops``'s
+    ``_bit_linear_decode`` / ``_decoupled_decode`` are wrapped), with the
+    codes and scales the plain quantizer gives them (the kernels' are the
+    same bit for bit), kept on the device."""
+
+    def __enter__(self):
+        from repro_torch.core.quantization import quantize_act_int8
+        from repro_torch.kernels import ops
+
+        self.passes, self._ops = [], ops
+        self._orig = {n: getattr(ops, n) for n in ("_bit_linear_decode", "_decoupled_decode")}
+
+        def wrap(fn):
+            def traced(xf, *args):
+                x = xf.float().clone()
+                self.passes.append((x, *quantize_act_int8(x)))
+                return fn(xf, *args)
+            return traced
+
+        for n, fn in self._orig.items():
+            setattr(ops, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self._ops, n, fn)
+
+
+class _PagedVsGather:
+    """While active, every paged attention call also runs the gather path
+    on the same inputs; keeps the largest |kernel - gather| over the rows
+    that carry a token (a ragged slice's pad rows attend other columns by
+    design)."""
+
+    def __init__(self, torch):
+        self.torch, self.max_err, self.calls = torch, 0.0, 0
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self._mod, self._orig = attention, attention._paged_scores
+        torch = self.torch
+
+        def checked(q, kpool, vpool, table, posv, posmat, n_valid, read_to):
+            out = self._orig(q, kpool, vpool, table, posv, posmat, n_valid, read_to)
+            with _PagedEnv("0"):
+                ref = self._orig(q, kpool, vpool, table, posv, posmat, n_valid, read_to)
+            t = q.shape[1]
+            rows = torch.arange(t, device=q.device)[None, :] < torch.as_tensor(
+                n_valid, device=q.device).reshape(-1, 1)
+            err = ((out - ref).abs().amax(dim=(2, 3)) * rows).max().item()
+            self.max_err, self.calls = max(self.max_err, err), self.calls + 1
+            return out
+
+        attention._paged_scores = checked
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._paged_scores = self._orig
+
+
+def phase_continuous_cut(torch, params, cfg, full_streams):
+    """Phase 9: the kernel route against the gather route on a
+    CUT_LAYERS-layer full-width cut, on the phase 8 load.
+
+    * Every paged attention call of the kernel runs, (a) (decode steps)
+      and (b) (decode steps and 64-token slices), is held to the gather
+      route on the same inputs within PA_ATOL: the kernel's own tolerance,
+      on the engine's data.
+    * (a) against (c), the gather route, with both runs' decode-tier
+      act-quant passes traced per slot (slots are independent rows): each
+      slot's decode logits agree within LOGIT_TOL of their scale at every
+      step before the slot's first act-quant code that differs between the
+      runs, and that code is a rounding tie broken by the attention's float
+      noise (scaled values within BOUNDARY_TOL, the slot's float inputs up
+      to it within FLOAT_NOISE of max|x|), as in phase 5.  With no
+      differing code every stream must be equal.
+    * Streams (a) vs (c), (b) vs (a) and (a) vs the port's ``DecodeEngine``
+      batch-1 (8 requests): how many are equal, and for each parting the
+      top-2 gap of the teacher-forced reference at that token, against
+      NEAR_TIE.  Reported, not held: once one code lands on the other side
+      of a tie, the difference spreads through the slot's later steps and
+      its greedy stream can part at wider gaps.
+
+    Then prints how many phase 8 streams matched at full depth."""
+    from repro_torch.serve import DecodeEngine, SamplerConfig
+
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    gpu = dict(params)
+    gpu["segments"] = [_tree(lambda t: t[:CUT_LAYERS].contiguous(), params["segments"][0])]
+    load = _cb_load(cfg.vocab_size)
+    runs, logits, quant = {}, {}, {}
+    for name, pc in (("a", None), ("b", CB_PREFILL_CHUNK)):
+        with _PagedVsGather(torch) as check:
+            if name == "a":
+                with _DecodeActQuantTrace() as aq, _DecodeLogits(lambda: len(aq.passes)) as lg:
+                    _, runs["a"], _, owners = _cb_run(torch, gpu, cut, "a", "paged", None, 1,
+                                                      "1")
+                logits["1"], quant["1"] = lg.steps, aq.passes
+            else:
+                _, runs["b"], _, _ = _cb_run(torch, gpu, cut, "b", "paged", pc, 1, "1")
+        log(f"[9] {CUT_LAYERS}-layer cut, kernel route ({name}): {check.calls} paged attention "
+            f"calls, max |kernel - gather| on the same inputs {check.max_err:.3g} "
+            f"(tolerance {PA_ATOL})")
+        if check.max_err > PA_ATOL:
+            raise AssertionError("paged_attention and the gather path disagree in the trace")
+    with _DecodeActQuantTrace() as aq, _DecodeLogits(lambda: len(aq.passes)) as lg:
+        _, runs["c"], _, _ = _cb_run(torch, gpu, cut, "c", "paged", None, 1, "0")
+    logits["0"], quant["0"] = lg.steps, aq.passes
+    if len(logits["1"]) != len(logits["0"]):
+        raise AssertionError("the kernel and gather runs took different engine traces")
+    flips = _first_flips_by_slot(torch, quant["1"], quant["0"],
+                                 [(aa, n) for _, aa, n in logits["1"]])
+    del quant
+    worst, compared = 0.0, 0
+    for (la, aa, n_passes), (lc, _, _) in zip(logits["1"], logits["0"]):
+        for slot in aa.nonzero().flatten().tolist():
+            if slot in flips and n_passes > flips[slot][0]:
+                continue  # this slot's step read its first differing code
+            scale = lc[slot].abs().max().item()
+            worst = max(worst, (la[slot] - lc[slot]).abs().max().item() / scale)
+            compared += 1
+    log(f"[9] decode logits, kernel vs gather route, each slot before its first differing "
+        f"act-quant code: {compared} (step, slot) rows, max |diff| / max |logits| "
+        f"{worst:.3g} (tolerance {LOGIT_TOL})")
+    if worst > LOGIT_TOL:
+        raise AssertionError("decode logits of the kernel and gather routes disagree")
+    if not flips:
+        if any((runs["a"][u] != runs["c"][u]).any() for u in runs["a"]):
+            raise AssertionError("no act-quant code differs, yet the streams do")
+        log("[9] no decode-tier act-quant code differs between the routes")
+    else:
+        gap = max(abs(f[1] - f[2]) for f in flips.values())
+        noise = max(f[3] for f in flips.values())
+        log(f"[9] decode-tier act-quant codes differ in {len(flips)} of {CB_SLOTS} slots; each "
+            f"slot's first differing code is a rounding tie: scaled values at most {gap:.3g} "
+            f"apart (tolerance {BOUNDARY_TOL}), float inputs up to it within {noise:.3g} of "
+            f"max|x| (tolerance {FLOAT_NOISE}); a slot's logits part from there")
+        if gap > BOUNDARY_TOL or noise > FLOAT_NOISE:
+            raise AssertionError("kernel and gather routes part beyond a rounding tie")
+    _compare_streams(torch, gpu, cut, load, runs["a"], runs["c"], "(a) vs (c), 2 layers")
+    _compare_streams(torch, gpu, cut, load, runs["a"], runs["b"], "(b) vs (a), 2 layers")
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=CB_NEW[1])
+    dec = DecodeEngine(gpu, cut, max_len=CB_MAX_LEN, device=torch.device("cuda"))
+    ref = {uid: dec.generate(p[None], dataclasses.replace(greedy, max_new_tokens=n))[0]
+           for uid, p, n, _ in load[:8]}
+    _compare_streams(torch, gpu, cut, load, ref, {u: runs["a"][u] for u in ref},
+                     "(a) vs DecodeEngine batch-1, 2 layers")
+    fa, fb, fc = full_streams["a"], full_streams["b"], full_streams["c"]
+    dec = DecodeEngine(params, cfg, max_len=CB_MAX_LEN, device=torch.device("cuda"))
+    ref = {uid: dec.generate(p[None], dataclasses.replace(greedy, max_new_tokens=n))[0]
+           for uid, p, n, _ in load[:8]}
+    eq = lambda x, y, us: sum(bool((x[u] == y[u]).all()) for u in us)
+    log(f"[9] at {cfg.n_layers} layers: (a) vs (c) {eq(fa, fc, fa)} of {len(fa)} streams "
+        f"equal, (b) vs (a) {eq(fa, fb, fa)} of {len(fa)}, (a) vs DecodeEngine batch-1 "
+        f"{eq(fa, ref, ref)} of {len(ref)}")
+
+
+# ---------------------------------------------------------------------------
 # Decode timing of two checkouts, side by side
 # ---------------------------------------------------------------------------
 
@@ -827,11 +1430,24 @@ def main(torch) -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'}) "
         f"into {_cuda.build_dir()}")
 
+    def lap(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
     results = phase_kernels(torch, peaks)
+    phase_paged_attention(torch, peaks, results)
+    lap("[3]")
     params, cfg, prompts, launches = phase_slice(torch)
+    lap("[4]")
     phase_cut(torch, params, cfg, prompts)
+    lap("[5]")
     p_launches, p_summary = phase_prefill(torch, params, cfg)
     log(f"[6] summary: {json.dumps(p_summary)}")
+    lap("[6]")
+    cb_recs, cb_streams = phase_continuous(torch, params, cfg)
+    lap("[8]")
+    phase_continuous_cut(torch, params, cfg, cb_streams)
+    lap("[9]")
+    c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
                "status": "ported" if src else "to port",
@@ -842,8 +1458,9 @@ def main(torch) -> int:
     # each kernel's row in the record: the shape its path runs most (the
     # decode GEMVs at the decode tier's 4 rows; the prefill kernels at the
     # 8192 prefill rows, against q/k/v/o for w1a8_matmul and on the
-    # path's f32 rows for rmsnorm_quant); launches from each path's counted
-    # run (int8_matmul runs on both)
+    # path's f32 rows for rmsnorm_quant; paged_attention at phase 8's
+    # decode shape); launches from each path's counted run: [4] decode,
+    # [6] prefill, [8] continuous batching in configuration (a)
     main_key = {
         "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
@@ -851,6 +1468,7 @@ def main(torch) -> int:
         "w1a8_matmul": (PREFILL_MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_matmul": (PREFILL_MAIN_ROWS,) + DECOUPLED_SHAPE,
         "rmsnorm_quant": (PREFILL_MAIN_ROWS, D_MODEL, "f32"),
+        "paged_attention": ("decode", 1, PA_HEADS, PA_HEADS, "float32"),
     }
     record = []
     for n, rep, src in TPU_KERNELS:
@@ -858,7 +1476,8 @@ def main(torch) -> int:
             continue
         res = results[n]
         key = main_key[n]
-        by_path = {"decode": launches.get(n, 0), "prefill": p_launches.get(n, 0)}
+        by_path = {"decode": launches.get(n, 0), "prefill": p_launches.get(n, 0),
+                   "continuous": c_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -35,6 +35,7 @@ SOURCES = {
     "w1a8_matmul": "w1a8_matmul.cu",
     "decoupled_matmul": "decoupled_matmul.cu",
     "rmsnorm_quant": "rmsnorm_quant.cu",
+    "paged_attention": "paged_attention.cu",
 }
 HEADERS = ("gemv_common.cuh", "tile_gemm.cuh")
 
@@ -169,7 +170,8 @@ def scalar_ptr(t: "torch.Tensor", device: int, what: str) -> int:
     return t.data_ptr()
 
 
-# the float types the prefill-tier kernels read or write, by launch code
+# the float types the prefill-tier and attention kernels read or write, by
+# launch code
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -12,6 +12,13 @@ Tiers, as upstream:
   ``out_dtype`` directly;
 * ``int8_matmul`` serves every M.
 
+Paged attention (block-table attention over the serving KV pool):
+``paged_attention_enabled`` / ``paged_attention_supported`` gate the model
+stack's paged branches onto ``paged_attention``; otherwise they gather the
+pool and run the dense SDPA (``models.attention._paged_scores``).  The
+CUDA kernel takes no pages-per-step tile, so ``paged_tiles`` /
+``sweep_paged_tiles`` (upstream's autotune) are not ported.
+
 A CPU tensor runs the kernels' plain PyTorch versions, in each Pallas
 kernel's order of operations; a CUDA tensor launches the hand-written
 kernels, and a shape a kernel cannot take raises ``ValueError`` — there
@@ -23,11 +30,14 @@ internal, with zero codes and unit scale, as upstream's ``_pad_rows`` /
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from repro_torch.core.quantization import quantize_act_int8
 from repro_torch.kernels.decoupled_matmul import decoupled_matmul
 from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.paged_attention import paged_attention as _paged_attention
 from repro_torch.kernels.rmsnorm_quant import rmsnorm_quant
 from repro_torch.kernels.w1a8_gemv import decoupled_gemv, w1a8_gemv
 from repro_torch.kernels.w1a8_matmul import w1a8_matmul
@@ -116,3 +126,43 @@ def decoupled_first_gemm(x: Tensor, w1_packed: Tensor, w8_q: Tensor, lam: Tensor
     tier = _decoupled_decode if xf.shape[0] <= DECODE_M_MAX else _decoupled_prefill
     y1, y8 = tier(xf, w1_packed, w8_q, lam, w8scale, alpha, beta, out_dtype)
     return y1.reshape(*lead, -1), y8.reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention (block-table attention over the serving KV pool)
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_enabled(device=None) -> bool:
+    """Whether the model stack's paged branches run the paged-attention
+    kernel route for tensors on ``device``.
+
+    ``REPRO_PAGED_ATTN=0`` forces the gather + SDPA path, ``=1`` the kernel
+    route (on CPU tensors that is the kernel's plain version), and the
+    default (``auto``) takes the kernel for CUDA tensors and, as upstream
+    off the TPU, the gather path for CPU tensors: the CPU serving suites
+    rely on its bitwise-dense numerics."""
+    v = os.environ.get("REPRO_PAGED_ATTN", "auto")
+    if v == "0":
+        return False
+    if v == "1":
+        return True
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def paged_attention_supported(block_size: int, head_dim: int, n_q_heads: int,
+                              n_kv_heads: int) -> bool:
+    """Upstream's static shape gate (callers take the gather path on
+    False): GQA grouping divides evenly and page/head tiles are multiples
+    of 8."""
+    return n_q_heads % n_kv_heads == 0 and block_size % 8 == 0 and head_dim % 8 == 0
+
+
+def paged_attention(q: Tensor, kpool: Tensor, vpool: Tensor, table: Tensor, start: Tensor,
+                    kv_lens: Tensor, scale: float | None = None) -> Tensor:
+    """Block-table attention over the paged KV pool (online softmax in f32,
+    GQA/MQA grouping; T = 1 decode, T > 1 chunk): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (a shape it cannot take
+    raises ``ValueError``)."""
+    with annotate("kernels/paged_attention"):
+        return _paged_attention(q.contiguous(), kpool, vpool, table, start, kv_lens, scale)

@@ -1,6 +1,7 @@
 """Port of ``repro.kernels.ref``: plain PyTorch oracles for the packed
-linears' kernels (and the matmul oracles they are built from); the
-``rmsnorm_quant`` oracle is ``kernels.rmsnorm_quant.rmsnorm_quant_plain``.
+linears' kernels (and the matmul oracles they are built from) and for
+paged attention; the ``rmsnorm_quant`` oracle is
+``kernels.rmsnorm_quant.rmsnorm_quant_plain``.
 
 The order of operations is upstream ``ref.py``'s, which is not always the
 kernels' (``w1a8_matmul_ref`` computes ``acc * lam / gamma`` where the
@@ -79,3 +80,28 @@ def decoupled_gemv_ref(x, w1_packed, w8_i8, lam, w8scale, alpha, beta,
     return decoupled_matmul_ref(
         xq, w1_packed, w8_i8, gamma, lam, w8scale, alpha, beta, out_dtype=out_dtype
     )
+
+
+def paged_attention_ref(q: Tensor, kpool: Tensor, vpool: Tensor, table: Tensor,
+                        start: Tensor, kv_lens: Tensor, scale=None, out_dtype=None) -> Tensor:
+    """Gather + prefix-masked SDPA at f32 — the dense read path the paged
+    kernel replaces, with query token t of slot b attending absolute
+    columns ``j <= start[b] + t``.  ``kv_lens`` is unused (the causal mask
+    bounds every valid row), kept so oracle and kernel share a signature."""
+    del kv_lens
+    b, t, hq, d = q.shape
+    hkv = kpool.shape[2]
+    g = hq // hkv
+    scale = d**-0.5 if scale is None else scale
+    idx = table.long()
+    keys = kpool[idx].reshape(b, -1, hkv, d)
+    vals = vpool[idx].reshape(b, -1, hkv, d)
+    skv = keys.shape[1]
+    qg = q.reshape(b, t, hkv, g, d).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, keys.float()) * scale
+    rowpos = start.long()[:, None] + torch.arange(t, device=q.device)[None]
+    mask = torch.arange(skv, device=q.device)[None, None, :] <= rowpos[:, :, None]  # (B,T,S)
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, vals.float()).reshape(b, t, hq, d)
+    return out.to(out_dtype if out_dtype is not None else q.dtype)

@@ -7,7 +7,7 @@ the server calls.  Other families raise ``NotImplementedError``.
                                                   -> (logits (B,T,V) or (B,V), caches)
     prefill(params, batch, cfg, cache_len, last_pos=None) -> (logits_last, caches)
     decode_step(params, tokens, caches, pos, cfg) -> (logits, caches)
-    init_cache(cfg, batch, max_len, dtype, device)
+    init_cache(cfg, batch, max_len, dtype, device, layout=, block_size=, num_blocks=)
 """
 
 from __future__ import annotations
@@ -49,5 +49,9 @@ def forward_chunk(params, tokens, caches, pos, cfg: ModelConfig, active=None, le
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None):
-    return _mod(cfg).init_cache(cfg, batch, max_len, dtype, device)
+               device=None, layout: str = "dense", block_size: int = 16,
+               num_blocks: int | None = None):
+    """``layout="paged"`` builds the block-pool caches (``num_blocks`` per
+    layer, default full occupancy) the continuous-batching engine serves."""
+    return _mod(cfg).init_cache(cfg, batch, max_len, dtype, device, layout, block_size,
+                                num_blocks)

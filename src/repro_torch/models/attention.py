@@ -1,13 +1,21 @@
-"""Port of ``repro.models.attention``: dense full/GQA attention with the
-dense KV-cache adapter (the paged layout, sliding-window rings and MLA
-are not ported yet).
+"""Port of ``repro.models.attention``: full/GQA attention with the dense
+and the paged KV-cache adapters (sliding-window rings and MLA are not
+ported yet).
 
 All projections are BitLinear; on packed serving weights every projection
-runs the W1A8 kernel tier (``repro_torch.core.bitlinear``).  The dense
-cache is ``{"k", "v"}`` of shape (B, L, Hkv, D).  Unlike upstream's pure
-functions, the cache-writing entry points update the cache tensors in
-place (and return them): a decode step then writes one row per slot
-instead of copying every layer's cache.
+runs the W1A8 kernel tier (``repro_torch.core.bitlinear``).  Two cache
+layouts ride the same call sites:
+
+* dense — ``{"k", "v"}`` of shape (B, L, Hkv, D);
+* paged — ``{"kpool", "vpool", "table"}`` from ``repro_torch.serve.kv_pool``:
+  a shared block pool plus per-slot block tables (the ``"table"`` key is
+  the layout discriminator).  Paged scoring runs the paged-attention
+  kernel route when ``kernels.ops.paged_attention_enabled()``, else the
+  ``kv_pool.read`` gather + SDPA (see :func:`_paged_scores`).
+
+Unlike upstream's pure functions, the cache-writing entry points update
+the cache tensors in place (and return them): a decode step then writes
+one row per slot instead of copying every layer's cache.
 
 ``pos`` is the absolute position of the chunk's first token: a Python
 int or 0-d tensor (lockstep: every slot at the same position) or a (B,)
@@ -127,12 +135,7 @@ def rope_at(pos, t: int, head_dim: int, theta, device=None) -> tuple[Tensor, Ten
 def _slot_write(cache: Tensor, new: Tensor, slot: Tensor, active: Tensor | None) -> Tensor:
     """In place: one token per slot at per-slot positions ``slot`` (B,);
     inactive rows write nothing.  cache: (B, L, ...); new: (B, 1, ...)."""
-    l = cache.shape[1]
-    hit = torch.arange(l, device=cache.device)[None, :] == slot[:, None]  # (B, L)
-    if active is not None:
-        hit = hit & active[:, None]
-    hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
-    return cache.copy_(torch.where(hit, new.to(cache.dtype), cache))
+    return _span_write(cache, new, slot[:, None], None if active is None else active[:, None])
 
 
 def _decode_mask(pos, skv: int, device=None) -> Tensor:
@@ -173,14 +176,21 @@ def _chunk_valid(b: int, t: int, active: Tensor | None, lengths: Tensor | None,
 
 
 def _span_write(cache: Tensor, new: Tensor, rows: Tensor, valid: Tensor | None) -> Tensor:
-    """In place: T tokens per slot at per-(slot, token) rows (B, T).
-    Invalid entries and rows past the cache end are dropped (upstream's
-    out-of-bounds ``mode="drop"``): each token is a one-hot write, so no
-    two writes ever meet and no index leaves the cache."""
-    t = rows.shape[1]
-    for i in range(t):
-        _slot_write(cache, new[:, i:i + 1], rows[:, i],
-                    None if valid is None else valid[:, i])
+    """In place: T tokens per slot at per-(slot, token) rows (B, T), as one
+    masked scatter of B * T rows (``kv_pool.put_rows``).  Invalid entries
+    and rows past the cache end are dropped (upstream's out-of-bounds
+    ``mode="drop"``)."""
+    from repro_torch.serve.kv_pool import put_rows  # deferred: serve imports models
+
+    b, t = rows.shape
+    l = cache.shape[1]
+    rows = rows.long()
+    ok = rows < l
+    if valid is not None:
+        ok = ok & valid
+    flat = torch.arange(b, device=cache.device)[:, None] * l + rows.clamp(max=l - 1)
+    put_rows(cache.view((b * l,) + tuple(cache.shape[2:])), flat.reshape(-1),
+             new.reshape((b * t,) + tuple(new.shape[2:])), ok.reshape(-1))
     return cache
 
 
@@ -191,11 +201,46 @@ def _span_mask(posmat: Tensor, skv: int) -> Tensor:
     return (j[None, None, :] <= posmat[..., None])[:, None]
 
 
+def _pos_vector(pos, b: int, device=None) -> Tensor:
+    """(B,) int32 absolute position of each slot's first chunk token."""
+    if not torch.is_tensor(pos):
+        return torch.full((b,), pos, dtype=torch.int32, device=device)
+    return pos.to(torch.int32).expand(b) if pos.ndim == 0 else pos.to(torch.int32)
+
+
+def _paged_scores(q: Tensor, kpool: Tensor, vpool: Tensor, table: Tensor, posv: Tensor,
+                  posmat: Tensor, n_valid, read_to: int | None) -> Tensor:
+    """Score rotated queries q (B, T, Hq, D) against the paged pool: the
+    paged-attention kernel route when enabled and supported (it walks each
+    slot's pages in place, bounded by the resident length ``posv +
+    n_valid``), else the ``kv_pool.read`` gather + prefix-masked SDPA, the
+    parity oracle, which reads ``ceil(read_to / BS)`` blocks when the caller
+    bounds the read.  ``posmat`` (B|1, T) holds the chunk's absolute
+    positions; ``n_valid`` is a ragged slice's (B,) lengths or the static
+    T; decode is T = 1 with ``posmat = posv[:, None]``."""
+    from repro_torch.kernels import ops  # deferred, as upstream
+    from repro_torch.serve import kv_pool  # deferred: serve imports models
+
+    b, t = q.shape[:2]
+    bs, mb = kpool.shape[1], table.shape[1]
+    if ops.paged_attention_enabled(q.device) and ops.paged_attention_supported(
+        bs, q.shape[-1], q.shape[2], kpool.shape[2]
+    ):
+        kv_lens = torch.clamp(posv + n_valid, 1, mb * bs).to(torch.int32)
+        return ops.paged_attention(q, kpool, vpool, table, posv, kv_lens).to(q.dtype)
+    nb = mb if read_to is None else max(1, min(mb, -(-read_to // bs)))
+    keys = kv_pool.read(kpool, table, blocks=nb)
+    vals = kv_pool.read(vpool, table, blocks=nb)
+    mask = _span_mask(posmat.expand(b, t), keys.shape[1])
+    return _sdpa(q, keys.to(q.dtype), vals.to(q.dtype), mask)
+
+
 def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
                     rope: tuple[Tensor, Tensor] | None, active: Tensor | None = None,
                     lengths: Tensor | None = None, read_to: int | None = None):
-    """Cache-resident multi-token attention on the dense cache: process T
-    tokens per slot, write their K/V into the cache (in place) and let each
+    """Cache-resident multi-token attention on the dense or paged cache:
+    process T tokens per slot, write their K/V into the cache (in place —
+    dense rows or pool pages) and let each
     query attend the resident prefix plus the in-chunk causal keys.  T = 1
     without ``lengths`` is :func:`attention_decode`.  ``read_to`` bounds
     the read when no position >= read_to can be attended.  ``rope`` is
@@ -210,6 +255,16 @@ def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
     posmat = _pos_matrix(pos, t, x.device)
     if cfg.pos_embedding == "rope":
         q, k = rotate(q, *rope), rotate(k, *rope)
+
+    if "table" in cache:  # paged adapter: span-scatter straight into pages
+        from repro_torch.serve import kv_pool  # deferred: serve imports models
+
+        posv = _pos_vector(pos, b, x.device)
+        kv_pool.write_span(cache["kpool"], cache["table"], posv, k, active, lengths)
+        kv_pool.write_span(cache["vpool"], cache["table"], posv, v, active, lengths)
+        out = _paged_scores(q, cache["kpool"], cache["vpool"], cache["table"], posv, posmat,
+                            lengths if lengths is not None else t, read_to)
+        return _out_proj(params, out, cfg), cache
 
     valid = _chunk_valid(b, t, active, lengths, x.device)
     skv = cache["k"].shape[1]
@@ -230,13 +285,25 @@ def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
 
 def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
                      rope: tuple[Tensor, Tensor] | None, active: Tensor | None = None):
-    """One-token decode step on the dense cache (in place).  x: (B, 1, D);
-    ``rope`` is :func:`rope_at` of the step.  The write slot is ``pos % L``
-    and the mask covers min(pos+1, L) slots."""
+    """One-token decode step (in place).  x: (B, 1, D); ``rope`` is
+    :func:`rope_at` of the step.  On the dense cache the write slot is
+    ``pos % L`` and the mask covers min(pos+1, L) slots; a paged cache
+    takes the token into its slot's page and scores via
+    :func:`_paged_scores`."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg)
     if cfg.pos_embedding == "rope":
         q, k = rotate(q, *rope), rotate(k, *rope)
+
+    if "table" in cache:  # paged adapter
+        from repro_torch.serve import kv_pool  # deferred: serve imports models
+
+        posv = _pos_vector(pos, b, x.device)
+        kv_pool.write(cache["kpool"], cache["table"], posv, k[:, 0], active)
+        kv_pool.write(cache["vpool"], cache["table"], posv, v[:, 0], active)
+        out = _paged_scores(q, cache["kpool"], cache["vpool"], cache["table"], posv,
+                            posv[:, None], 1, None)
+        return _out_proj(params, out, cfg), cache
 
     skv = cache["k"].shape[1]
     if isinstance(pos, int) and active is None:

@@ -3,7 +3,8 @@
 API (as upstream, with a generator or seed where upstream takes a key):
   init_model(seed, cfg, device)                    -> params
   forward(params, batch, cfg)                      -> (logits, aux_loss)
-  init_cache(cfg, batch, max_len, dtype, device)   -> caches
+  init_cache(cfg, batch, max_len, dtype, device, layout=, block_size=, num_blocks=)
+                                                   -> caches (dense or paged)
   forward_chunk(params, toks, caches, pos, cfg, logits_at=None)
                                                    -> (logits (B,T,V) or (B,V), caches)
   prefill(params, batch, cfg, cache_len, last_pos=None) -> (logits_last, caches)
@@ -164,16 +165,36 @@ def forward(params, batch: dict, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _init_block_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, lead: tuple, device,
+                      layout: str, block_size: int, num_blocks: int | None):
+    if layout == "paged":
+        from repro_torch.serve import kv_pool  # deferred: serve imports models
+
+        nb = num_blocks or batch * kv_pool.blocks_for(max_len, block_size)
+        return kv_pool.init_paged_attention_cache(
+            batch, max_len, cfg.n_kv_heads, cfg.head_dim, nb, block_size, dtype, device, lead
+        )
+    return attn_mod.init_attention_cache(cfg, batch, max_len, dtype, lead, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None):
-    """Dense per-slot KV caches, structured like upstream's (a leading (R,)
-    axis on a segment of R > 1 repeats)."""
+               device=None, layout: str = "dense", block_size: int = 16,
+               num_blocks: int | None = None):
+    """KV caches structured like upstream's (a leading (R,) axis on a
+    segment of R > 1 repeats).  ``layout="dense"`` gives per-slot buffers;
+    ``layout="paged"`` swaps the attention layers to the shared block pool
+    of ``num_blocks`` blocks (default: full occupancy) with per-slot
+    tables (``repro_torch.serve.kv_pool``) — interchangeable at every call
+    site."""
+    if layout not in ("dense", "paged"):
+        raise ValueError(f"unknown cache layout {layout!r}")
     dev = resolve_device(device)
     caches = []
     for seg in build_segments(cfg):
         lead = () if seg.repeats == 1 else (seg.repeats,)
         caches.append({
-            f"b{bi}": attn_mod.init_attention_cache(cfg, batch, max_len, dtype, lead, dev)
+            f"b{bi}": _init_block_cache(cfg, batch, max_len, dtype, lead, dev, layout,
+                                        block_size, num_blocks)
             for bi in range(len(seg.blocks))
         })
     return caches

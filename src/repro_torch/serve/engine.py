@@ -1,4 +1,6 @@
-"""Port of ``repro.serve.engine``: the lockstep decode engine.
+"""Port of ``repro.serve.engine``: the lockstep decode engine, and the
+batch-1 admission prefills of the continuous-batching engine
+(``repro_torch.serve.scheduler``).
 
 ``DecodeEngine.generate`` runs prefill, then the decode loop, with every
 token kept on the device: sampling runs on the card, the KV caches stay
@@ -70,6 +72,47 @@ def decode_logits(params, tok: Tensor, caches, pos, cfg: ModelConfig):
     ((B, V) logits, caches)."""
     logits, caches = api.decode_step(params, tok[:, None], caches, pos, cfg)
     return logits[:, -1], caches
+
+
+def _pack_first(logits: Tensor, gen: Optional[torch.Generator], scfg: SamplerConfig) -> Tensor:
+    """Sample the first token of a batch-1 prefill and pack it with the
+    quarantine bit (are the logits finite): ``[tok0, ok]`` (2,) int32, so one
+    device-to-host fetch per admission carries both."""
+    tok0 = sample_token(gen, logits, scfg)
+    ok = torch.isfinite(logits).all(dim=-1)
+    return torch.stack([tok0[0], ok[0].to(torch.int32)])
+
+
+def _make_checked_prefill_fn(cfg: ModelConfig, cache_len: int, scfg: SamplerConfig):
+    """Batch-1 admission prefill of the continuous-batching engine:
+    ``fn(params, tokens (1, S), gen) -> ([tok0, ok], caches, pos0)``, the
+    prefill and first sample of :meth:`DecodeEngine.generate` (same
+    forward, same draw from ``gen``), so a request's stream is that
+    call's."""
+
+    def prefill(params, tokens: Tensor, gen):
+        with annotate("serve/prefill_forward"):
+            logits, caches = api.prefill(params, {"tokens": tokens}, cfg, cache_len)
+        return _pack_first(logits, gen, scfg), caches, tokens.shape[1]
+
+    return prefill
+
+
+def _make_bucketed_prefill_fn(cfg: ModelConfig, cache_len: int, scfg: SamplerConfig):
+    """Admission prefill of a prompt right-padded to a bucket length:
+    ``fn(params, tokens (1, S_bucket), plen, gen) -> ([tok0, ok], caches,
+    plen)`` reads the logits at position ``plen - 1`` (causal masking keeps
+    every real position as an exact-length prefill computes it).  Upstream
+    pads so that one compiled trace serves a whole bucket; the port keeps
+    upstream's padding, and with it upstream's shapes."""
+
+    def prefill(params, tokens: Tensor, plen: int, gen):
+        with annotate("serve/prefill_forward"):
+            logits, caches = api.prefill(params, {"tokens": tokens}, cfg, cache_len,
+                                         last_pos=plen)
+        return _pack_first(logits, gen, scfg), caches, plen
+
+    return prefill
 
 
 class DecodeEngine:
