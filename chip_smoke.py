@@ -16,9 +16,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. each kernel against its plain PyTorch version on the card at the
    shapes of pquant-1.3b: the decode tier at M in {1, 4, 5, 8, 32}, the
    prefill tier (``w1a8_matmul``, ``decoupled_matmul``, ``int8_matmul``,
-   ``rmsnorm_quant``) at M in {33, 64, 512, 8192}.  The GEMMs and GEMVs
+   ``rmsnorm_quant``) at M in {33, 64, 512, 8192}, ``int8_matmul`` at
+   both tiers' rows and at 1024 (a chunked slice).  The GEMMs and GEMVs
    must agree within rtol 1e-6 (they are built to agree bit for bit, and
-   the prefill GEMMs are held in f32 and bf16); ``rmsnorm_quant`` within
+   the prefill GEMMs and ``int8_matmul`` are held in f32 and bf16; the
+   bf16 ``int8_matmul`` is timed too above 32 rows); ``rmsnorm_quant`` within
    its stated tolerance (RMSNORM_*).  Prints the kernel's median time
    (CUDA events, weights rotated through more copies than the 50 MB L2
    holds), the host's time to issue one call, the plain version's time,
@@ -81,6 +83,15 @@ time of ``scaled_dot_product_attention`` on the gathered view.
 The line before the last is the JSON record of the ported kernels; the
 last line is ``{"ok": true, "device": {...}}``.
 
+    python3 chip_smoke.py --kernel int8_matmul [--src OTHER/src]
+
+runs phases 1-2, then only that kernel's phase-3 rows (of the
+``repro_torch`` under ``--src`` when given, say the ``src`` of a ``git
+archive`` of the parent commit unpacked under ``_checkouts/``), prints
+one JSON line of those rows and exits non-zero on any mismatch; it never
+prints the ``{"ok": ...}`` line.  Two trees are timed in one call by
+running it once for each, by turns.
+
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
 times phase 4's decode path of this checkout against another one (say, a
@@ -91,6 +102,8 @@ alternating pairs of fresh processes, and prints the comparison as JSON.
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import itertools
 import json
 import statistics
 import subprocess
@@ -105,8 +118,11 @@ SEED = 0
 W1A8_SHAPES = ((2048, 2048), (5024, 2048))  # q/k/v/o; w1_down
 DECOUPLED_SHAPE = (2048, 5024, 384)  # up/gate pairs: K, N, r
 INT8_SHAPE = (384, 2048)  # w8_down: K, N
+INT8_RAGGED = ((16, 64), (400, 72), (20, 66))  # general (K, N) of int8_matmul
 ROWS = (1, 4, 5, 8, 32)
 PREFILL_ROWS = (33, 64, 512, 8192)
+CHUNK_ROWS = 1024  # a chunked-prefill slice of phase 8 (b): 16 requests x 64 tokens
+INT8_ROWS = ROWS + PREFILL_ROWS + (CHUNK_ROWS,)
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
 PREFILL_MAIN_ROWS = 8192  # prefill rows of the prefill-tier path (64 x 128 tokens)
 RTOL = 1e-6  # kernel vs plain version (built to agree exactly)
@@ -252,7 +268,8 @@ def _codes_close(q, q_ref, g, g_ref) -> float:
     return g_err.max().item()
 
 
-def phase_kernels(torch, peaks):
+def phase_kernels(torch, peaks, only=None):
+    """Phase 3's GEMM and GEMV rows (``only='int8_matmul'``: that kernel's rows alone)."""
     from repro_torch.kernels import w1a8_gemv as wg
     from repro_torch.kernels.decoupled_matmul import decoupled_matmul, decoupled_matmul_plain
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
@@ -300,6 +317,44 @@ def phase_kernels(torch, peaks):
             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=library_ms,
             host_us=host_us)
 
+    # --- int8_matmul serves every M: both tiers' row counts and the
+    # chunked slice; held exactly in f32 and bf16, timed in f32 at every M
+    # and in bf16 above the decode tier ---
+    k, n = INT8_SHAPE
+    ws = [int8(k, n) for _ in range(_copies(k * n))]
+    wscale = scalar(1 / 0.0019)
+    # a tree whose wrapper writes f32 only (an older commit under --src)
+    dtypes = ((torch.float32, torch.bfloat16)
+              if "out_dtype" in inspect.signature(int8_matmul).parameters else (torch.float32,))
+    for m in INT8_ROWS:
+        x = int8(m, k)
+        gamma = scales(m)
+        for dt in dtypes:
+            kw = {"out_dtype": dt} if dt != torch.float32 else {}
+            err = _close(int8_matmul(x, ws[0], gamma, wscale, **kw).float(),
+                         int8_matmul_plain(x, ws[0], gamma, wscale, **kw).float())
+            if dt != torch.float32 and m <= 32:
+                continue  # held, not timed
+            b = bound(m * k + k * n + m * 4 + 4 + m * n * dt.itemsize, 2 * m * k * n)
+            # torch._int_mm's shape rule: M > 16, K and N multiples of 8
+            library = (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None
+            record("int8_matmul", m, (k, n), err,
+                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale, **kw),
+                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale, **kw), b, library,
+                   tag="" if dt == torch.float32 else "bf16")
+    # held, not timed: K not a multiple of 128, N ragged against the tile,
+    # and a shape the shape rule sends to the GEMV route at any M
+    for (k, n), m, dt in itertools.product(INT8_RAGGED, (33, 129, 1000), dtypes):
+        kw = {"out_dtype": dt} if dt != torch.float32 else {}
+        x, w, gamma = int8(m, k), int8(k, n), scales(m)
+        err = _close(int8_matmul(x, w, gamma, wscale, **kw).float(),
+                     int8_matmul_plain(x, w, gamma, wscale, **kw).float())
+        results["int8_matmul"]["max_abs_err"] = max(results["int8_matmul"]["max_abs_err"], err)
+    log(f"[3] int8_matmul held exactly at (K, N) {INT8_RAGGED} x M (33, 129, 1000) x "
+        f"{[str(d).split('.')[-1] for d in dtypes]}")
+    if only == "int8_matmul":
+        return results
+
     # --- decode tier: fused act-quant GEMVs (M <= 32) ---
     lam = scalar(0.031)
     for k, n in W1A8_SHAPES:
@@ -325,21 +380,6 @@ def phase_kernels(torch, peaks):
         record("decoupled_gemv", m, (k, n, r), err,
                lambda i: wg.decoupled_gemv(x, w1s[i % len(w1s)], w8s[i % len(w8s)], *sc),
                lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b)
-
-    # --- int8_matmul serves every M: both tiers' row counts ---
-    k, n = INT8_SHAPE
-    ws = [int8(k, n) for _ in range(_copies(k * n))]
-    wscale = scalar(1 / 0.0019)
-    for m in ROWS + PREFILL_ROWS:
-        x = int8(m, k)
-        gamma = scales(m)
-        err = _close(int8_matmul(x, ws[0], gamma, wscale), int8_matmul_plain(x, ws[0], gamma, wscale))
-        b = bound(m * k + k * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
-        # torch._int_mm's shape rule: M > 16, K and N multiples of 8
-        library = (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None
-        record("int8_matmul", m, (k, n), err,
-               lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale),
-               lambda i: int8_matmul_plain(x, ws[0], gamma, wscale), b, library)
 
     # --- prefill tier: tiled GEMMs on pre-quantized rows (M > 32) ---
     # held exactly in f32 (the main path's activation type) and in bf16
@@ -1418,17 +1458,40 @@ def pairs(other: Path, n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def main(torch) -> int:
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
-
-    smi, name, peaks = phase_card(torch)
-
+def phase_build(_cuda) -> float:
+    """Phase 2: build every kernel; returns the perf_counter at its start."""
     t0 = time.perf_counter()
     built = _cuda.build()
     log(f"[2] kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'}) "
         f"into {_cuda.build_dir()}")
+    return t0
+
+
+def one_kernel(torch, kernel: str, src: Path) -> int:
+    """Phases 1-2, then phase 3's rows of one kernel alone, of the
+    ``repro_torch`` package under ``src``: prints one JSON line of those
+    rows (time, host us, plain time, bound and library time per shape).
+    A mismatch against the plain version raises, so the exit is non-zero."""
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, peaks = phase_card(torch)
+    phase_build(_cuda)
+    res = phase_kernels(torch, peaks, only=kernel)[kernel]
+    print(json.dumps({
+        "kernel": kernel, "src": str(src), "card": smi, "max_abs_err": res["max_abs_err"],
+        "rows": [{"shape": list(key), **row} for key, row in res["rows"].items()],
+    }))
+    return 0
+
+
+def main(torch) -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, name, peaks = phase_card(torch)
+    t0 = phase_build(_cuda)
 
     def lap(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
@@ -1495,6 +1558,10 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     ap.add_argument("--pairs", nargs=2, metavar=("CHECKOUT", "N"),
                     help="time decode against another checkout in N alternating pairs")
+    ap.add_argument("--kernel", choices=("int8_matmul",),
+                    help="phases 1-2 and this kernel's phase-3 rows only")
+    ap.add_argument("--src", metavar="SRC", help="with --kernel: the src/ tree to import "
+                    "repro_torch from (default: this checkout's)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -1504,6 +1571,9 @@ if __name__ == "__main__":
         sys.exit(2)
     if args.time_slice:
         sys.exit(time_slice(torch, Path(args.time_slice)))
+    if args.kernel:
+        sys.exit(one_kernel(torch, args.kernel,
+                            Path(args.src).resolve() if args.src else ROOT / "src"))
     if args.pairs:
         sys.exit(pairs(Path(args.pairs[0]).resolve(), int(args.pairs[1])))
     sys.exit(main(torch))

@@ -4,31 +4,40 @@
 // Replaces the Pallas kernel src/repro/kernels/int8_matmul.py (pl.pallas_call
 // in int8_matmul, _int8_kernel).
 //
-// What bounds it on an H100: the weight bytes.  At the decode shapes
-// (M <= 32 rows against w8_down's 384 x 2048 int8 = 768 KB) every weight
-// byte is used by at most 2 M integer operations, far below the ~590 per
-// byte at which the tensor cores, not memory, would be the limit.
+// Two routes behind the one entry point, chosen by shape:
 //
-// Design: the GEMV block of gemv_common.cuh.  Each block copies up to 32
-// int8 token rows (blockIdx.y picks the row tile, so any M runs) into
-// shared memory and owns 8 output columns, four lanes to a column; a lane
-// gathers four int8 weights of its column down K into one word and feeds
-// one __dp4a per token row.  The epilogue keeps the Pallas kernel's order
-// of operations, y = float(acc) * (1 / (gamma * wscale)), so the f32 output
-// equals the plain version bit for bit (no fast math).
+//   * M <= 32 rows, or K not a multiple of 16, or N not a multiple of 4:
+//     the GEMV block of gemv_common.cuh.  What bounds it on an H100 at the
+//     decode shapes is the weight bytes (M <= 32 rows against w8_down's
+//     384 x 2048 int8 = 768 KB: every weight byte is used by at most 2 M
+//     integer operations).  Each block copies up to 32 int8 token rows
+//     (blockIdx.y picks the row tile, so any M runs) into shared memory and
+//     owns 8 output columns, four lanes to a column; a lane gathers four
+//     int8 weights of its column down K into one word and feeds one __dp4a
+//     per token row.
+//   * every other shape: the tensor-core tile of tile_gemm.cuh
+//     (mma.sync m16n8k32 s8, 128 x 128 tiles when they fill the card, else
+//     64 x 64), the weight transposed into [n][k] in shared memory.
+//
+// The epilogue of both keeps the Pallas kernel's order of operations,
+// y = float(acc) * (1 / (gamma * wscale)), with IEEE division (no fast
+// math), and writes out_dtype (f32, or bf16 rounded to nearest even), so
+// the output equals the plain version bit for bit.
 
 #include "gemv_common.cuh"
+#include "tile_gemm.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int kRowTile = 32;  // token rows per block (blockIdx.y)
+constexpr int kRowTile = 32;  // token rows per GEMV block (blockIdx.y)
 
+template <class Out>
 __global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ gamma, const float* __restrict__ wscale_p,
-                   float* __restrict__ out, int m, int k, int n) {
+int8_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                 const float* __restrict__ gamma, const float* __restrict__ wscale_p,
+                 Out* __restrict__ out, int m, int k, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int base = blockIdx.y * kRowTile;
   const int mt = min(kRowTile, m - base);
@@ -51,30 +60,83 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int row = row0 + warp;
     if (lane < kInt8Cols && row < mt && col < n) {
       const float inv = 1.0f / (gamma[base + row] * wscale);
-      out[(size_t)(base + row) * n + col] = (float)sum * inv;
+      repro_tile::store_out(out + (size_t)(base + row) * n + col, (float)sum * inv);
     }
   }
+}
+
+template <int BM, int BN, class Out>
+__global__ void __launch_bounds__(repro_tile::kThreads)
+int8_tile_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                 const float* __restrict__ gamma, const float* __restrict__ wscale_p,
+                 Out* __restrict__ out, int m, int k, int n) {
+  using namespace repro_tile;
+  __shared__ Smem<BM, BN> sm;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  Int8B<BN> b{w, n, k, col0};
+  Acc<BM, BN> acc;
+  gemm_tile<BM, BN>(sm, x, m, k, row0, b, acc);
+  const float wscale = *wscale_p;
+  store_tile<BM, BN>(acc, row0, col0, m, n, out, n,
+                     [&](int row) { return 1.0f / (gamma[row] * wscale); });
+}
+
+template <class Out>
+cudaError_t launch_gemv(const int8_t* x, const int8_t* w, const float* gamma,
+                        const float* wscale, Out* out, int m, int k, int n, cudaStream_t s) {
+  const SmemPlan p = smem_plan(m < kRowTile ? m : kRowTile, k);
+  if (p.total > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(int8_gemv_kernel<Out>, p.total);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + kInt8Cols - 1) / kInt8Cols, (m + kRowTile - 1) / kRowTile);
+  int8_gemv_kernel<Out><<<grid, kThreads, p.total, s>>>(x, w, gamma, wscale, out, m, k, n);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN, class Out>
+cudaError_t launch_tile(const int8_t* x, const int8_t* w, const float* gamma,
+                        const float* wscale, Out* out, int m, int k, int n, cudaStream_t s) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  int8_tile_kernel<BM, BN, Out><<<grid, repro_tile::kThreads, 0, s>>>(x, w, gamma, wscale, out,
+                                                                      m, k, n);
+  return cudaGetLastError();
+}
+
+// The route of a shape: the tile needs more than the decode tier's rows,
+// 16-byte activation rows (cp.async) and 4-byte weight words.
+inline bool tile_route(int m, int k, int n) { return m > 32 && k % 16 == 0 && n % 4 == 0; }
+
+template <class Out>
+cudaError_t launch(const int8_t* x, const int8_t* w, const float* gamma, const float* wscale,
+                   void* out_v, int m, int k, int n, int device, cudaStream_t s) {
+  Out* out = static_cast<Out*>(out_v);
+  if (!tile_route(m, k, n)) return launch_gemv<Out>(x, w, gamma, wscale, out, m, k, n, s);
+  return repro_tile::big_tiles(m, n, device)
+             ? launch_tile<128, 128, Out>(x, w, gamma, wscale, out, m, k, n, s)
+             : launch_tile<64, 64, Out>(x, w, gamma, wscale, out, m, k, n, s);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes): x (m, k) i8, w (k, n) i8,
-// gamma (m,) f32, wscale one f32, out (m, n) f32, all device pointers;
-// k must be a multiple of 4.  Returns the cudaError_t of the launch and
-// never synchronizes.
+// gamma (m,) f32, wscale one f32, out (m, n) of out_dtype (0 f32, 1 bf16),
+// all device pointers, x 16-byte aligned; k a multiple of 4.  Returns the
+// cudaError_t of the launch and never synchronizes.
 extern "C" int int8_matmul_launch(const int8_t* x, const int8_t* w, const float* gamma,
-                                  const float* wscale, float* out, int m, int k, int n,
-                                  int device, void* stream) {
+                                  const float* wscale, void* out, int out_dtype, int m, int k,
+                                  int n, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
-  const SmemPlan p = smem_plan(m < kRowTile ? m : kRowTile, k);
-  if (e == cudaSuccess && (m < 1 || k % 4 || p.total > kMaxSmem)) e = cudaErrorInvalidValue;
-  if (e == cudaSuccess) e = allow_smem(int8_matmul_kernel, p.total);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
+  if (e == cudaSuccess && (m < 1 || n < 1 || k < 4 || k % 4)) e = cudaErrorInvalidValue;
+  if (e == cudaSuccess) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (out_dtype) {
+      case repro_tile::kF32: e = launch<float>(x, w, gamma, wscale, out, m, k, n, device, s); break;
+      case repro_tile::kBF16:
+        e = launch<__nv_bfloat16>(x, w, gamma, wscale, out, m, k, n, device, s);
+        break;
+      default: e = cudaErrorInvalidValue;
+    }
   }
-  const dim3 grid((n + kInt8Cols - 1) / kInt8Cols, (m + kRowTile - 1) / kRowTile);
-  int8_matmul_kernel<<<grid, kThreads, p.total, (cudaStream_t)stream>>>(x, w, gamma, wscale, out,
-                                                                       m, k, n);
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
 }

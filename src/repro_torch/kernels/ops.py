@@ -88,8 +88,9 @@ def int8_linear_infer(x: Tensor, w_q: Tensor, wscale: Tensor,
     lead = x.shape[:-1]
     xq, gamma = quantize_act_int8(x.reshape(-1, x.shape[-1]))
     with annotate("kernels/int8_matmul"):
-        y = int8_matmul(xq.contiguous(), w_q.contiguous(), gamma.contiguous(), wscale)
-    return y.to(out_dtype).reshape(*lead, -1)
+        y = int8_matmul(xq.contiguous(), w_q.contiguous(), gamma.contiguous(), wscale,
+                        out_dtype)
+    return y.reshape(*lead, -1)
 
 
 def fused_rmsnorm_quant(x: Tensor, scale: Tensor):

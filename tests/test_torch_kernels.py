@@ -105,22 +105,45 @@ def test_decoupled_gemv_matches_pallas_and_ref(m, k, n, r):
     np.testing.assert_array_equal(r8.numpy(), np.asarray(w8r))
 
 
-@pytest.mark.parametrize("m", ROWS + [40])
-def test_int8_matmul_matches_pallas_and_ref(m):
+def _bf16_ulp(a):
+    """One bf16 ulp at each value of the float array a (8 significant bits)."""
+    _, e = np.frexp(a.astype(np.float32))
+    return np.ldexp(np.float32(1), e - 8)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", ROWS + [40, 129])
+def test_int8_matmul_matches_pallas_and_ref(m, out_dtype):
+    """f32 within RTOL of the interpreted Pallas kernel and of
+    ``int8_matmul_ref`` (which divides where the kernels multiply by a
+    reciprocal); bf16 equal bit for bit to the port's own f32 result
+    rounded to bf16, and within one bf16 ulp of JAX's: the interpreted
+    kernel may round the f32 epilogue one ulp apart, and that ulp can cross
+    a bf16 rounding boundary."""
     rng = np.random.default_rng(m)
     k, n = 48, 64
     x = (rng.standard_normal((m, k)) * 3).astype(np.float32)
     w = rng.integers(-127, 128, (k, n)).astype(np.int8)
     wscale = _scalar(1 / 0.0031)
-    got = ops.int8_linear_infer(_t(x), _t(w), _t(wscale), out_dtype=torch.float32)
+    tdt, jdt = getattr(torch, out_dtype), getattr(jnp, out_dtype)
+    got = ops.int8_linear_infer(_t(x), _t(w), _t(wscale), out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == (m, n)
     pallas = jops.int8_linear_infer(jnp.asarray(x), jnp.asarray(w), jnp.asarray(wscale),
-                                    out_dtype=jnp.float32)
-    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=0)
+                                    out_dtype=jdt)
     xq, gamma = jops.quantize_act_int8(jnp.asarray(x))
-    want = jref.int8_matmul_ref(xq, jnp.asarray(w), gamma, jnp.asarray(wscale))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=0)
-    direct = int8_matmul(_t(xq), _t(w), _t(gamma), _t(wscale))
-    np.testing.assert_array_equal(direct.numpy(), got.numpy())
+    want = jref.int8_matmul_ref(xq, jnp.asarray(w), gamma, jnp.asarray(wscale), out_dtype=jdt)
+    got_f = got.float().numpy()
+    for theirs in (pallas, want):
+        theirs = np.asarray(theirs).astype(np.float32)
+        if out_dtype == "float32":
+            np.testing.assert_allclose(got_f, theirs, rtol=RTOL, atol=0)
+        else:
+            ulp = np.maximum(_bf16_ulp(got_f), _bf16_ulp(theirs))
+            assert np.all(np.abs(got_f - theirs) <= ulp)
+    direct = int8_matmul(_t(xq), _t(w), _t(gamma), _t(wscale), tdt)
+    np.testing.assert_array_equal(direct.float().numpy(), got_f)
+    f32 = int8_matmul(_t(xq), _t(w), _t(gamma), _t(wscale))
+    np.testing.assert_array_equal(got_f, f32.to(tdt).float().numpy())
 
 
 def test_port_ref_matches_jax_ref():
@@ -217,7 +240,8 @@ def test_cuda_kernels_equal_plain_versions(cuda_device, m):
 @pytest.mark.parametrize("m", [33, 136])
 def test_cuda_rows_above_decode_tier_launch_prefill_kernels(cuda_device, m):
     """Above DECODE_M_MAX rows ops launches w1a8_matmul / decoupled_matmul
-    (never a GEMV, never a plain version), equal to their plain versions."""
+    and int8_matmul's tile route (never a GEMV, never a plain version),
+    each equal to its plain version."""
     x, packed, w8 = _inputs(m, 256, 160, 32, seed=m)
     dev = cuda_device
     xs, ps, ws = _t(x).to(dev), _t(packed).to(dev), _t(w8).to(dev)
@@ -225,6 +249,8 @@ def test_cuda_rows_above_decode_tier_launch_prefill_kernels(cuda_device, m):
     before = dict(_cuda.LAUNCHES)
     y = ops.bit_linear_infer(xs, ps, sc[0], out_dtype=torch.float32)
     y1, y8 = ops.decoupled_first_gemm(xs, ps, ws, *sc, out_dtype=torch.bfloat16)
+    y_i8 = ops.int8_linear_infer(xs, ws, sc[1], out_dtype=torch.bfloat16)
+    assert _cuda.LAUNCHES["int8_matmul"] == before.get("int8_matmul", 0) + 1
     assert _cuda.LAUNCHES["w1a8_matmul"] == before.get("w1a8_matmul", 0) + 1
     assert _cuda.LAUNCHES["decoupled_matmul"] == before.get("decoupled_matmul", 0) + 1
     for name in ("w1a8_gemv", "decoupled_gemv"):
@@ -234,3 +260,28 @@ def test_cuda_rows_above_decode_tier_launch_prefill_kernels(cuda_device, m):
     p1, p8 = decoupled_matmul_plain(q, ps, ws, g, *sc, out_dtype=torch.bfloat16)
     torch.testing.assert_close(y1, p1, rtol=0, atol=0)
     torch.testing.assert_close(y8, p8, rtol=0, atol=0)
+    torch.testing.assert_close(y_i8, int8_matmul_plain(q, ws, g, sc[1], torch.bfloat16),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(384, 2048), (16, 64), (400, 72), (20, 66)])
+@pytest.mark.parametrize("m", [33, 64, 129, 1000, 8192])
+def test_cuda_int8_matmul_equals_plain_version(cuda_device, m, k, n, out_dtype):
+    """int8_matmul above the decode tier, bit for bit against its plain
+    version: w8_down's shape, K not a multiple of 128 (16, 400), N ragged
+    against the tile (64, 72, 66), and (20, 66), which the shape rule
+    sends to the GEMV route; one launch a call."""
+    rng = np.random.default_rng(m + k + n)
+    dev = cuda_device
+    x = _t(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
+    w = _t(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
+    gamma = _t((rng.random(m) * 50 + 10).astype(np.float32)).to(dev)
+    wscale = torch.tensor(1 / 0.0019, dtype=torch.float32, device=dev)
+    dt = getattr(torch, out_dtype)
+    before = _cuda.LAUNCHES["int8_matmul"]
+    got = int8_matmul(x, w, gamma, wscale, dt)
+    assert _cuda.LAUNCHES["int8_matmul"] == before + 1
+    assert got.dtype == dt and got.shape == (m, n)
+    torch.testing.assert_close(got, int8_matmul_plain(x, w, gamma, wscale, dt), rtol=0, atol=0)
