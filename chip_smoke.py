@@ -88,9 +88,17 @@ last line is ``{"ok": true, "device": {...}}``.
 runs phases 1-2, then only that kernel's phase-3 rows (of the
 ``repro_torch`` under ``--src`` when given, say the ``src`` of a ``git
 archive`` of the parent commit unpacked under ``_checkouts/``), prints
-one JSON line of those rows and exits non-zero on any mismatch; it never
-prints the ``{"ok": ...}`` line.  Two trees are timed in one call by
+one JSON line of those rows and exits non-zero on any mismatch
+(``--unchecked`` times without the comparison, for diagnostic variants of
+a kernel whose output is knowingly wrong); it never prints the ``{"ok":
+...}`` line.  Two trees are timed in one call by
 running it once for each, by turns.
+
+    python3 chip_smoke.py --serving [--src OTHER/src]
+
+runs phases 1-2, 4, 6 and 8 alone, with their checks (of the tree under
+``--src`` when given), and prints one JSON line of phase 6's summary and
+phase 8's records: the serving paths of two trees, side by side.
 
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
@@ -241,12 +249,14 @@ def _copies(nbytes: int) -> int:
     return max(2, -(-120 * 2**20 // nbytes))
 
 
-def _close(a, b) -> float:
-    """max |a - b|; raises unless |a - b| <= RTOL * |b| everywhere."""
+def _close(a, b, check: bool = True) -> float:
+    """max |a - b|; raises unless |a - b| <= RTOL * |b| everywhere (unless
+    ``check`` is off: ``--kernel ... --unchecked`` times a diagnostic
+    variant of a kernel whose output is knowingly wrong)."""
     import torch
 
     err = (a - b).abs()
-    if not torch.all(err <= RTOL * b.abs()):
+    if check and not torch.all(err <= RTOL * b.abs()):
         raise AssertionError(f"kernel disagrees with its plain version: max |err| {err.max().item()}")
     return err.max().item()
 
@@ -268,8 +278,9 @@ def _codes_close(q, q_ref, g, g_ref) -> float:
     return g_err.max().item()
 
 
-def phase_kernels(torch, peaks, only=None):
-    """Phase 3's GEMM and GEMV rows (``only='int8_matmul'``: that kernel's rows alone)."""
+def phase_kernels(torch, peaks, only=None, check=True):
+    """Phase 3's GEMM and GEMV rows (``only='int8_matmul'``: that kernel's
+    rows alone; ``check=False``: not held to the plain version)."""
     from repro_torch.kernels import w1a8_gemv as wg
     from repro_torch.kernels.decoupled_matmul import decoupled_matmul, decoupled_matmul_plain
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
@@ -332,7 +343,7 @@ def phase_kernels(torch, peaks, only=None):
         for dt in dtypes:
             kw = {"out_dtype": dt} if dt != torch.float32 else {}
             err = _close(int8_matmul(x, ws[0], gamma, wscale, **kw).float(),
-                         int8_matmul_plain(x, ws[0], gamma, wscale, **kw).float())
+                         int8_matmul_plain(x, ws[0], gamma, wscale, **kw).float(), check)
             if dt != torch.float32 and m <= 32:
                 continue  # held, not timed
             b = bound(m * k + k * n + m * 4 + 4 + m * n * dt.itemsize, 2 * m * k * n)
@@ -348,7 +359,7 @@ def phase_kernels(torch, peaks, only=None):
         kw = {"out_dtype": dt} if dt != torch.float32 else {}
         x, w, gamma = int8(m, k), int8(k, n), scales(m)
         err = _close(int8_matmul(x, w, gamma, wscale, **kw).float(),
-                     int8_matmul_plain(x, w, gamma, wscale, **kw).float())
+                     int8_matmul_plain(x, w, gamma, wscale, **kw).float(), check)
         results["int8_matmul"]["max_abs_err"] = max(results["int8_matmul"]["max_abs_err"], err)
     log(f"[3] int8_matmul held exactly at (K, N) {INT8_RAGGED} x M (33, 129, 1000) x "
         f"{[str(d).split('.')[-1] for d in dtypes]}")
@@ -1468,7 +1479,7 @@ def phase_build(_cuda) -> float:
     return t0
 
 
-def one_kernel(torch, kernel: str, src: Path) -> int:
+def one_kernel(torch, kernel: str, src: Path, check: bool = True) -> int:
     """Phases 1-2, then phase 3's rows of one kernel alone, of the
     ``repro_torch`` package under ``src``: prints one JSON line of those
     rows (time, host us, plain time, bound and library time per shape).
@@ -1478,11 +1489,28 @@ def one_kernel(torch, kernel: str, src: Path) -> int:
 
     smi, _, peaks = phase_card(torch)
     phase_build(_cuda)
-    res = phase_kernels(torch, peaks, only=kernel)[kernel]
+    res = phase_kernels(torch, peaks, only=kernel, check=check)[kernel]
     print(json.dumps({
         "kernel": kernel, "src": str(src), "card": smi, "max_abs_err": res["max_abs_err"],
         "rows": [{"shape": list(key), **row} for key, row in res["rows"].items()],
     }))
+    return 0
+
+
+def serving(torch, src: Path) -> int:
+    """Phases 1-2, 4, 6 and 8 of the ``repro_torch`` package under ``src``
+    (no kernel rows, no cut comparisons), with their checks: prints one
+    JSON line of phase 6's summary and phase 8's records."""
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, _ = phase_card(torch)
+    phase_build(_cuda)
+    params, cfg, _, _ = phase_slice(torch)
+    _, p_summary = phase_prefill(torch, params, cfg)
+    cb_recs, _ = phase_continuous(torch, params, cfg)
+    print(json.dumps({"src": str(src), "card": smi, "prefill": p_summary,
+                      "continuous": cb_recs}, default=str))
     return 0
 
 
@@ -1560,8 +1588,13 @@ if __name__ == "__main__":
                     help="time decode against another checkout in N alternating pairs")
     ap.add_argument("--kernel", choices=("int8_matmul",),
                     help="phases 1-2 and this kernel's phase-3 rows only")
-    ap.add_argument("--src", metavar="SRC", help="with --kernel: the src/ tree to import "
-                    "repro_torch from (default: this checkout's)")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="with --kernel: time without holding the kernel to its plain version "
+                    "(for diagnostic variants whose output is knowingly wrong)")
+    ap.add_argument("--serving", action="store_true",
+                    help="phases 1-2, 4, 6 and 8 only (end-to-end serving)")
+    ap.add_argument("--src", metavar="SRC", help="with --kernel or --serving: the src/ tree "
+                    "to import repro_torch from (default: this checkout's)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -1571,9 +1604,11 @@ if __name__ == "__main__":
         sys.exit(2)
     if args.time_slice:
         sys.exit(time_slice(torch, Path(args.time_slice)))
+    src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
-        sys.exit(one_kernel(torch, args.kernel,
-                            Path(args.src).resolve() if args.src else ROOT / "src"))
+        sys.exit(one_kernel(torch, args.kernel, src, check=not args.unchecked))
+    if args.serving:
+        sys.exit(serving(torch, src))
     if args.pairs:
         sys.exit(pairs(Path(args.pairs[0]).resolve(), int(args.pairs[1])))
     sys.exit(main(torch))

@@ -1,5 +1,8 @@
 // Shared pieces of the prefill-tier integer GEMM kernels (w1a8_matmul.cu,
-// decoupled_matmul.cu): one block computes a BM x BN tile of
+// decoupled_matmul.cu; int8_matmul.cu takes the primitives — mma_s8,
+// cp_async16, store_out, transpose4x4, Int8B::block_of, big_tiles — for
+// its own tile): one block
+// computes a BM x BN tile of
 // int8 x int8 -> int32 products on the tensor cores with
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32.
 //
@@ -136,6 +139,19 @@ struct PackedB {
   }
 };
 
+// A 4 x 4 byte block: v[r] holds four columns of row r; t[c] = column c
+// down the four rows (byte r of t[c] is byte c of v[r]).
+__device__ __forceinline__ void transpose4x4(const uint32_t (&v)[4], uint32_t (&t)[4]) {
+  const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140);
+  const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140);
+  const uint32_t hi01 = __byte_perm(v[0], v[1], 0x7362);
+  const uint32_t hi23 = __byte_perm(v[2], v[3], 0x7362);
+  t[0] = __byte_perm(lo01, lo23, 0x5410);
+  t[1] = __byte_perm(lo01, lo23, 0x7632);
+  t[2] = __byte_perm(hi01, hi23, 0x5410);
+  t[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
 // B source: an int8 matrix w (k x n, row-major, n a multiple of 4),
 // columns [col0, col0 + BN), transposed into [n][k].  Each thread moves
 // 4 x 4 byte blocks: four words down K (four columns each) become four
@@ -174,13 +190,8 @@ struct Int8B {
     for (int j = 0; j < kPer; ++j) {
       int cg, kg;
       block_of(threadIdx.x + j * kThreads, cg, kg);
-      // rows k..k+3 hold columns c..c+3; out[i] = column c+i down rows k..k+3
-      const uint32_t lo01 = __byte_perm(v[j][0], v[j][1], 0x5140);
-      const uint32_t lo23 = __byte_perm(v[j][2], v[j][3], 0x5140);
-      const uint32_t hi01 = __byte_perm(v[j][0], v[j][1], 0x7362);
-      const uint32_t hi23 = __byte_perm(v[j][2], v[j][3], 0x7362);
-      const uint32_t out[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-                               __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+      uint32_t out[4];
+      transpose4x4(v[j], out);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         *reinterpret_cast<uint32_t*>(dst + (4 * cg + i) * kLd + 4 * kg) = out[i];

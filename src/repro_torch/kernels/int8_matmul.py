@@ -9,9 +9,10 @@ f32 epilogue ``float(acc) * (1 / (gamma * wscale))``, so the kernel equals
 the plain version bit for bit.
 
 The launch picks one of two routes by shape, never on failure: M <= 32
-rows, or K not a multiple of 16, or N not a multiple of 4, run the dp4a
-GEMV; every other shape runs the tensor-core tile (all of K resident in
-shared memory, output stored asynchronously).
+rows, or K not a multiple of 16 or above 1024, or N not a multiple of 4,
+run the dp4a GEMV; every other shape runs the tensor-core tile (all of K
+and the weight columns resident in shared memory, row tiles walked by
+each block).
 """
 
 from __future__ import annotations
