@@ -88,17 +88,16 @@ last line is ``{"ok": true, "device": {...}}``.
 runs phases 1-2, then only that kernel's phase-3 rows (of the
 ``repro_torch`` under ``--src`` when given, say the ``src`` of a ``git
 archive`` of the parent commit unpacked under ``_checkouts/``), prints
-one JSON line of those rows and exits non-zero on any mismatch
-(``--unchecked`` times without the comparison, for diagnostic variants of
-a kernel whose output is knowingly wrong); it never prints the ``{"ok":
-...}`` line.  Two trees are timed in one call by
-running it once for each, by turns.
+one JSON line of those rows and exits non-zero on any mismatch; it
+never prints the ``{"ok": ...}`` line.  Two trees are timed in one call
+by running it once for each, by turns.
 
     python3 chip_smoke.py --serving [--src OTHER/src]
 
 runs phases 1-2, 4, 6 and 8 alone, with their checks (of the tree under
 ``--src`` when given), and prints one JSON line of phase 6's summary and
-phase 8's records: the serving paths of two trees, side by side.
+phase 8's records.  It is how a kernel's redesign is timed end to end:
+run it on the parent's tree and on the change's by turns, in one call.
 
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
@@ -110,7 +109,6 @@ alternating pairs of fresh processes, and prints the comparison as JSON.
 from __future__ import annotations
 
 import dataclasses
-import inspect
 import itertools
 import json
 import statistics
@@ -249,14 +247,12 @@ def _copies(nbytes: int) -> int:
     return max(2, -(-120 * 2**20 // nbytes))
 
 
-def _close(a, b, check: bool = True) -> float:
-    """max |a - b|; raises unless |a - b| <= RTOL * |b| everywhere (unless
-    ``check`` is off: ``--kernel ... --unchecked`` times a diagnostic
-    variant of a kernel whose output is knowingly wrong)."""
+def _close(a, b) -> float:
+    """max |a - b|; raises unless |a - b| <= RTOL * |b| everywhere."""
     import torch
 
     err = (a - b).abs()
-    if check and not torch.all(err <= RTOL * b.abs()):
+    if not torch.all(err <= RTOL * b.abs()):
         raise AssertionError(f"kernel disagrees with its plain version: max |err| {err.max().item()}")
     return err.max().item()
 
@@ -278,9 +274,9 @@ def _codes_close(q, q_ref, g, g_ref) -> float:
     return g_err.max().item()
 
 
-def phase_kernels(torch, peaks, only=None, check=True):
+def phase_kernels(torch, peaks, only=None):
     """Phase 3's GEMM and GEMV rows (``only='int8_matmul'``: that kernel's
-    rows alone; ``check=False``: not held to the plain version)."""
+    rows alone)."""
     from repro_torch.kernels import w1a8_gemv as wg
     from repro_torch.kernels.decoupled_matmul import decoupled_matmul, decoupled_matmul_plain
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
@@ -334,35 +330,31 @@ def phase_kernels(torch, peaks, only=None, check=True):
     k, n = INT8_SHAPE
     ws = [int8(k, n) for _ in range(_copies(k * n))]
     wscale = scalar(1 / 0.0019)
-    # a tree whose wrapper writes f32 only (an older commit under --src)
-    dtypes = ((torch.float32, torch.bfloat16)
-              if "out_dtype" in inspect.signature(int8_matmul).parameters else (torch.float32,))
+    dtypes = (torch.float32, torch.bfloat16)
     for m in INT8_ROWS:
         x = int8(m, k)
         gamma = scales(m)
         for dt in dtypes:
-            kw = {"out_dtype": dt} if dt != torch.float32 else {}
-            err = _close(int8_matmul(x, ws[0], gamma, wscale, **kw).float(),
-                         int8_matmul_plain(x, ws[0], gamma, wscale, **kw).float(), check)
+            err = _close(int8_matmul(x, ws[0], gamma, wscale, dt).float(),
+                         int8_matmul_plain(x, ws[0], gamma, wscale, dt).float())
             if dt != torch.float32 and m <= 32:
                 continue  # held, not timed
             b = bound(m * k + k * n + m * 4 + 4 + m * n * dt.itemsize, 2 * m * k * n)
             # torch._int_mm's shape rule: M > 16, K and N multiples of 8
             library = (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None
             record("int8_matmul", m, (k, n), err,
-                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale, **kw),
-                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale, **kw), b, library,
+                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale, dt),
+                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale, dt), b, library,
                    tag="" if dt == torch.float32 else "bf16")
     # held, not timed: K not a multiple of 128, N ragged against the tile,
     # and a shape the shape rule sends to the GEMV route at any M
     for (k, n), m, dt in itertools.product(INT8_RAGGED, (33, 129, 1000), dtypes):
-        kw = {"out_dtype": dt} if dt != torch.float32 else {}
         x, w, gamma = int8(m, k), int8(k, n), scales(m)
-        err = _close(int8_matmul(x, w, gamma, wscale, **kw).float(),
-                     int8_matmul_plain(x, w, gamma, wscale, **kw).float(), check)
+        err = _close(int8_matmul(x, w, gamma, wscale, dt).float(),
+                     int8_matmul_plain(x, w, gamma, wscale, dt).float())
         results["int8_matmul"]["max_abs_err"] = max(results["int8_matmul"]["max_abs_err"], err)
     log(f"[3] int8_matmul held exactly at (K, N) {INT8_RAGGED} x M (33, 129, 1000) x "
-        f"{[str(d).split('.')[-1] for d in dtypes]}")
+        f"f32, bf16")
     if only == "int8_matmul":
         return results
 
@@ -1479,7 +1471,7 @@ def phase_build(_cuda) -> float:
     return t0
 
 
-def one_kernel(torch, kernel: str, src: Path, check: bool = True) -> int:
+def one_kernel(torch, kernel: str, src: Path) -> int:
     """Phases 1-2, then phase 3's rows of one kernel alone, of the
     ``repro_torch`` package under ``src``: prints one JSON line of those
     rows (time, host us, plain time, bound and library time per shape).
@@ -1489,7 +1481,7 @@ def one_kernel(torch, kernel: str, src: Path, check: bool = True) -> int:
 
     smi, _, peaks = phase_card(torch)
     phase_build(_cuda)
-    res = phase_kernels(torch, peaks, only=kernel, check=check)[kernel]
+    res = phase_kernels(torch, peaks, only=kernel)[kernel]
     print(json.dumps({
         "kernel": kernel, "src": str(src), "card": smi, "max_abs_err": res["max_abs_err"],
         "rows": [{"shape": list(key), **row} for key, row in res["rows"].items()],
@@ -1588,11 +1580,9 @@ if __name__ == "__main__":
                     help="time decode against another checkout in N alternating pairs")
     ap.add_argument("--kernel", choices=("int8_matmul",),
                     help="phases 1-2 and this kernel's phase-3 rows only")
-    ap.add_argument("--unchecked", action="store_true",
-                    help="with --kernel: time without holding the kernel to its plain version "
-                    "(for diagnostic variants whose output is knowingly wrong)")
     ap.add_argument("--serving", action="store_true",
-                    help="phases 1-2, 4, 6 and 8 only (end-to-end serving)")
+                    help="phases 1-2, 4, 6 and 8 only (end-to-end serving; run on two trees "
+                    "by turns to time a kernel's redesign against its parent)")
     ap.add_argument("--src", metavar="SRC", help="with --kernel or --serving: the src/ tree "
                     "to import repro_torch from (default: this checkout's)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
@@ -1606,7 +1596,7 @@ if __name__ == "__main__":
         sys.exit(time_slice(torch, Path(args.time_slice)))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
-        sys.exit(one_kernel(torch, args.kernel, src, check=not args.unchecked))
+        sys.exit(one_kernel(torch, args.kernel, src))
     if args.serving:
         sys.exit(serving(torch, src))
     if args.pairs:

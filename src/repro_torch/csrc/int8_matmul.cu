@@ -373,9 +373,14 @@ cudaError_t launch(const int8_t* x, const int8_t* w, const float* gamma, const f
 
 }  // namespace
 
+// The route int8_matmul_launch takes for (m, k, n): 1 the tensor-core
+// tile, 0 the GEMV.
+extern "C" int int8_matmul_route(int m, int k, int n) { return tile_route(m, k, n) ? 1 : 0; }
+
 // Plain C entry point (bound with ctypes): x (m, k) i8, w (k, n) i8,
 // gamma (m,) f32, wscale one f32, out (m, n) of out_dtype (0 f32, 1 bf16),
-// all device pointers, x 16-byte and w 4-byte aligned; k a multiple of 4.
+// all device pointers; k a multiple of 4.  The tile route needs x 16-byte
+// and w 4-byte aligned; the GEMV reads bytes and needs neither.
 // Returns the cudaError_t of the launch and never synchronizes.
 extern "C" int int8_matmul_launch(const int8_t* x, const int8_t* w, const float* gamma,
                                   const float* wscale, void* out, int out_dtype, int m, int k,

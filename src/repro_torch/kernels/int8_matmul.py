@@ -12,7 +12,9 @@ The launch picks one of two routes by shape, never on failure: M <= 32
 rows, or K not a multiple of 16 or above 1024, or N not a multiple of 4,
 run the dp4a GEMV; every other shape runs the tensor-core tile (all of K
 and the weight columns resident in shared memory, row tiles walked by
-each block).
+each block).  ``int8_matmul_route`` asks the CUDA source which one a
+shape takes.  The tile needs x 16-byte and w 4-byte aligned; the GEMV
+reads bytes and takes any view.
 """
 
 from __future__ import annotations
@@ -31,7 +33,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, gamma, wscale, out, out_dtype, m, k, n, device, stream
     "int8_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
+    # m, k, n
+    "int8_matmul_route": [_I] * 3,
 }
+
+
+def int8_matmul_route(m: int, k: int, n: int) -> str:
+    """The route the kernel takes for an (m, k) x (k, n) product on the
+    card: "tile" or "gemv" (builds the kernel on first use)."""
+    lib = _cuda.load("int8_matmul", _SIGNATURES)
+    return "tile" if lib.int8_matmul_route(m, k, n) else "gemv"
 
 
 def int8_matmul_plain(x_i8: Tensor, w_i8: Tensor, gamma: Tensor, wscale: Tensor,
@@ -61,9 +72,9 @@ def int8_matmul(x_i8: Tensor, w_i8: Tensor, gamma: Tensor, wscale: Tensor,
     if k2 != k or gamma.shape != (m,) or m < 1 or n < 1 or k % 4:
         raise ValueError(f"shape mismatch: x {tuple(x_i8.shape)}, w {tuple(w_i8.shape)}, "
                          f"gamma {tuple(gamma.shape)} (K must be a multiple of 4)")
-    if x_i8.data_ptr() % 16 or w_i8.data_ptr() % 4:
-        raise ValueError("x must be 16-byte and w 4-byte aligned (the tile copies 16-byte "
-                         "rows of x and 4-byte words of w)")
+    if (x_i8.data_ptr() % 16 or w_i8.data_ptr() % 4) and int8_matmul_route(m, k, n) == "tile":
+        raise ValueError("the tile route needs x 16-byte and w 4-byte aligned (it copies "
+                         "16-byte rows of x and 4-byte words of w)")
     code = _cuda.float_code(out_dtype, "out_dtype")
     wscale_p = _cuda.scalar_ptr(wscale, dev, "wscale")
     out = torch.empty((m, n), dtype=out_dtype, device=x_i8.device)

@@ -27,7 +27,7 @@ from repro.kernels import ref as jref
 from repro_torch.core.quantization import fdiv, quantize_act_int8
 from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels.decoupled_matmul import decoupled_matmul_plain
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain, int8_matmul_route
 from repro_torch.kernels.w1a8_gemv import (
     decoupled_gemv,
     decoupled_gemv_plain,
@@ -230,6 +230,7 @@ def test_cuda_kernels_equal_plain_versions(cuda_device, m):
     for a, b in zip(decoupled_gemv(xs, ps, ws, *sc), decoupled_gemv_plain(xs, ps, ws, *sc)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     q, g = ref.quantize_act_ref(xs)
+    assert int8_matmul_route(m, *ws.shape) == "gemv"
     torch.testing.assert_close(int8_matmul(q, ws, g, sc[1]), int8_matmul_plain(q, ws, g, sc[1]),
                                rtol=0, atol=0)
     for name in ("w1a8_gemv", "decoupled_gemv", "int8_matmul"):
@@ -240,8 +241,8 @@ def test_cuda_kernels_equal_plain_versions(cuda_device, m):
 @pytest.mark.parametrize("m", [33, 136])
 def test_cuda_rows_above_decode_tier_launch_prefill_kernels(cuda_device, m):
     """Above DECODE_M_MAX rows ops launches w1a8_matmul / decoupled_matmul
-    and int8_matmul's tile route (never a GEMV, never a plain version),
-    each equal to its plain version."""
+    (never a decode GEMV, never a plain version) and int8_matmul, whose
+    launch takes the tile route; each equals its plain version."""
     x, packed, w8 = _inputs(m, 256, 160, 32, seed=m)
     dev = cuda_device
     xs, ps, ws = _t(x).to(dev), _t(packed).to(dev), _t(w8).to(dev)
@@ -251,6 +252,7 @@ def test_cuda_rows_above_decode_tier_launch_prefill_kernels(cuda_device, m):
     y1, y8 = ops.decoupled_first_gemm(xs, ps, ws, *sc, out_dtype=torch.bfloat16)
     y_i8 = ops.int8_linear_infer(xs, ws, sc[1], out_dtype=torch.bfloat16)
     assert _cuda.LAUNCHES["int8_matmul"] == before.get("int8_matmul", 0) + 1
+    assert int8_matmul_route(m, *ws.shape) == "tile"
     assert _cuda.LAUNCHES["w1a8_matmul"] == before.get("w1a8_matmul", 0) + 1
     assert _cuda.LAUNCHES["decoupled_matmul"] == before.get("decoupled_matmul", 0) + 1
     for name in ("w1a8_gemv", "decoupled_gemv"):
@@ -272,7 +274,8 @@ def test_cuda_int8_matmul_equals_plain_version(cuda_device, m, k, n, out_dtype):
     """int8_matmul above the decode tier, bit for bit against its plain
     version: w8_down's shape, K not a multiple of 128 (16, 400), N ragged
     against the tile (64, 72, 66), and (20, 66), which the shape rule
-    sends to the GEMV route; one launch a call."""
+    sends to the GEMV route (every other pair takes the tile); one launch
+    a call."""
     rng = np.random.default_rng(m + k + n)
     dev = cuda_device
     x = _t(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
@@ -280,8 +283,35 @@ def test_cuda_int8_matmul_equals_plain_version(cuda_device, m, k, n, out_dtype):
     gamma = _t((rng.random(m) * 50 + 10).astype(np.float32)).to(dev)
     wscale = torch.tensor(1 / 0.0019, dtype=torch.float32, device=dev)
     dt = getattr(torch, out_dtype)
+    assert int8_matmul_route(m, k, n) == ("gemv" if (k, n) == (20, 66) else "tile")
     before = _cuda.LAUNCHES["int8_matmul"]
     got = int8_matmul(x, w, gamma, wscale, dt)
     assert _cuda.LAUNCHES["int8_matmul"] == before + 1
     assert got.dtype == dt and got.shape == (m, n)
     torch.testing.assert_close(got, int8_matmul_plain(x, w, gamma, wscale, dt), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 33])
+def test_cuda_int8_matmul_alignment_by_route(cuda_device, m):
+    """x 4-byte but not 16-byte aligned: the GEMV route (M 4) reads bytes
+    and takes it, equal to the plain version; the tile route (M 33)
+    raises ValueError and launches nothing."""
+    k, n = 384, 2048
+    rng = np.random.default_rng(m)
+    dev = cuda_device
+    buf = _t(rng.integers(-127, 128, m * k + 16).astype(np.int8)).to(dev)
+    x = buf[4:4 + m * k].view(m, k)
+    assert x.data_ptr() % 16 and not x.data_ptr() % 4
+    w = _t(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
+    gamma = _t((rng.random(m) * 50 + 10).astype(np.float32)).to(dev)
+    wscale = torch.tensor(1 / 0.0019, dtype=torch.float32, device=dev)
+    before = _cuda.LAUNCHES["int8_matmul"]
+    if int8_matmul_route(m, k, n) == "tile":
+        with pytest.raises(ValueError, match="aligned"):
+            int8_matmul(x, w, gamma, wscale)
+        assert _cuda.LAUNCHES["int8_matmul"] == before
+    else:
+        torch.testing.assert_close(int8_matmul(x, w, gamma, wscale),
+                                   int8_matmul_plain(x, w, gamma, wscale), rtol=0, atol=0)
+        assert _cuda.LAUNCHES["int8_matmul"] == before + 1
