@@ -16,12 +16,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. each kernel against its plain PyTorch version on the card at the
    shapes of pquant-1.3b: the decode tier at M in {1, 4, 5, 8, 32}, the
    prefill tier (``w1a8_matmul``, ``decoupled_matmul``, ``int8_matmul``,
-   ``rmsnorm_quant``) at M in {33, 64, 512, 8192}, ``int8_matmul`` at
-   both tiers' rows and at 1024 (a chunked slice).  The GEMMs and GEMVs
-   must agree within rtol 1e-6 (they are built to agree bit for bit, and
-   the prefill GEMMs and ``int8_matmul`` are held in f32 and bf16; the
-   bf16 ``int8_matmul`` is timed too above 32 rows); ``rmsnorm_quant`` within
-   its stated tolerance (RMSNORM_*).  Prints the kernel's median time
+   ``rmsnorm_quant``) at M in {33, 64, 512, 8192}, ``int8_matmul`` and
+   ``w1a8_matmul`` also at 1024 (a chunked slice), ``int8_matmul`` at both
+   tiers' rows.  The GEMMs and GEMVs must agree within rtol 1e-6 (they are
+   built to agree bit for bit: the decode GEMVs are held with x and the
+   output each in f32 and bf16, the prefill GEMMs and ``int8_matmul`` with
+   the output in f32 and bf16, ``w1a8_matmul`` and ``int8_matmul`` also at
+   ragged (K, N)); the bf16 GEMVs are timed at 4 and 32 rows, the bf16
+   ``int8_matmul`` above 32 rows, the bf16 ``w1a8_matmul`` at 8192, with
+   the int8 TOP/s of each prefill GEMM; ``rmsnorm_quant`` within its stated
+   tolerance (RMSNORM_*).  Prints the kernel's median time
    (CUDA events, weights rotated through more copies than the 50 MB L2
    holds), the host's time to issue one call, the plain version's time,
    the bound (bytes over the card's memory rate, or operations over its
@@ -83,9 +87,12 @@ time of ``scaled_dot_product_attention`` on the gathered view.
 The line before the last is the JSON record of the ported kernels; the
 last line is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --kernel int8_matmul [--src OTHER/src]
+    python3 chip_smoke.py --kernel NAME [--src OTHER/src]
 
-runs phases 1-2, then only that kernel's phase-3 rows (of the
+with NAME any kernel of phase 3 (``w1a8_gemv``, ``decoupled_gemv``,
+``int8_matmul``, ``w1a8_matmul``, ``decoupled_matmul``,
+``paged_attention``, ``rmsnorm_quant``) runs phases 1-2, then only that
+kernel's phase-3 rows (of the
 ``repro_torch`` under ``--src`` when given, say the ``src`` of a ``git
 archive`` of the parent commit unpacked under ``_checkouts/``), prints
 one JSON line of those rows and exits non-zero on any mismatch; it
@@ -129,6 +136,8 @@ ROWS = (1, 4, 5, 8, 32)
 PREFILL_ROWS = (33, 64, 512, 8192)
 CHUNK_ROWS = 1024  # a chunked-prefill slice of phase 8 (b): 16 requests x 64 tokens
 INT8_ROWS = ROWS + PREFILL_ROWS + (CHUNK_ROWS,)
+W1A8_MATMUL_ROWS = (33, 64, 512, CHUNK_ROWS, 8192)
+W1A8_RAGGED = ((400, 72), (16, 64))  # general (K, N) of w1a8_matmul (N 72: the mma route)
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
 PREFILL_MAIN_ROWS = 8192  # prefill rows of the prefill-tier path (64 x 128 tokens)
 RTOL = 1e-6  # kernel vs plain version (built to agree exactly)
@@ -274,20 +283,28 @@ def _codes_close(q, q_ref, g, g_ref) -> float:
     return g_err.max().item()
 
 
+def _signature_has(fn, name: str) -> bool:
+    """Whether ``fn`` takes a parameter ``name`` (a parent tree timed with
+    ``--src`` may predate it)."""
+    import inspect
+
+    return name in inspect.signature(fn).parameters
+
+
 def phase_kernels(torch, peaks, only=None):
-    """Phase 3's GEMM and GEMV rows (``only='int8_matmul'``: that kernel's
-    rows alone)."""
+    """Phase 3's GEMM and GEMV rows (``only``: one kernel's rows alone)."""
     from repro_torch.kernels import w1a8_gemv as wg
+    from repro_torch.kernels import w1a8_matmul as wm
     from repro_torch.kernels.decoupled_matmul import decoupled_matmul, decoupled_matmul_plain
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
     from repro_torch.kernels.ref import unpack_ref
     from repro_torch.kernels.rmsnorm_quant import rmsnorm_quant, rmsnorm_quant_plain
-    from repro_torch.kernels.w1a8_matmul import w1a8_matmul, w1a8_matmul_plain
 
     bw, ops_rate = peaks
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     f32 = dict(dtype=torch.float32, device=dev)
+    dtypes = (torch.float32, torch.bfloat16)
 
     def scalar(v):
         return torch.full((), v, **f32)
@@ -307,137 +324,199 @@ def phase_kernels(torch, peaks, only=None):
 
     results = {}
 
-    def record(name, m, shape, err, call, plain_call, b, library_call=None, tag=""):
+    def record(name, m, shape, err, call, plain_call, b, library_call=None, tag="", nops=None):
         iters = 200 if m * shape[0] < 2**24 else 50
         ms = _time(torch, call, iters)
         host_us = _host_us(torch, call)
         plain_ms = _time(torch, plain_call, 3, 3)
         library_ms = None if library_call is None else _time(torch, library_call, iters)
         label = f"{name} {tag}" if tag else name
+        rate = "" if nops is None else f", {nops / ms / 1e9:.0f} int8 TOP/s"
         log(f"[3] {label} M={m} {shape}: max|err| {err:.3g}, kernel {ms * 1e3:.2f} us "
-            f"(host {host_us:.1f} us/call), plain {plain_ms * 1e3:.1f} us, "
+            f"(host {host_us:.1f} us/call{rate}), plain {plain_ms * 1e3:.1f} us, "
             f"bound {b[0] * 1e3:.3f} us ({b[1]}), "
             f"library {'none' if library_ms is None else f'{library_ms * 1e3:.2f} us'}")
         r = results.setdefault(name, {"max_abs_err": 0.0, "rows": {}})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["rows"][(m,) + shape + ((tag,) if tag else ())] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=library_ms,
-            host_us=host_us)
+            host_us=host_us, **({} if nops is None else {"tops": nops / ms / 1e9}))
 
-    # --- int8_matmul serves every M: both tiers' row counts and the
-    # chunked slice; held exactly in f32 and bf16, timed in f32 at every M
-    # and in bf16 above the decode tier ---
-    k, n = INT8_SHAPE
-    ws = [int8(k, n) for _ in range(_copies(k * n))]
-    wscale = scalar(1 / 0.0019)
-    dtypes = (torch.float32, torch.bfloat16)
-    for m in INT8_ROWS:
-        x = int8(m, k)
-        gamma = scales(m)
-        for dt in dtypes:
-            err = _close(int8_matmul(x, ws[0], gamma, wscale, dt).float(),
-                         int8_matmul_plain(x, ws[0], gamma, wscale, dt).float())
-            if dt != torch.float32 and m <= 32:
-                continue  # held, not timed
-            b = bound(m * k + k * n + m * 4 + 4 + m * n * dt.itemsize, 2 * m * k * n)
-            # torch._int_mm's shape rule: M > 16, K and N multiples of 8
-            library = (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None
-            record("int8_matmul", m, (k, n), err,
-                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale, dt),
-                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale, dt), b, library,
-                   tag="" if dt == torch.float32 else "bf16")
-    # held, not timed: K not a multiple of 128, N ragged against the tile,
-    # and a shape the shape rule sends to the GEMV route at any M
-    for (k, n), m, dt in itertools.product(INT8_RAGGED, (33, 129, 1000), dtypes):
-        x, w, gamma = int8(m, k), int8(k, n), scales(m)
-        err = _close(int8_matmul(x, w, gamma, wscale, dt).float(),
-                     int8_matmul_plain(x, w, gamma, wscale, dt).float())
-        results["int8_matmul"]["max_abs_err"] = max(results["int8_matmul"]["max_abs_err"], err)
-    log(f"[3] int8_matmul held exactly at (K, N) {INT8_RAGGED} x M (33, 129, 1000) x "
-        f"f32, bf16")
-    if only == "int8_matmul":
-        return results
+    def held(name, err):
+        r = results.setdefault(name, {"max_abs_err": 0.0, "rows": {}})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
 
-    # --- decode tier: fused act-quant GEMVs (M <= 32) ---
-    lam = scalar(0.031)
-    for k, n in W1A8_SHAPES:
-        ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+    def rows_int8_matmul():
+        # int8_matmul serves every M: both tiers' row counts and the
+        # chunked slice; held exactly in f32 and bf16, timed in f32 at
+        # every M and in bf16 above the decode tier
+        k, n = INT8_SHAPE
+        ws = [int8(k, n) for _ in range(_copies(k * n))]
+        wscale = scalar(1 / 0.0019)
+        for m in INT8_ROWS:
+            x = int8(m, k)
+            gamma = scales(m)
+            for dt in dtypes:
+                err = _close(int8_matmul(x, ws[0], gamma, wscale, dt).float(),
+                             int8_matmul_plain(x, ws[0], gamma, wscale, dt).float())
+                if dt != torch.float32 and m <= 32:
+                    held("int8_matmul", err)
+                    continue  # held, not timed
+                b = bound(m * k + k * n + m * 4 + 4 + m * n * dt.itemsize, 2 * m * k * n)
+                # torch._int_mm's shape rule: M > 16, K and N multiples of 8
+                library = (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None
+                record("int8_matmul", m, (k, n), err,
+                       lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale, dt),
+                       lambda i: int8_matmul_plain(x, ws[0], gamma, wscale, dt), b, library,
+                       tag="" if dt == torch.float32 else "bf16")
+        # held, not timed: K not a multiple of 128, N ragged against the
+        # tile, and a shape the shape rule sends to the GEMV route at any M
+        for (k, n), m, dt in itertools.product(INT8_RAGGED, (33, 129, 1000), dtypes):
+            x, w, gamma = int8(m, k), int8(k, n), scales(m)
+            held("int8_matmul", _close(int8_matmul(x, w, gamma, wscale, dt).float(),
+                                       int8_matmul_plain(x, w, gamma, wscale, dt).float()))
+        log(f"[3] int8_matmul held exactly at (K, N) {INT8_RAGGED} x M (33, 129, 1000) x "
+            f"f32, bf16")
+
+    def rows_w1a8_gemv():
+        # decode tier: fused act-quant GEMV (M <= 32); held exactly for x
+        # and the output in f32 and bf16, timed all-f32 at every M and
+        # all-bf16 at the decode tier's 4 rows and at 32
+        typed = _signature_has(wg.w1a8_gemv, "out_dtype")
+        lam = scalar(0.031)
+        for k, n in W1A8_SHAPES:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            for m in ROWS:
+                x = torch.randn((m, k), generator=gen, **f32)
+                for xt, dt in itertools.product(dtypes, dtypes) if typed else [dtypes[:1] * 2]:
+                    xd = x.to(xt)
+                    kw = {"out_dtype": dt} if typed else {}
+                    err = _close(wg.w1a8_gemv(xd, ws[0], lam, **kw).float(),
+                                 wg.w1a8_gemv_plain(xd, ws[0], lam, **kw).float())
+                    held("w1a8_gemv", err)
+                    if xt != dt or (dt != torch.float32 and m not in (MAIN_ROWS, 32)):
+                        continue
+                    b = bound(m * k * xt.itemsize + k // 8 * n + 4 + m * n * dt.itemsize,
+                              2 * m * k * n)
+                    record("w1a8_gemv", m, (k, n), err,
+                           lambda i: wg.w1a8_gemv(xd, ws[i % len(ws)], lam, **kw),
+                           lambda i: wg.w1a8_gemv_plain(xd, ws[0], lam, **kw), b,
+                           tag="" if dt == torch.float32 else "bf16")
+
+    def rows_decoupled_gemv():
+        typed = _signature_has(wg.decoupled_gemv, "out_dtype")
+        k, n, r = DECOUPLED_SHAPE
+        w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+        w8s = [int8(k, r) for _ in w1s]
+        sc = [scalar(0.027), scalar(1 / 0.0021), scalar(1.0), scalar(1.0)]
         for m in ROWS:
             x = torch.randn((m, k), generator=gen, **f32)
-            err = _close(wg.w1a8_gemv(x, ws[0], lam), wg.w1a8_gemv_plain(x, ws[0], lam))
-            b = bound(m * k * 4 + k // 8 * n + 4 + m * n * 4, 2 * m * k * n)
-            record("w1a8_gemv", m, (k, n), err,
-                   lambda i: wg.w1a8_gemv(x, ws[i % len(ws)], lam),
-                   lambda i: wg.w1a8_gemv_plain(x, ws[0], lam), b)
+            for xt, dt in itertools.product(dtypes, dtypes) if typed else [dtypes[:1] * 2]:
+                xd = x.to(xt)
+                kw = {"out_dtype": dt} if typed else {}
+                got = wg.decoupled_gemv(xd, w1s[0], w8s[0], *sc, **kw)
+                want = wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, **kw)
+                err = max(_close(got[0].float(), want[0].float()),
+                          _close(got[1].float(), want[1].float()))
+                held("decoupled_gemv", err)
+                if xt != dt or (dt != torch.float32 and m not in (MAIN_ROWS, 32)):
+                    continue
+                b = bound(m * k * xt.itemsize + k // 8 * n + k * r + 16
+                          + m * (n + r) * dt.itemsize, 2 * m * k * (n + r))
+                record("decoupled_gemv", m, (k, n, r), err,
+                       lambda i: wg.decoupled_gemv(xd, w1s[i % len(w1s)], w8s[i % len(w8s)],
+                                                   *sc, **kw),
+                       lambda i: wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, **kw), b,
+                       tag="" if dt == torch.float32 else "bf16")
 
-    k, n, r = DECOUPLED_SHAPE
-    w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
-    w8s = [int8(k, r) for _ in w1s]
-    sc = [scalar(0.027), scalar(1 / 0.0021), scalar(1.0), scalar(1.0)]
-    for m in ROWS:
-        x = torch.randn((m, k), generator=gen, **f32)
-        got = wg.decoupled_gemv(x, w1s[0], w8s[0], *sc)
-        want = wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc)
-        err = max(_close(got[0], want[0]), _close(got[1], want[1]))
-        b = bound(m * k * 4 + k // 8 * n + k * r + 16 + m * (n + r) * 4, 2 * m * k * (n + r))
-        record("decoupled_gemv", m, (k, n, r), err,
-               lambda i: wg.decoupled_gemv(x, w1s[i % len(w1s)], w8s[i % len(w8s)], *sc),
-               lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b)
+    def rows_w1a8_matmul():
+        # prefill tier on pre-quantized rows (M > 32): held exactly in f32
+        # (the main path's activation type) and in bf16 (what upstream's
+        # ops write) at every M and at ragged (K, N), timed in f32 at
+        # every M and in bf16 at 8192 rows; the route each shape takes
+        route = getattr(wm, "w1a8_matmul_route", None)
+        lam = scalar(0.031)
+        for k, n in W1A8_SHAPES:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])  # the library call's unpacked +-1 weight
+            for m in W1A8_MATMUL_ROWS:
+                x, gamma = int8(m, k), scales(m)
+                for dt in dtypes:
+                    err = _close(wm.w1a8_matmul(x, ws[0], gamma, lam, dt).float(),
+                                 wm.w1a8_matmul_plain(x, ws[0], gamma, lam, dt).float())
+                    if dt != torch.float32 and m != PREFILL_MAIN_ROWS:
+                        held("w1a8_matmul", err)
+                        continue
+                    b = bound(m * k + k // 8 * n + m * 4 + 4 + m * n * dt.itemsize,
+                              2 * m * k * n)
+                    record("w1a8_matmul", m, (k, n), err,
+                           lambda i: wm.w1a8_matmul(x, ws[i % len(ws)], gamma, lam, dt),
+                           lambda i: wm.w1a8_matmul_plain(x, ws[0], gamma, lam, dt), b,
+                           lambda i: torch._int_mm(x, w_lib),
+                           tag="" if dt == torch.float32 else "bf16", nops=2 * m * k * n)
+        for (k, n), m, dt in itertools.product(W1A8_RAGGED, (33, 129, 1000), dtypes):
+            x, w, gamma = int8(m, k), packed(k, n), scales(m)
+            held("w1a8_matmul", _close(wm.w1a8_matmul(x, w, gamma, lam, dt).float(),
+                                       wm.w1a8_matmul_plain(x, w, gamma, lam, dt).float()))
+        log(f"[3] w1a8_matmul held exactly at (K, N) {W1A8_RAGGED} x M (33, 129, 1000) x "
+            f"f32, bf16" + ("" if route is None else "; routes (M, K, N): " + ", ".join(
+                f"{(m,) + s} {route(m, *s)}" for s in W1A8_SHAPES + W1A8_RAGGED
+                for m in W1A8_MATMUL_ROWS)))
 
-    # --- prefill tier: tiled GEMMs on pre-quantized rows (M > 32) ---
-    # held exactly in f32 (the main path's activation type) and in bf16
-    # (what upstream's ops write); timed in f32
-    for k, n in W1A8_SHAPES:
-        ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
-        w_lib = unpack_ref(ws[0])  # the library call's unpacked +-1 weight
+    def rows_decoupled_matmul():
+        k, n, r = DECOUPLED_SHAPE
+        w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+        w8s = [int8(k, r) for _ in w1s]
+        sc = [scalar(0.027), scalar(1 / 0.0021), scalar(1.0), scalar(1.0)]
+        w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)  # both products in one call
         for m in PREFILL_ROWS:
             x, gamma = int8(m, k), scales(m)
-            err = max(_close(w1a8_matmul(x, ws[0], gamma, lam, dt).float(),
-                             w1a8_matmul_plain(x, ws[0], gamma, lam, dt).float())
-                      for dt in (torch.float32, torch.bfloat16))
-            b = bound(m * k + k // 8 * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
-            record("w1a8_matmul", m, (k, n), err,
-                   lambda i: w1a8_matmul(x, ws[i % len(ws)], gamma, lam),
-                   lambda i: w1a8_matmul_plain(x, ws[0], gamma, lam), b,
-                   lambda i: torch._int_mm(x, w_lib))
+            err = 0.0
+            for dt in dtypes:
+                got = decoupled_matmul(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                want = decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                err = max(err, _close(got[0].float(), want[0].float()),
+                          _close(got[1].float(), want[1].float()))
+            b = bound(m * k + k // 8 * n + k * r + m * 4 + 16 + m * (n + r) * 4,
+                      2 * m * k * (n + r))
+            record("decoupled_matmul", m, (k, n, r), err,
+                   lambda i: decoupled_matmul(x, w1s[i % len(w1s)], w8s[i % len(w8s)], gamma,
+                                              *sc),
+                   lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
+                   lambda i: torch._int_mm(x, w_lib), nops=2 * m * k * (n + r))
 
-    k, n, r = DECOUPLED_SHAPE
-    w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
-    w8s = [int8(k, r) for _ in w1s]
-    w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)  # both products in one call
-    for m in PREFILL_ROWS:
-        x, gamma = int8(m, k), scales(m)
-        err = 0.0
-        for dt in (torch.float32, torch.bfloat16):
-            got = decoupled_matmul(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
-            want = decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
-            err = max(err, _close(got[0].float(), want[0].float()),
-                      _close(got[1].float(), want[1].float()))
-        b = bound(m * k + k // 8 * n + k * r + m * 4 + 16 + m * (n + r) * 4,
-                  2 * m * k * (n + r))
-        record("decoupled_matmul", m, (k, n, r), err,
-               lambda i: decoupled_matmul(x, w1s[i % len(w1s)], w8s[i % len(w8s)], gamma, *sc),
-               lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
-               lambda i: torch._int_mm(x, w_lib))
+    def rows_rmsnorm_quant():
+        # on bf16 and f32 rows of d_model; no PyTorch call computes the
+        # same function
+        d = D_MODEL
+        norm_scale = torch.rand((d,), generator=gen, **f32) + 0.5
+        for dt in (torch.bfloat16, torch.float32):
+            for m in PREFILL_ROWS:
+                x = (torch.randn((m, d), generator=gen, **f32) * 3).to(dt)
+                q, g = rmsnorm_quant(x, norm_scale)
+                q_ref, g_ref = rmsnorm_quant_plain(x, norm_scale)
+                err = _codes_close(q, q_ref, g, g_ref)
+                b = bound(m * d * x.element_size() + d * 4 + m * d + m * 4, 0)
+                record("rmsnorm_quant", m, (d,), err, lambda i: rmsnorm_quant(x, norm_scale),
+                       lambda i: rmsnorm_quant_plain(x, norm_scale), b,
+                       tag="" if dt == torch.bfloat16 else "f32")
 
-    # rmsnorm_quant on bf16 and f32 rows of d_model; no PyTorch call
-    # computes the same function
-    d = D_MODEL
-    norm_scale = torch.rand((d,), generator=gen, **f32) + 0.5
-    for dt in (torch.bfloat16, torch.float32):
-        for m in PREFILL_ROWS:
-            x = (torch.randn((m, d), generator=gen, **f32) * 3).to(dt)
-            q, g = rmsnorm_quant(x, norm_scale)
-            q_ref, g_ref = rmsnorm_quant_plain(x, norm_scale)
-            err = _codes_close(q, q_ref, g, g_ref)
-            b = bound(m * d * x.element_size() + d * 4 + m * d + m * 4, 0)
-            record("rmsnorm_quant", m, (d,), err, lambda i: rmsnorm_quant(x, norm_scale),
-                   lambda i: rmsnorm_quant_plain(x, norm_scale), b,
-                   tag="" if dt == torch.bfloat16 else "f32")
-    log("[3] library call: none computes a packed 1-bit product, so w1a8_gemv and "
-        "decoupled_gemv have none; int8_matmul's is torch._int_mm (integer product only, "
-        "M > 16); w1a8_matmul's and decoupled_matmul's are torch._int_mm on the unpacked "
-        "+-1 signs (8x the weight bytes, no epilogue); rmsnorm_quant has none")
+    sections = {
+        "int8_matmul": rows_int8_matmul,
+        "w1a8_gemv": rows_w1a8_gemv,
+        "decoupled_gemv": rows_decoupled_gemv,
+        "w1a8_matmul": rows_w1a8_matmul,
+        "decoupled_matmul": rows_decoupled_matmul,
+        "rmsnorm_quant": rows_rmsnorm_quant,
+    }
+    for name, rows in sections.items():
+        if only in (None, name):
+            rows()
+    if only is None:
+        log("[3] library call: none computes a packed 1-bit product, so w1a8_gemv and "
+            "decoupled_gemv have none; int8_matmul's is torch._int_mm (integer product only, "
+            "M > 16); w1a8_matmul's and decoupled_matmul's are torch._int_mm on the unpacked "
+            "+-1 signs (8x the weight bytes, no epilogue); rmsnorm_quant has none")
     return results
 
 
@@ -1481,7 +1560,10 @@ def one_kernel(torch, kernel: str, src: Path) -> int:
 
     smi, _, peaks = phase_card(torch)
     phase_build(_cuda)
-    res = phase_kernels(torch, peaks, only=kernel)[kernel]
+    if kernel == "paged_attention":
+        res = phase_paged_attention(torch, peaks, {})[kernel]
+    else:
+        res = phase_kernels(torch, peaks, only=kernel)[kernel]
     print(json.dumps({
         "kernel": kernel, "src": str(src), "card": smi, "max_abs_err": res["max_abs_err"],
         "rows": [{"shape": list(key), **row} for key, row in res["rows"].items()],
@@ -1578,7 +1660,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     ap.add_argument("--pairs", nargs=2, metavar=("CHECKOUT", "N"),
                     help="time decode against another checkout in N alternating pairs")
-    ap.add_argument("--kernel", choices=("int8_matmul",),
+    ap.add_argument("--kernel", choices=[n for n, _, _ in TPU_KERNELS],
                     help="phases 1-2 and this kernel's phase-3 rows only")
     ap.add_argument("--serving", action="store_true",
                     help="phases 1-2, 4, 6 and 8 only (end-to-end serving; run on two trees "

@@ -16,6 +16,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro {
@@ -81,13 +82,25 @@ __device__ __forceinline__ uint32_t quantize4(float4 v, float g) {
 // loads into registers before it uses any of them.
 constexpr int kInFlight = 8;
 
-// Per-token AbsMax INT8 quantization of x (m x k, f32, row-major, 16-byte
-// aligned, k a multiple of 4) into shared memory, one warp per row, four
-// values per load: gamma = 127 / (max|x| + 1e-5) with IEEE division,
-// codes = clip(rint(x * gamma), -127, 127) with round-half-even — exactly
-// core.quantization.act_scale_int8 / quantize_act_int8.  Rows m..mpad-1
-// get zero codes and unit scale.
-__device__ inline void quantize_rows(const float* __restrict__ x, int m, int k, int mpad,
+// Four consecutive activations of a row as floats: one 16-byte load of
+// f32, or one 8-byte load of bf16 (bf16 -> f32 is exact).
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int i) {
+  return __ldg(reinterpret_cast<const float4*>(row) + i);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* __restrict__ row, int i) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(row) + i);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+}
+
+// Per-token AbsMax INT8 quantization of x (m x k, f32 or bf16, row-major,
+// 16-byte aligned, k a multiple of 8) into shared memory, one warp per
+// row, four values per load, each cast to f32 as it is read: gamma = 127 /
+// (max|x| + 1e-5) with IEEE division, codes = clip(rint(x * gamma), -127,
+// 127) with round-half-even — exactly core.quantization.act_scale_int8 /
+// quantize_act_int8.  Rows m..mpad-1 get zero codes and unit scale.
+template <class In>
+__device__ inline void quantize_rows(const In* __restrict__ x, int m, int k, int mpad,
                                      int8_t* xq, float* gamma) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k4 = k >> 2;
@@ -98,13 +111,13 @@ __device__ inline void quantize_rows(const float* __restrict__ x, int m, int k, 
       if (lane == 0) gamma[row] = 1.0f;
       continue;
     }
-    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * k);
+    const In* xr = x + (size_t)row * k;
     float amax = 0.0f;
     for (int i0 = lane; i0 < k4; i0 += 32 * kInFlight) {
       float4 v[kInFlight];
 #pragma unroll
       for (int j = 0; j < kInFlight; ++j)
-        v[j] = i0 + 32 * j < k4 ? __ldg(xr + i0 + 32 * j) : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[j] = i0 + 32 * j < k4 ? load4(xr, i0 + 32 * j) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int j = 0; j < kInFlight; ++j) amax = fmaxf(amax, abs_max4(v[j]));
     }
@@ -115,7 +128,7 @@ __device__ inline void quantize_rows(const float* __restrict__ x, int m, int k, 
       float4 v[kInFlight];
 #pragma unroll
       for (int j = 0; j < kInFlight; ++j)
-        if (i0 + 32 * j < k4) v[j] = __ldg(xr + i0 + 32 * j);
+        if (i0 + 32 * j < k4) v[j] = load4(xr, i0 + 32 * j);
 #pragma unroll
       for (int j = 0; j < kInFlight; ++j)
         if (i0 + 32 * j < k4) q[i0 + 32 * j] = quantize4(v[j], g);

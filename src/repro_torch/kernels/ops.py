@@ -51,9 +51,11 @@ DECODE_M_MAX = 32
 
 
 def _rows(x: Tensor) -> Tensor:
-    """(..., K) -> contiguous, 16-byte aligned (M, K) float32: the kernels'
-    activation layout (a view that starts mid-allocation is copied)."""
-    xf = x.reshape(-1, x.shape[-1]).float().contiguous()
+    """(..., K) -> contiguous, 16-byte aligned (M, K) rows in a type the
+    decode GEMVs read: bfloat16 stays bfloat16, any other float becomes
+    float32 (a view that starts mid-allocation is copied)."""
+    xf = x.reshape(-1, x.shape[-1])
+    xf = (xf if xf.dtype == torch.bfloat16 else xf.float()).contiguous()
     return xf.clone() if xf.data_ptr() % 16 else xf
 
 
@@ -67,8 +69,7 @@ def _bit_linear_prefill(xf: Tensor, w_packed: Tensor, lam: Tensor, out_dtype) ->
 def _bit_linear_decode(xf: Tensor, w_packed: Tensor, lam: Tensor, out_dtype) -> Tensor:
     """Decode tier: act-quant fused into the GEMV's prologue."""
     with annotate("kernels/w1a8_gemv"):
-        y = w1a8_gemv(_rows(xf), w_packed, lam)
-    return y.to(out_dtype)
+        return w1a8_gemv(_rows(xf), w_packed, lam, out_dtype)
 
 
 def bit_linear_infer(x: Tensor, w_packed: Tensor, lam: Tensor,
@@ -112,9 +113,8 @@ def _decoupled_prefill(xf, w1_packed, w8_q, lam, w8scale, alpha, beta, out_dtype
 def _decoupled_decode(xf, w1_packed, w8_q, lam, w8scale, alpha, beta, out_dtype):
     """Decode tier: one act-quant prologue feeds both branches."""
     with annotate("kernels/decoupled_gemv"):
-        y1, y8 = decoupled_gemv(_rows(xf), w1_packed, w8_q.contiguous(), lam, w8scale,
-                                alpha, beta)
-    return y1.to(out_dtype), y8.to(out_dtype)
+        return decoupled_gemv(_rows(xf), w1_packed, w8_q.contiguous(), lam, w8scale, alpha,
+                              beta, out_dtype)
 
 
 def decoupled_first_gemm(x: Tensor, w1_packed: Tensor, w8_q: Tensor, lam: Tensor,

@@ -58,23 +58,56 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def _bf16_ulp(a):
+    """One bf16 ulp at each value of the float array a (8 significant bits)."""
+    _, e = np.frexp(a.astype(np.float32))
+    return np.ldexp(np.float32(1), e - 8)
+
+
+def _typed(x, x_dtype):
+    """x as both packages get it: (torch tensor, jax array) of x_dtype
+    holding the same values (bf16 rounds once, in torch)."""
+    xt = _t(x).to(getattr(torch, x_dtype))
+    return xt, jnp.asarray(xt.float().numpy()).astype(getattr(jnp, x_dtype))
+
+
+def _assert_matches(got, theirs, out_dtype):
+    """f32 within RTOL; bf16 within one bf16 ulp (the interpreted kernel may
+    round the f32 epilogue one ulp apart, across a bf16 boundary)."""
+    got_f, theirs = got.float().numpy(), np.asarray(theirs).astype(np.float32)
+    if out_dtype == "float32":
+        np.testing.assert_allclose(got_f, theirs, rtol=RTOL, atol=0)
+    else:
+        assert np.all(np.abs(got_f - theirs) <= np.maximum(_bf16_ulp(got_f), _bf16_ulp(theirs)))
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("k,n", [(64, 96), (256, 128)])
-def test_w1a8_gemv_matches_pallas_and_ref(m, k, n):
+def test_w1a8_gemv_matches_pallas_and_ref(m, k, n, x_dtype, out_dtype):
+    """x in f32 or bf16 (read in its own type, as upstream's kernel reads
+    it), the output written in out_dtype, against the interpreted Pallas
+    kernel with the same types; bf16 output equal bit for bit to the
+    port's own f32 output rounded to bf16."""
     x, packed, _ = _inputs(m, k, n, seed=m + k)
+    xt, jx = _typed(x, x_dtype)
+    x = xt.float().numpy()  # the values both packages quantize
     lam = _scalar(0.042)
-    got = ops.bit_linear_infer(_t(x), _t(packed), _t(lam), out_dtype=torch.float32)
-    pallas = jops.bit_linear_infer(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(lam),
-                                   out_dtype=jnp.float32)
-    assert got.shape == (m, n) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=0)
+    tdt, jdt = getattr(torch, out_dtype), getattr(jnp, out_dtype)
+    got = ops.bit_linear_infer(xt, _t(packed), _t(lam), out_dtype=tdt)
+    pallas = jops.bit_linear_infer(jx, jnp.asarray(packed), jnp.asarray(lam), out_dtype=jdt)
+    assert got.shape == (m, n) and got.dtype == tdt
+    _assert_matches(got, pallas, out_dtype)
     want = jref.w1a8_gemv_ref(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(lam))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=0)
+    _assert_matches(got, want, out_dtype)
+    f32 = w1a8_gemv(xt, _t(packed), _t(lam))
+    np.testing.assert_array_equal(got.float().numpy(), f32.to(tdt).float().numpy())
     port_ref = ref.w1a8_gemv_ref(_t(x), _t(packed), _t(lam))
     np.testing.assert_array_equal(port_ref.numpy(), np.asarray(want))
     # the integers underneath: act-quant codes and int32 accumulators
-    xq, gamma = ref.quantize_act_ref(_t(x))
-    jxq, jgamma = jref.quantize_act_ref(jnp.asarray(x))
+    xq, gamma = ref.quantize_act_ref(xt)
+    jxq, jgamma = jref.quantize_act_ref(jx)
     np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
     np.testing.assert_array_equal(gamma.numpy(), np.asarray(jgamma))
     acc = ref.int_matmul(xq, ref.unpack_ref(_t(packed)))
@@ -84,31 +117,33 @@ def test_w1a8_gemv_matches_pallas_and_ref(m, k, n):
     np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
 
 
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("k,n,r", [(64, 96, 16), (128, 256, 128)])
-def test_decoupled_gemv_matches_pallas_and_ref(m, k, n, r):
+def test_decoupled_gemv_matches_pallas_and_ref(m, k, n, r, x_dtype, out_dtype):
+    """As the W1A8 GEMV's test, for both branches of the dual GEMV."""
     x, packed, w8 = _inputs(m, k, n, r, seed=m * r)
+    xt, jx = _typed(x, x_dtype)
+    x = xt.float().numpy()
     sc = [_scalar(v) for v in (0.031, 1 / 0.0023, 1.7, 0.3)]
-    y1, y8 = ops.decoupled_first_gemm(_t(x), _t(packed), _t(w8), *map(_t, sc),
-                                      out_dtype=torch.float32)
-    p1, p8 = jops.decoupled_first_gemm(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(w8),
-                                       *map(jnp.asarray, sc), out_dtype=jnp.float32)
+    tdt, jdt = getattr(torch, out_dtype), getattr(jnp, out_dtype)
+    y1, y8 = ops.decoupled_first_gemm(xt, _t(packed), _t(w8), *map(_t, sc), out_dtype=tdt)
+    p1, p8 = jops.decoupled_first_gemm(jx, jnp.asarray(packed), jnp.asarray(w8),
+                                       *map(jnp.asarray, sc), out_dtype=jdt)
     assert y1.shape == (m, n) and y8.shape == (m, r)
-    np.testing.assert_allclose(y1.numpy(), np.asarray(p1), rtol=RTOL, atol=0)
-    np.testing.assert_allclose(y8.numpy(), np.asarray(p8), rtol=RTOL, atol=0)
+    assert y1.dtype == y8.dtype == tdt
+    _assert_matches(y1, p1, out_dtype)
+    _assert_matches(y8, p8, out_dtype)
     w1, w8r = jref.decoupled_gemv_ref(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(w8),
                                       *map(jnp.asarray, sc))
-    np.testing.assert_allclose(y1.numpy(), np.asarray(w1), rtol=RTOL, atol=0)
-    np.testing.assert_allclose(y8.numpy(), np.asarray(w8r), rtol=RTOL, atol=0)
+    _assert_matches(y1, w1, out_dtype)
+    _assert_matches(y8, w8r, out_dtype)
+    for got, f32 in zip((y1, y8), decoupled_gemv(xt, _t(packed), _t(w8), *map(_t, sc))):
+        np.testing.assert_array_equal(got.float().numpy(), f32.to(tdt).float().numpy())
     r1, r8 = ref.decoupled_gemv_ref(_t(x), _t(packed), _t(w8), *map(_t, sc))
     np.testing.assert_array_equal(r1.numpy(), np.asarray(w1))
     np.testing.assert_array_equal(r8.numpy(), np.asarray(w8r))
-
-
-def _bf16_ulp(a):
-    """One bf16 ulp at each value of the float array a (8 significant bits)."""
-    _, e = np.frexp(a.astype(np.float32))
-    return np.ldexp(np.float32(1), e - 8)
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
