@@ -7,6 +7,12 @@
 operations, for a CPU tensor.  Both write ``out_dtype`` from the f32
 epilogue ``acc * (lam * (1 / gamma))``, so the kernel equals the plain
 version bit for bit.
+
+The launch picks one of two routes by shape, never on failure: "wgmma"
+(K and N multiples of 16: the warp-specialised TMA + wgmma kernel, which
+needs x and w_packed 16-byte aligned) or "mma" (any other N: PR 12's
+mma.sync tile, which needs x 16-byte aligned).  ``w1a8_matmul_route``
+asks the CUDA source which one a shape takes.
 """
 
 from __future__ import annotations
@@ -25,7 +31,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, wp, gamma, lam, out, out_dtype, m, k, n, device, stream
     "w1a8_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
+    # m, k, n
+    "w1a8_matmul_route": [_I] * 3,
 }
+
+
+def w1a8_matmul_route(m: int, k: int, n: int) -> str:
+    """The route the kernel takes for an (m, k) x (k, n) product on the
+    card: "wgmma" or "mma" (builds the kernel on first use)."""
+    lib = _cuda.load("w1a8_matmul", _SIGNATURES)
+    return "wgmma" if lib.w1a8_matmul_route(m, k, n) else "mma"
 
 
 def w1a8_matmul_plain(x_i8: Tensor, w_packed: Tensor, gamma: Tensor, lam: Tensor,
@@ -67,6 +82,9 @@ def w1a8_matmul(x_i8: Tensor, w_packed: Tensor, gamma: Tensor, lam: Tensor,
         raise ValueError(f"w_packed must be (K//8, N), got {tuple(w_packed.shape)}")
     kb, n = w_packed.shape
     dev, m, k = check_rows(x_i8, kb * 8, gamma)
+    if w_packed.data_ptr() % 16 and w1a8_matmul_route(m, k, n) == "wgmma":
+        raise ValueError("the wgmma route needs w_packed 16-byte aligned (its TMA descriptor "
+                         "copies 16-byte rows)")
     code = _cuda.float_code(out_dtype, "out_dtype")
     lam_p = _cuda.scalar_ptr(lam, dev, "lam")
     out = torch.empty((m, n), dtype=out_dtype, device=x_i8.device)

@@ -1,10 +1,12 @@
 """The port's decode-tier kernels (``w1a8_gemv``, ``decoupled_gemv``,
 ``int8_matmul``) against the JAX package: the Pallas kernels run in
 interpret mode through ``repro.kernels.ops`` (as ``tests/test_gemv.py``
-runs them), and the plain oracles of ``repro.kernels.ref``.  The
-prefill tier above ``DECODE_M_MAX`` rows has its own file,
-``test_torch_prefill.py``; here it is checked only where the two tiers
-meet (the dispatch on the CPU, and the kernels on the card).
+runs them), and the plain oracles of ``repro.kernels.ref``; the GEMVs
+with x and the output each in float32 and bfloat16.  The prefill tier
+above ``DECODE_M_MAX`` rows has its own file, ``test_torch_prefill.py``;
+here it is checked only where the two tiers meet (the dispatch on the
+CPU) and on the card (``int8_matmul`` and ``w1a8_matmul`` against their
+plain versions at every route).
 
 On the CPU every wrapper runs its plain PyTorch version.  Integer results
 (int8 codes, int32 accumulators) must be exactly equal.  The f32 outputs
@@ -34,7 +36,7 @@ from repro_torch.kernels.w1a8_gemv import (
     w1a8_gemv,
     w1a8_gemv_plain,
 )
-from repro_torch.kernels.w1a8_matmul import w1a8_matmul_plain
+from repro_torch.kernels.w1a8_matmul import w1a8_matmul, w1a8_matmul_plain, w1a8_matmul_route
 
 RTOL = 1e-6
 ROWS = [1, 5, 8, 32]
@@ -350,3 +352,65 @@ def test_cuda_int8_matmul_alignment_by_route(cuda_device, m):
         torch.testing.assert_close(int8_matmul(x, w, gamma, wscale),
                                    int8_matmul_plain(x, w, gamma, wscale), rtol=0, atol=0)
         assert _cuda.LAUNCHES["int8_matmul"] == before + 1
+
+
+def _w1a8_matmul_inputs(m, k, n, dev, seed):
+    rng = np.random.default_rng(seed)
+    x = _t(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
+    wp = _t(rng.integers(0, 256, (k // 8, n)).astype(np.uint8)).to(dev)
+    gamma = _t((rng.random(m) * 50 + 10).astype(np.float32)).to(dev)
+    return x, wp, gamma, torch.tensor(0.031, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (5024, 2048), (400, 72), (16, 64)])
+@pytest.mark.parametrize("m", [33, 64, 129, 1000, 8192])
+def test_cuda_w1a8_matmul_equals_plain_version(cuda_device, m, k, n, out_dtype):
+    """w1a8_matmul above the decode tier, bit for bit against its plain
+    version: q/k/v/o's and w1_down's shapes (K 5024 = 39 x 128 + 32: a
+    ragged K tail), K not a multiple of 128 (400, 16), N ragged against
+    the tile (72, 64; 72 takes the mma route), M ragged against the 128-row
+    tile; one launch a call."""
+    x, wp, gamma, lam = _w1a8_matmul_inputs(m, k, n, cuda_device, m + k + n)
+    dt = getattr(torch, out_dtype)
+    before = _cuda.LAUNCHES["w1a8_matmul"]
+    got = w1a8_matmul(x, wp, gamma, lam, dt)
+    assert _cuda.LAUNCHES["w1a8_matmul"] == before + 1
+    assert got.dtype == dt and got.shape == (m, n)
+    torch.testing.assert_close(got, w1a8_matmul_plain(x, wp, gamma, lam, dt), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_w1a8_matmul_route(cuda_device):
+    """The route each shape takes: wgmma where K and N are multiples of 16,
+    at every row count above the decode tier; mma otherwise."""
+    for m in (33, 64, 512, 1024, 8192):
+        for k, n in ((2048, 2048), (5024, 2048), (16, 64)):
+            assert w1a8_matmul_route(m, k, n) == "wgmma", (m, k, n)
+        assert w1a8_matmul_route(m, 400, 72) == "mma"
+        assert w1a8_matmul_route(m, 2048, 2056) == "mma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 2048), (400, 72)])
+def test_cuda_w1a8_matmul_alignment_by_route(cuda_device, k, n):
+    """w_packed 4-byte but not 16-byte aligned: the wgmma route (N 2048)
+    raises ValueError and launches nothing (its TMA descriptor needs 16
+    bytes); the mma route (N 72) reads bytes and takes it, equal to the
+    plain version."""
+    m = 64
+    x, wp, gamma, lam = _w1a8_matmul_inputs(m, k, n, cuda_device, k + n)
+    buf = torch.zeros(wp.numel() + 16, dtype=torch.uint8, device=cuda_device)
+    view = buf[4:4 + wp.numel()].view(wp.shape)
+    view.copy_(wp)
+    assert view.data_ptr() % 16 and not view.data_ptr() % 4
+    before = _cuda.LAUNCHES["w1a8_matmul"]
+    if w1a8_matmul_route(m, k, n) == "wgmma":
+        with pytest.raises(ValueError, match="aligned"):
+            w1a8_matmul(x, view, gamma, lam)
+        assert _cuda.LAUNCHES["w1a8_matmul"] == before
+    else:
+        torch.testing.assert_close(w1a8_matmul(x, view, gamma, lam),
+                                   w1a8_matmul_plain(x, wp, gamma, lam), rtol=0, atol=0)
+        assert _cuda.LAUNCHES["w1a8_matmul"] == before + 1
