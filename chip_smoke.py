@@ -999,7 +999,8 @@ def phase_prefill(torch, params, cfg):
         f"{err:.3g}, codes within the stated tolerance")
     summary = {"ttft_ms": ttft * 1e3, "ms_per_step": (t_gen - ttft) / (P_NEW_TOKENS - 1) * 1e3,
                "tokens_per_s": P_BATCH * (P_NEW_TOKENS - 1) / (t_gen - ttft),
-               "device_busy_share": busy / t_gen, "prefill_busy_share": busy_first / ttft}
+               "device_busy_share": busy / t_gen, "prefill_busy_share": busy_first / ttft,
+               "prefill_device_ms": busy_first * 1e3}
     return launches, summary
 
 

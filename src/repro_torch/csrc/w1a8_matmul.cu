@@ -39,6 +39,13 @@
 //     while the consumers store the last one.  BN is 256 (kSlices 2,
 //     int32 accumulators in 128 registers a thread under setmaxnreg) when
 //     those tiles fill the card, else 128.
+//     Two ways to hide the stores were built and measured slower on an
+//     H100 (PERF.md): the second consumer started a few stages behind the
+//     first, so that one's stores would run beside the other's MMAs (11-13%
+//     slower at every M, the skew's bookkeeping in the K loop costing more
+//     than the overlap gains), and the scaled tile staged in shared memory
+//     for TMA bulk stores (85 against 65 us at K 2048: the staging leaves
+//     room for 4 stages, and the 256-column kernels spill).
 //   * "mma" (any other shape: N not a multiple of 16): PR 12's tile of
 //     tile_gemm.cuh, one block an output tile, mma.sync m16n8k32 on int8,
 //     64-byte K stages, the signs expanded per stage into a [n][k] tile.
