@@ -283,12 +283,15 @@ def _codes_close(q, q_ref, g, g_ref) -> float:
     return g_err.max().item()
 
 
-def _signature_has(fn, name: str) -> bool:
-    """Whether ``fn`` takes a parameter ``name`` (a parent tree timed with
-    ``--src`` may predate it)."""
+def _type_pairs(torch, gemv):
+    """The (x, output) dtype pairs to hold a decode GEMV wrapper in: f32
+    and bf16 each, or f32 alone for a tree (timed with ``--src``) whose
+    wrapper predates ``out_dtype``."""
     import inspect
 
-    return name in inspect.signature(fn).parameters
+    if "out_dtype" not in inspect.signature(gemv).parameters:
+        return [(torch.float32, None)]
+    return list(itertools.product((torch.float32, torch.bfloat16), repeat=2))
 
 
 def phase_kernels(torch, peaks, only=None):
@@ -382,15 +385,16 @@ def phase_kernels(torch, peaks, only=None):
         # decode tier: fused act-quant GEMV (M <= 32); held exactly for x
         # and the output in f32 and bf16, timed all-f32 at every M and
         # all-bf16 at the decode tier's 4 rows and at 32
-        typed = _signature_has(wg.w1a8_gemv, "out_dtype")
+        pairs = _type_pairs(torch, wg.w1a8_gemv)
         lam = scalar(0.031)
         for k, n in W1A8_SHAPES:
             ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
             for m in ROWS:
                 x = torch.randn((m, k), generator=gen, **f32)
-                for xt, dt in itertools.product(dtypes, dtypes) if typed else [dtypes[:1] * 2]:
+                for xt, dt in pairs:
                     xd = x.to(xt)
-                    kw = {"out_dtype": dt} if typed else {}
+                    kw = {} if dt is None else {"out_dtype": dt}
+                    dt = torch.float32 if dt is None else dt
                     err = _close(wg.w1a8_gemv(xd, ws[0], lam, **kw).float(),
                                  wg.w1a8_gemv_plain(xd, ws[0], lam, **kw).float())
                     held("w1a8_gemv", err)
@@ -404,16 +408,17 @@ def phase_kernels(torch, peaks, only=None):
                            tag="" if dt == torch.float32 else "bf16")
 
     def rows_decoupled_gemv():
-        typed = _signature_has(wg.decoupled_gemv, "out_dtype")
+        pairs = _type_pairs(torch, wg.decoupled_gemv)
         k, n, r = DECOUPLED_SHAPE
         w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
         w8s = [int8(k, r) for _ in w1s]
         sc = [scalar(0.027), scalar(1 / 0.0021), scalar(1.0), scalar(1.0)]
         for m in ROWS:
             x = torch.randn((m, k), generator=gen, **f32)
-            for xt, dt in itertools.product(dtypes, dtypes) if typed else [dtypes[:1] * 2]:
+            for xt, dt in pairs:
                 xd = x.to(xt)
-                kw = {"out_dtype": dt} if typed else {}
+                kw = {} if dt is None else {"out_dtype": dt}
+                dt = torch.float32 if dt is None else dt
                 got = wg.decoupled_gemv(xd, w1s[0], w8s[0], *sc, **kw)
                 want = wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, **kw)
                 err = max(_close(got[0].float(), want[0].float()),

@@ -251,7 +251,7 @@ w1a8_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
 
 template <int kSlices, class Out>
 cudaError_t launch_wgmma(const int8_t* x, const uint8_t* wp, const float* gamma,
-                         const float* lam, Out* out, int m, int k, int n, int device,
+                         const float* lam, Out* out, int m, int k, int n, int sms,
                          cudaStream_t s) {
   using T = WTile<kSlices>;
   CUtensorMap tmap_x, tmap_w;
@@ -261,8 +261,6 @@ cudaError_t launch_wgmma(const int8_t* x, const uint8_t* wp, const float* gamma,
   const auto kernel = w1a8_wgmma_kernel<kSlices, Out>;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-  int sms = 0;
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
   const int tiles = (m + kBM - 1) / kBM * ((n + T::kBN - 1) / T::kBN);
   kernel<<<min(tiles, sms), kWgThreads, T::kSmem, s>>>(tmap_x, tmap_w, gamma, lam, out, m, k, n);
@@ -278,11 +276,13 @@ cudaError_t launch(const int8_t* x, const uint8_t* wp, const float* gamma, const
                    void* out_v, int m, int k, int n, int device, cudaStream_t s) {
   Out* out = static_cast<Out*>(out_v);
   if (wgmma_route(m, k, n)) {
-    int sms = 132;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    int sms = 0;
+    const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    // 256-column tiles once they fill the card, else 128 (twice the blocks)
     const bool wide = (long)((m + kBM - 1) / kBM) * ((n + 255) / 256) >= sms;
-    return wide ? launch_wgmma<2, Out>(x, wp, gamma, lam, out, m, k, n, device, s)
-                : launch_wgmma<1, Out>(x, wp, gamma, lam, out, m, k, n, device, s);
+    return wide ? launch_wgmma<2, Out>(x, wp, gamma, lam, out, m, k, n, sms, s)
+                : launch_wgmma<1, Out>(x, wp, gamma, lam, out, m, k, n, sms, s);
   }
   return big_tiles(m, n, device) ? launch_mma<128, 128, Out>(x, wp, gamma, lam, out, m, k, n, s)
                                  : launch_mma<64, 64, Out>(x, wp, gamma, lam, out, m, k, n, s);

@@ -35,10 +35,8 @@
 // 4-byte bf16 store).
 #pragma once
 
-#include <cstddef>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro_sm90 {
