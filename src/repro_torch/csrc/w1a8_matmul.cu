@@ -46,9 +46,10 @@
 //     than the overlap gains), and the scaled tile staged in shared memory
 //     for TMA bulk stores (85 against 65 us at K 2048: the staging leaves
 //     room for 4 stages, and the 256-column kernels spill).
-//   * "mma" (any other shape: N not a multiple of 16): PR 12's tile of
-//     tile_gemm.cuh, one block an output tile, mma.sync m16n8k32 on int8,
-//     64-byte K stages, the signs expanded per stage into a [n][k] tile.
+//   * "mma" (any other shape: N not a multiple of 16): the first design's
+//     tile of tile_gemm.cuh, one block an output tile, mma.sync m16n8k32
+//     on int8, 64-byte K stages, the signs expanded per stage into a
+//     [n][k] tile.
 //
 // The epilogue of both routes keeps the Pallas kernel's order of
 // operations, float(acc) * (lam * (1 / gamma)), with IEEE division (no
@@ -64,7 +65,7 @@ namespace sm90 = repro_sm90;
 
 namespace {
 
-// ---- the "mma" route: PR 12's tile ----
+// ---- the "mma" route: tile_gemm.cuh's tile ----
 
 template <int BM, int BN, class Out>
 __global__ void __launch_bounds__(kThreads)

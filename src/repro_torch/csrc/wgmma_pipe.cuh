@@ -204,8 +204,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
-// (so the library links no libcuda); null if the driver has none.
+// cuTensorMapEncodeTiled (a libcuda entry point), looked up once through
+// the runtime so that the library links no libcuda; null where missing.
 inline EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;

@@ -10,9 +10,10 @@ version bit for bit.
 
 The launch picks one of two routes by shape, never on failure: "wgmma"
 (K and N multiples of 16: the warp-specialised TMA + wgmma kernel, which
-needs x and w_packed 16-byte aligned) or "mma" (any other N: PR 12's
-mma.sync tile, which needs x 16-byte aligned).  ``w1a8_matmul_route``
-asks the CUDA source which one a shape takes.
+needs x and w_packed 16-byte aligned) or "mma" (any other N: the
+mma.sync tile of ``csrc/tile_gemm.cuh``, which needs x 16-byte
+aligned).  ``w1a8_matmul_route`` asks the CUDA source which one a shape
+takes.
 """
 
 from __future__ import annotations
