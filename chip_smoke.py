@@ -97,7 +97,10 @@ kernel's phase-3 rows (of the
 archive`` of the parent commit unpacked under ``_checkouts/``), prints
 one JSON line of those rows and exits non-zero on any mismatch; it
 never prints the ``{"ok": ...}`` line.  Two trees are timed in one call
-by running it once for each, by turns.
+by running it once for each, by turns.  The tree under ``--src`` must
+have the wrappers this file calls (the GEMVs' ``out_dtype``,
+``w1a8_matmul_route``); an older tree is timed with its own
+``chip_smoke.py``.
 
     python3 chip_smoke.py --serving [--src OTHER/src]
 
@@ -283,17 +286,6 @@ def _codes_close(q, q_ref, g, g_ref) -> float:
     return g_err.max().item()
 
 
-def _type_pairs(torch, gemv):
-    """The (x, output) dtype pairs to hold a decode GEMV wrapper in: f32
-    and bf16 each, or f32 alone for a tree (timed with ``--src``) whose
-    wrapper predates ``out_dtype``."""
-    import inspect
-
-    if "out_dtype" not in inspect.signature(gemv).parameters:
-        return [(torch.float32, None)]
-    return list(itertools.product((torch.float32, torch.bfloat16), repeat=2))
-
-
 def phase_kernels(torch, peaks, only=None):
     """Phase 3's GEMM and GEMV rows (``only``: one kernel's rows alone)."""
     from repro_torch.kernels import w1a8_gemv as wg
@@ -308,6 +300,7 @@ def phase_kernels(torch, peaks, only=None):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     f32 = dict(dtype=torch.float32, device=dev)
     dtypes = (torch.float32, torch.bfloat16)
+    type_pairs = list(itertools.product(dtypes, repeat=2))  # (x, output) of the GEMVs
 
     def scalar(v):
         return torch.full((), v, **f32)
@@ -385,42 +378,36 @@ def phase_kernels(torch, peaks, only=None):
         # decode tier: fused act-quant GEMV (M <= 32); held exactly for x
         # and the output in f32 and bf16, timed all-f32 at every M and
         # all-bf16 at the decode tier's 4 rows and at 32
-        pairs = _type_pairs(torch, wg.w1a8_gemv)
         lam = scalar(0.031)
         for k, n in W1A8_SHAPES:
             ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
             for m in ROWS:
                 x = torch.randn((m, k), generator=gen, **f32)
-                for xt, dt in pairs:
+                for xt, dt in type_pairs:
                     xd = x.to(xt)
-                    kw = {} if dt is None else {"out_dtype": dt}
-                    dt = torch.float32 if dt is None else dt
-                    err = _close(wg.w1a8_gemv(xd, ws[0], lam, **kw).float(),
-                                 wg.w1a8_gemv_plain(xd, ws[0], lam, **kw).float())
+                    err = _close(wg.w1a8_gemv(xd, ws[0], lam, dt).float(),
+                                 wg.w1a8_gemv_plain(xd, ws[0], lam, dt).float())
                     held("w1a8_gemv", err)
                     if xt != dt or (dt != torch.float32 and m not in (MAIN_ROWS, 32)):
                         continue
                     b = bound(m * k * xt.itemsize + k // 8 * n + 4 + m * n * dt.itemsize,
                               2 * m * k * n)
                     record("w1a8_gemv", m, (k, n), err,
-                           lambda i: wg.w1a8_gemv(xd, ws[i % len(ws)], lam, **kw),
-                           lambda i: wg.w1a8_gemv_plain(xd, ws[0], lam, **kw), b,
+                           lambda i: wg.w1a8_gemv(xd, ws[i % len(ws)], lam, dt),
+                           lambda i: wg.w1a8_gemv_plain(xd, ws[0], lam, dt), b,
                            tag="" if dt == torch.float32 else "bf16")
 
     def rows_decoupled_gemv():
-        pairs = _type_pairs(torch, wg.decoupled_gemv)
         k, n, r = DECOUPLED_SHAPE
         w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
         w8s = [int8(k, r) for _ in w1s]
         sc = [scalar(0.027), scalar(1 / 0.0021), scalar(1.0), scalar(1.0)]
         for m in ROWS:
             x = torch.randn((m, k), generator=gen, **f32)
-            for xt, dt in pairs:
+            for xt, dt in type_pairs:
                 xd = x.to(xt)
-                kw = {} if dt is None else {"out_dtype": dt}
-                dt = torch.float32 if dt is None else dt
-                got = wg.decoupled_gemv(xd, w1s[0], w8s[0], *sc, **kw)
-                want = wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, **kw)
+                got = wg.decoupled_gemv(xd, w1s[0], w8s[0], *sc, dt)
+                want = wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, dt)
                 err = max(_close(got[0].float(), want[0].float()),
                           _close(got[1].float(), want[1].float()))
                 held("decoupled_gemv", err)
@@ -430,8 +417,8 @@ def phase_kernels(torch, peaks, only=None):
                           + m * (n + r) * dt.itemsize, 2 * m * k * (n + r))
                 record("decoupled_gemv", m, (k, n, r), err,
                        lambda i: wg.decoupled_gemv(xd, w1s[i % len(w1s)], w8s[i % len(w8s)],
-                                                   *sc, **kw),
-                       lambda i: wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, **kw), b,
+                                                   *sc, dt),
+                       lambda i: wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, dt), b,
                        tag="" if dt == torch.float32 else "bf16")
 
     def rows_w1a8_matmul():
@@ -439,7 +426,6 @@ def phase_kernels(torch, peaks, only=None):
         # (the main path's activation type) and in bf16 (what upstream's
         # ops write) at every M and at ragged (K, N), timed in f32 at
         # every M and in bf16 at 8192 rows; the route each shape takes
-        route = getattr(wm, "w1a8_matmul_route", None)
         lam = scalar(0.031)
         for k, n in W1A8_SHAPES:
             ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
@@ -464,9 +450,9 @@ def phase_kernels(torch, peaks, only=None):
             held("w1a8_matmul", _close(wm.w1a8_matmul(x, w, gamma, lam, dt).float(),
                                        wm.w1a8_matmul_plain(x, w, gamma, lam, dt).float()))
         log(f"[3] w1a8_matmul held exactly at (K, N) {W1A8_RAGGED} x M (33, 129, 1000) x "
-            f"f32, bf16" + ("" if route is None else "; routes (M, K, N): " + ", ".join(
-                f"{(m,) + s} {route(m, *s)}" for s in W1A8_SHAPES + W1A8_RAGGED
-                for m in W1A8_MATMUL_ROWS)))
+            f"f32, bf16; routes (M, K, N): " + ", ".join(
+                f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s in W1A8_SHAPES + W1A8_RAGGED
+                for m in W1A8_MATMUL_ROWS))
 
     def rows_decoupled_matmul():
         k, n, r = DECOUPLED_SHAPE

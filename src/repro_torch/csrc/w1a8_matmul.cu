@@ -253,15 +253,15 @@ w1a8_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
 template <int kSlices, class Out>
 cudaError_t launch_wgmma(const int8_t* x, const uint8_t* wp, const float* gamma,
                          const float* lam, Out* out, int m, int k, int n, int sms,
-                         cudaStream_t s) {
+                         int device, cudaStream_t s) {
   using T = WTile<kSlices>;
+  static std::atomic<bool> smem_allowed[sm90::kMaxDevices];
   CUtensorMap tmap_x, tmap_w;
   cudaError_t e = sm90::encode_2d(&tmap_x, x, k, m, k, kBK, kBM, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
     e = sm90::encode_2d(&tmap_w, wp, n, k / 8, n, T::kBN, kBK / 8, CU_TENSOR_MAP_SWIZZLE_NONE);
   const auto kernel = w1a8_wgmma_kernel<kSlices, Out>;
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (e == cudaSuccess) e = sm90::allow_smem(kernel, T::kSmem, device, smem_allowed);
   if (e != cudaSuccess) return e;
   const int tiles = (m + kBM - 1) / kBM * ((n + T::kBN - 1) / T::kBN);
   kernel<<<min(tiles, sms), kWgThreads, T::kSmem, s>>>(tmap_x, tmap_w, gamma, lam, out, m, k, n);
@@ -278,12 +278,12 @@ cudaError_t launch(const int8_t* x, const uint8_t* wp, const float* gamma, const
   Out* out = static_cast<Out*>(out_v);
   if (wgmma_route(m, k, n)) {
     int sms = 0;
-    const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const cudaError_t e = sm90::sm_count(device, &sms);
     if (e != cudaSuccess) return e;
     // 256-column tiles once they fill the card, else 128 (twice the blocks)
     const bool wide = (long)((m + kBM - 1) / kBM) * ((n + 255) / 256) >= sms;
-    return wide ? launch_wgmma<2, Out>(x, wp, gamma, lam, out, m, k, n, sms, s)
-                : launch_wgmma<1, Out>(x, wp, gamma, lam, out, m, k, n, sms, s);
+    return wide ? launch_wgmma<2, Out>(x, wp, gamma, lam, out, m, k, n, sms, device, s)
+                : launch_wgmma<1, Out>(x, wp, gamma, lam, out, m, k, n, sms, device, s);
   }
   return big_tiles(m, n, device) ? launch_mma<128, 128, Out>(x, wp, gamma, lam, out, m, k, n, s)
                                  : launch_mma<64, 64, Out>(x, wp, gamma, lam, out, m, k, n, s);

@@ -35,6 +35,7 @@
 // 4-byte bf16 store).
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_runtime.h>
@@ -237,6 +238,41 @@ inline cudaError_t encode_2d(CUtensorMap* map, const void* base, uint64_t inner,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- host: what a launch asks of the runtime once ----
+
+// Devices whose answers are kept; a higher ordinal asks every time.
+constexpr int kMaxDevices = 64;
+
+// The SM count of `device`, asked of the runtime once per device.
+inline cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> known[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices)
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  int c = known[device].load(std::memory_order_relaxed);
+  if (c == 0) {
+    const cudaError_t e = cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    known[device].store(c, std::memory_order_relaxed);
+  }
+  *sms = c;
+  return cudaSuccess;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on `device` (the
+// current device), asking the runtime once per device: `done` is the
+// caller's own array of flags for this kernel (a function-local static of
+// the launcher, one per kernel instantiation).
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, int device,
+                              std::atomic<bool> (&done)[kMaxDevices]) {
+  const bool kept = device >= 0 && device < kMaxDevices;
+  if (kept && done[device].load(std::memory_order_relaxed)) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && kept) done[device].store(true, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace repro_sm90
