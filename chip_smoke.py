@@ -14,7 +14,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once);
 3. each kernel against its plain PyTorch version on the card at the
-   shapes of pquant-1.3b: the decode tier at M in {1, 4, 5, 8, 32}, the
+   shapes of pquant-1.3b: the decode tier at M in {1, 4, 5, 8, 16, 32}, the
    prefill tier (``w1a8_matmul``, ``decoupled_matmul``, ``int8_matmul``,
    ``rmsnorm_quant``) at M in {33, 64, 512, 8192}, ``int8_matmul`` and
    ``w1a8_matmul`` also at 1024 (a chunked slice), ``int8_matmul`` at both
@@ -22,7 +22,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    built to agree bit for bit: the decode GEMVs are held with x and the
    output each in f32 and bf16, the prefill GEMMs and ``int8_matmul`` with
    the output in f32 and bf16, ``w1a8_matmul`` and ``int8_matmul`` also at
-   ragged (K, N)); the bf16 GEMVs are timed at 4 and 32 rows, the bf16
+   ragged (K, N)); the bf16 GEMVs are timed at 4, 16 and 32 rows, the bf16
    ``int8_matmul`` above 32 rows, the bf16 ``w1a8_matmul`` at 8192, with
    the int8 TOP/s of each prefill GEMM; ``rmsnorm_quant`` within its stated
    tolerance (RMSNORM_*).  Prints the kernel's median time
@@ -135,13 +135,15 @@ W1A8_SHAPES = ((2048, 2048), (5024, 2048))  # q/k/v/o; w1_down
 DECOUPLED_SHAPE = (2048, 5024, 384)  # up/gate pairs: K, N, r
 INT8_SHAPE = (384, 2048)  # w8_down: K, N
 INT8_RAGGED = ((16, 64), (400, 72), (20, 66))  # general (K, N) of int8_matmul
-ROWS = (1, 4, 5, 8, 32)
+ROWS = (1, 4, 5, 8, 16, 32)
 PREFILL_ROWS = (33, 64, 512, 8192)
 CHUNK_ROWS = 1024  # a chunked-prefill slice of phase 8 (b): 16 requests x 64 tokens
 INT8_ROWS = ROWS + PREFILL_ROWS + (CHUNK_ROWS,)
 W1A8_MATMUL_ROWS = (33, 64, 512, CHUNK_ROWS, 8192)
 W1A8_RAGGED = ((400, 72), (16, 64))  # general (K, N) of w1a8_matmul (N 72: the mma route)
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
+SLOT_ROWS = 16  # decode rows of the continuous-batching path (16 slots)
+BF16_GEMV_ROWS = (MAIN_ROWS, SLOT_ROWS, 32)  # the GEMV rows also timed in bf16
 PREFILL_MAIN_ROWS = 8192  # prefill rows of the prefill-tier path (64 x 128 tokens)
 RTOL = 1e-6  # kernel vs plain version (built to agree exactly)
 # rmsnorm_quant vs its plain version: the kernel sums the squares in
@@ -377,7 +379,7 @@ def phase_kernels(torch, peaks, only=None):
     def rows_w1a8_gemv():
         # decode tier: fused act-quant GEMV (M <= 32); held exactly for x
         # and the output in f32 and bf16, timed all-f32 at every M and
-        # all-bf16 at the decode tier's 4 rows and at 32
+        # all-bf16 at the two serving paths' decode rows (4, 16) and at 32
         lam = scalar(0.031)
         for k, n in W1A8_SHAPES:
             ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
@@ -388,7 +390,7 @@ def phase_kernels(torch, peaks, only=None):
                     err = _close(wg.w1a8_gemv(xd, ws[0], lam, dt).float(),
                                  wg.w1a8_gemv_plain(xd, ws[0], lam, dt).float())
                     held("w1a8_gemv", err)
-                    if xt != dt or (dt != torch.float32 and m not in (MAIN_ROWS, 32)):
+                    if xt != dt or (dt != torch.float32 and m not in BF16_GEMV_ROWS):
                         continue
                     b = bound(m * k * xt.itemsize + k // 8 * n + 4 + m * n * dt.itemsize,
                               2 * m * k * n)
@@ -411,7 +413,7 @@ def phase_kernels(torch, peaks, only=None):
                 err = max(_close(got[0].float(), want[0].float()),
                           _close(got[1].float(), want[1].float()))
                 held("decoupled_gemv", err)
-                if xt != dt or (dt != torch.float32 and m not in (MAIN_ROWS, 32)):
+                if xt != dt or (dt != torch.float32 and m not in BF16_GEMV_ROWS):
                     continue
                 b = bound(m * k * xt.itemsize + k // 8 * n + k * r + 16
                           + m * (n + r) * dt.itemsize, 2 * m * k * (n + r))

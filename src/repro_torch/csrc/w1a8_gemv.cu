@@ -9,24 +9,26 @@
 // M <= 32 token rows by the whole packed sign matrix (K/8 x N bytes) and,
 // for decoupled_gemv, by the int8 branch (K x r bytes); at M = 4 there are
 // 64 int8 operations per weight byte, far below the card's ~590 operations
-// per byte of device memory, so time is bytes over bandwidth at best.
+// per byte of device memory, so time is bytes over bandwidth at best, and
+// at these sizes (0.5-2 MB) the latency of one trip to memory and the
+// launch itself.
 //
-// Design.  The TPU kernel quantizes the activations once, at grid step
-// (0, 0), and leaves the int8 rows in VMEM for every later step of its
-// sequential grid.  Blocks on Hopper run in parallel and in no order, so
-// here every block quantizes the M rows itself into shared memory (at most
-// 32 x 5024 int8 = 157 KB plus scales and partial sums, under the 227 KB a
-// block may use) — one launch per call, at the price of each block reading
-// the f32 activations (from L2 after the first block).  Each block then
-// owns 32 output columns (see gemv_common.cuh): lane n reads its column's
-// packed byte, expands the 8 sign bits to two words of four +-1 int8 lanes
-// and feeds two __dp4a per token row.  decoupled_gemv puts the r int8
-// columns after the N packed columns in one grid, 8 to a block (an int8
-// column holds 8x the bytes of a packed one), so one launch reads the
-// activations once per block and the int8 weight exactly once.
+// Design (the pieces are in gemv_mma.cuh).  The TPU kernel quantizes the
+// activations once, at grid step (0, 0), and keeps the int8 rows in VMEM
+// for its sequential grid.  Here a thread-block cluster of 8 blocks owns
+// 128 output columns and all of K, each block one eighth of the k32 steps:
+// every block stages its x slice and its weight slice into shared memory
+// with cp.async at once, the blocks agree on each row's abs-max over DSMEM
+// and quantize only their own slice (so x is read once per cluster), and
+// the products run on the tensor cores as Y^T = W^T X^T
+// (mma.sync m16n8k32 s8, the token rows the MMA's 8-wide side), one read
+// of the weight serving all M <= 32 rows.  The int32 sums of the 8 blocks
+// meet over DSMEM.  decoupled_gemv puts the clusters of its r int8 columns
+// after those of its N packed columns in one grid: one act-quant of x per
+// cluster, each weight byte read once.
 //
 // As upstream, x is read in its own type (f32 or bf16, cast to f32 as it
-// is loaded, which is exact) and the outputs are written in out_dtype (f32,
+// is used, which is exact) and the outputs are written in out_dtype (f32,
 // or bf16 rounded to nearest even from the f32 epilogue), so a bf16 model
 // pays no cast on either side.  Epilogues keep the Pallas kernels' order
 // of operations, so the outputs equal the plain versions bit for bit (no
@@ -35,127 +37,140 @@
 //   decoupled_gemv  y1 = float(acc1) * ((beta * lam) / gamma)
 //                   y8 = float(acc8) * (alpha / (gamma * w8scale))
 
-#include "gemv_common.cuh"
-#include "tile_gemm.cuh"
+#include <atomic>
 
-using namespace repro;
-namespace rt = repro_tile;
+#include "gemv_mma.cuh"
+
+using namespace repro_gemv;
 
 namespace {
 
-template <class In, class Out>
-__global__ void __launch_bounds__(kThreads)
-w1a8_gemv_kernel(const In* __restrict__ x, const uint8_t* __restrict__ wp,
-                 const float* __restrict__ lam_p, Out* __restrict__ out, int m, int k, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const SmemPlan p = smem_plan(m, k);
-  int8_t* xq = reinterpret_cast<int8_t*>(smem);
-  float* gamma = reinterpret_cast<float*>(smem + p.gamma_off);
-  int* part = reinterpret_cast<int*>(smem + p.part_off);
+struct Args {
+  const void* x;
+  const uint8_t* wp;
+  const int8_t* w8;
+  const float *lam, *w8scale, *alpha, *beta;
+  void *y1, *y8;
+  int m, k, n, r;
+  int packed_aligned, int8_aligned;  // 16-byte copies of the weight rows are possible
+};
 
-  quantize_rows(x, m, k, p.mpad, xq, gamma);
+// One block of the cluster grid: clusters [0, ceil(n / 128)) own packed
+// columns, the rest (decoupled_gemv only) the int8 branch's columns.
+template <class In, class Out, int NT, bool kDecoupled>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+gemv_kernel(const Args a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int m = a.m, k = a.k, n = a.n;
+  const Plan p = make_plan(m, k, sizeof(In), kDecoupled);
+  const int clu = blockIdx.x / kCluster, groups1 = (n + kCols - 1) / kCols;
+  const bool int8_branch = kDecoupled && clu >= groups1;
+  const int col0 = (int8_branch ? clu - groups1 : clu) * kCols;
+  int lo, hi;
+  step_slice(k, p.steps, (int)cluster.block_rank(), lo, hi);
+  const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
+
+  // 1. stage the x slice (group 0), then the weight slice (group 1)
+  const int x_bytes = len * (int)sizeof(In);
+  stage(smem + p.xs_off, p.xs_ld,
+        reinterpret_cast<const uint8_t*>(static_cast<const In*>(a.x) + (size_t)32 * lo),
+        (size_t)k * sizeof(In), m, x_bytes, m, x_bytes, true, NoSwizzle{});
+  if (int8_branch) {
+    const uint8_t* w8 = reinterpret_cast<const uint8_t*>(a.w8) + (size_t)32 * lo * a.r + col0;
+    stage(smem, kCols, w8, a.r, 32 * steps, kCols, min(32 * steps, k - 32 * lo),
+          min(kCols, a.r - col0), a.int8_aligned, Int8Swizzle{});
+  } else {
+    stage(smem, kPackedLd, a.wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
+          min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), a.packed_aligned, NoSwizzle{});
+  }
+  cp_async_wait_group1();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kCols + lane;
-  int lo, hi;
-  warp_slice(k / 8, warp, lo, hi);
-  const float lam = *lam_p;
-  for (int row0 = 0; row0 < p.mpad; row0 += kRowGroup) {
-    int acc[kRowGroup] = {};
-    if (col < n) packed_column(wp, n, col, lo, hi, xq, k, row0, acc);
-    const int sum = reduce_warps(acc, part);
-    const int row = row0 + warp;
-    if (row < m && col < n) {
-      const float s = lam / gamma[row];
-      rt::store_out(out + (size_t)row * n + col, (float)sum * s);
-    }
-  }
-}
-
-template <class In, class Out>
-__global__ void __launch_bounds__(kThreads)
-decoupled_gemv_kernel(const In* __restrict__ x, const uint8_t* __restrict__ wp,
-                      const int8_t* __restrict__ w8, const float* __restrict__ lam_p,
-                      const float* __restrict__ w8s_p, const float* __restrict__ alpha_p,
-                      const float* __restrict__ beta_p, Out* __restrict__ y1,
-                      Out* __restrict__ y8, int m, int k, int n, int r) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const SmemPlan p = smem_plan(m, k);
-  int8_t* xq = reinterpret_cast<int8_t*>(smem);
-  float* gamma = reinterpret_cast<float*>(smem + p.gamma_off);
-  int* part = reinterpret_cast<int*>(smem + p.part_off);
-
-  quantize_rows(x, m, k, p.mpad, xq, gamma);
+  // 2. act-quant of this block's slice, the row maxima shared over the cluster
+  quantize_slice<In>(cluster, p, smem, m, len, 8 * steps);
+  rt::cp_async_wait_all();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int blocks1 = (n + kCols - 1) / kCols;
-  int lo, hi;
-  if ((int)blockIdx.x < blocks1) {  // 1-bit trunk columns (block-uniform branch)
-    const int col = blockIdx.x * kCols + lane;
-    warp_slice(k / 8, warp, lo, hi);
-    const float bl = *beta_p * *lam_p;
-    for (int row0 = 0; row0 < p.mpad; row0 += kRowGroup) {
-      int acc[kRowGroup] = {};
-      if (col < n) packed_column(wp, n, col, lo, hi, xq, k, row0, acc);
-      const int sum = reduce_warps(acc, part);
-      const int row = row0 + warp;
-      if (row < m && col < n) {
-        const float s = bl / gamma[row];
-        rt::store_out(y1 + (size_t)row * n + col, (float)sum * s);
-      }
-    }
-  } else {  // r-wide int8 branch columns
-    const int col0 = (blockIdx.x - blocks1) * kInt8Cols, col = col0 + lane;
-    warp_slice(k / 4, warp, lo, hi);
-    const float alpha = *alpha_p, w8s = *w8s_p;
-    for (int row0 = 0; row0 < p.mpad; row0 += kRowGroup) {
-      int acc[kRowGroup] = {};
-      int8_columns_split(w8, r, col0, lo, hi, xq, k, row0, acc);
-      const int sum = reduce_warps(acc, part);
-      const int row = row0 + warp;
-      if (lane < kInt8Cols && row < m && col < r) {
-        const float inv8 = alpha / (gamma[row] * w8s);
-        rt::store_out(y8 + (size_t)row * r + col, (float)sum * inv8);
-      }
-    }
+  // 3. the MMAs over the slice
+  Acc<NT> acc = {};
+  if (int8_branch)
+    int8_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
+  else
+    packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
+
+  // 4. the sums over the cluster, and the epilogue (the sums reuse the x
+  // stage, which every thread of the block finished reading at step 2)
+  int* part = reinterpret_cast<int*>(smem + p.xs_off);
+  store_sums<NT>(acc, part);
+  cluster.sync();
+  const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
+  if (!kDecoupled) {
+    const float lam = *a.lam;
+    reduce_store(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
+                 [&](int row) { return lam / gamma[row]; });
+  } else if (!int8_branch) {
+    const float bl = *a.beta * *a.lam;
+    reduce_store(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
+                 [&](int row) { return bl / gamma[row]; });
+  } else {
+    const float alpha = *a.alpha, w8s = *a.w8scale;
+    reduce_store(cluster, part, m, col0, a.r, static_cast<Out*>(a.y8),
+                 [&](int row) { return alpha / (gamma[row] * w8s); });
   }
+  cluster.sync();  // no block leaves while another reads its sums
 }
 
-template <class In, class Out>
-cudaError_t launch_w1a8(const void* x, const uint8_t* wp, const float* lam, void* out, int m,
-                        int k, int n, size_t smem, cudaStream_t s) {
-  const auto kernel = w1a8_gemv_kernel<In, Out>;
-  cudaError_t e = allow_smem(kernel, smem);
+template <class In, class Out, int NT, bool kDecoupled>
+cudaError_t launch(const Args& a, int device, cudaStream_t s) {
+  const auto kernel = gemv_kernel<In, Out, NT, kDecoupled>;
+  static std::atomic<bool> smem_allowed[repro_sm90::kMaxDevices];
+  cudaError_t e = repro_sm90::allow_smem(kernel, (int)kMaxSmem, device, smem_allowed);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((n + kCols - 1) / kCols), kThreads, smem, s>>>(
-      static_cast<const In*>(x), wp, lam, static_cast<Out*>(out), m, k, n);
+  const int clusters = (a.n + kCols - 1) / kCols + (kDecoupled ? (a.r + kCols - 1) / kCols : 0);
+  const Plan p = make_plan(a.m, a.k, sizeof(In), kDecoupled);
+  kernel<<<dim3(kCluster * clusters), kThreads, p.total, s>>>(a);
   return cudaGetLastError();
 }
 
-template <class In, class Out>
-cudaError_t launch_decoupled(const void* x, const uint8_t* wp, const int8_t* w8,
-                             const float* lam, const float* w8scale, const float* alpha,
-                             const float* beta, void* y1, void* y8, int m, int k, int n, int r,
-                             size_t smem, cudaStream_t s) {
-  const auto kernel = decoupled_gemv_kernel<In, Out>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((n + kCols - 1) / kCols + (r + kInt8Cols - 1) / kInt8Cols);
-  kernel<<<grid, kThreads, smem, s>>>(static_cast<const In*>(x), wp, w8, lam, w8scale, alpha,
-                                      beta, static_cast<Out*>(y1), static_cast<Out*>(y8), m, k,
-                                      n, r);
-  return cudaGetLastError();
+template <class In, class Out, bool kDecoupled>
+cudaError_t launch_rows(const Args& a, int device, cudaStream_t s) {
+  switch ((a.m + 7) / 8) {
+    case 1: return launch<In, Out, 1, kDecoupled>(a, device, s);
+    case 2: return launch<In, Out, 2, kDecoupled>(a, device, s);
+    case 3: return launch<In, Out, 3, kDecoupled>(a, device, s);
+    case 4: return launch<In, Out, 4, kDecoupled>(a, device, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 using bf16 = __nv_bfloat16;
 
-// The (x, output) type pair of a launch as 0-3 (x major; each code 0 f32,
-// 1 bf16, as rt::OutCode), or -1 for a code the kernels do not take.
-inline int types(int x_dtype, int out_dtype) {
+// Checks a launch's shape and types, then launches the instantiation for
+// its (x, output) type pair (dtype codes 0 f32, 1 bf16, as rt::OutCode).
+template <bool kDecoupled>
+int launch_checked(Args a, int x_dtype, int out_dtype, int device, void* stream) {
   const auto ok = [](int c) { return c == rt::kF32 || c == rt::kBF16; };
-  return ok(x_dtype) && ok(out_dtype) ? 2 * x_dtype + out_dtype : -1;
+  cudaError_t e = cudaSetDevice(device);
+  const int x_size = x_dtype == rt::kBF16 ? 2 : 4;
+  if (e == cudaSuccess &&
+      (!ok(x_dtype) || !ok(out_dtype) || a.m < 1 || a.m > kMaxRows || a.k < 8 || a.k % 8 ||
+       a.n < 1 || (kDecoupled && a.r < 1) ||
+       make_plan(a.m, a.k, x_size, kDecoupled).total > kMaxSmem))
+    e = cudaErrorInvalidValue;
+  if (e == cudaSuccess) {
+    a.packed_aligned = a.n % 16 == 0 && reinterpret_cast<uintptr_t>(a.wp) % 16 == 0;
+    a.int8_aligned = a.r % 16 == 0 && reinterpret_cast<uintptr_t>(a.w8) % 16 == 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (2 * x_dtype + out_dtype) {
+      case 0: e = launch_rows<float, float, kDecoupled>(a, device, s); break;
+      case 1: e = launch_rows<float, bf16, kDecoupled>(a, device, s); break;
+      case 2: e = launch_rows<bf16, float, kDecoupled>(a, device, s); break;
+      default: e = launch_rows<bf16, bf16, kDecoupled>(a, device, s); break;
+    }
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
 }
 
 }  // namespace
@@ -163,28 +178,16 @@ inline int types(int x_dtype, int out_dtype) {
 // Plain C entry points (bound with ctypes).  Pointers are device pointers;
 // `stream` is a cudaStream_t.  Each returns the cudaError_t of its launch
 // (0 on success) and never synchronizes.  Shapes: x (m, k) of x_dtype, 16-
-// byte aligned, wp (k/8, n) u8, w8 (k, r) i8, scalars one f32 each, outputs
-// (m, n) and (m, r) of out_dtype (dtype codes: 0 f32, 1 bf16); k must be a
-// multiple of 8.
+// byte aligned, 1 <= m <= 32, k a multiple of 8; wp (k/8, n) u8, w8 (k, r)
+// i8 (any alignment: rows that 16-byte copies cannot take are staged byte
+// by byte); scalars one f32 each; outputs (m, n) and (m, r) of out_dtype
+// (dtype codes: 0 f32, 1 bf16).
 
 extern "C" int w1a8_gemv_launch(const void* x, int x_dtype, const uint8_t* wp, const float* lam,
                                 void* out, int out_dtype, int m, int k, int n, int device,
                                 void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  const SmemPlan p = smem_plan(m, k);
-  if (e == cudaSuccess && (m < 1 || k % 8 || p.total > kMaxSmem)) e = cudaErrorInvalidValue;
-  if (e == cudaSuccess) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    switch (types(x_dtype, out_dtype)) {
-      case 0: e = launch_w1a8<float, float>(x, wp, lam, out, m, k, n, p.total, s); break;
-      case 1: e = launch_w1a8<float, bf16>(x, wp, lam, out, m, k, n, p.total, s); break;
-      case 2: e = launch_w1a8<bf16, float>(x, wp, lam, out, m, k, n, p.total, s); break;
-      case 3: e = launch_w1a8<bf16, bf16>(x, wp, lam, out, m, k, n, p.total, s); break;
-      default: e = cudaErrorInvalidValue;
-    }
-  }
-  if (e != cudaSuccess) cudaGetLastError();
-  return (int)e;
+  const Args a{x, wp, nullptr, lam, nullptr, nullptr, nullptr, out, nullptr, m, k, n, 0, 0, 0};
+  return launch_checked<false>(a, x_dtype, out_dtype, device, stream);
 }
 
 extern "C" int decoupled_gemv_launch(const void* x, int x_dtype, const uint8_t* wp,
@@ -192,22 +195,6 @@ extern "C" int decoupled_gemv_launch(const void* x, int x_dtype, const uint8_t* 
                                      const float* alpha, const float* beta, void* y1, void* y8,
                                      int out_dtype, int m, int k, int n, int r, int device,
                                      void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  const SmemPlan p = smem_plan(m, k);
-  if (e == cudaSuccess && (m < 1 || k % 8 || p.total > kMaxSmem)) e = cudaErrorInvalidValue;
-  if (e == cudaSuccess) {
-    const cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_LAUNCH(In, Out) \
-  launch_decoupled<In, Out>(x, wp, w8, lam, w8scale, alpha, beta, y1, y8, m, k, n, r, p.total, s)
-    switch (types(x_dtype, out_dtype)) {
-      case 0: e = REPRO_LAUNCH(float, float); break;
-      case 1: e = REPRO_LAUNCH(float, bf16); break;
-      case 2: e = REPRO_LAUNCH(bf16, float); break;
-      case 3: e = REPRO_LAUNCH(bf16, bf16); break;
-      default: e = cudaErrorInvalidValue;
-    }
-#undef REPRO_LAUNCH
-  }
-  if (e != cudaSuccess) cudaGetLastError();
-  return (int)e;
+  const Args a{x, wp, w8, lam, w8scale, alpha, beta, y1, y8, m, k, n, r, 0, 0};
+  return launch_checked<true>(a, x_dtype, out_dtype, device, stream);
 }

@@ -37,7 +37,7 @@ SOURCES = {
     "rmsnorm_quant": "rmsnorm_quant.cu",
     "paged_attention": "paged_attention.cu",
 }
-HEADERS = ("gemv_common.cuh", "tile_gemm.cuh", "wgmma_pipe.cuh")
+HEADERS = ("gemv_common.cuh", "gemv_mma.cuh", "tile_gemm.cuh", "wgmma_pipe.cuh")
 
 # IEEE division and rounding throughout: no --use_fast_math (gamma and the
 # epilogue scales must equal the plain versions' bit for bit)

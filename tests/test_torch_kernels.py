@@ -40,6 +40,9 @@ from repro_torch.kernels.w1a8_matmul import w1a8_matmul, w1a8_matmul_plain, w1a8
 
 RTOL = 1e-6
 ROWS = [1, 5, 8, 32]
+# the decode GEMVs also at 16 and 17 rows (the edge of the card kernel's
+# tiles of 8 token rows, and the continuous-batching path's 16 slots)
+GEMV_ROWS = ROWS + [16, 17]
 
 
 def _inputs(m, k, n, r=None, seed=0):
@@ -85,7 +88,7 @@ def _assert_matches(got, theirs, out_dtype):
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("m", GEMV_ROWS)
 @pytest.mark.parametrize("k,n", [(64, 96), (256, 128)])
 def test_w1a8_gemv_matches_pallas_and_ref(m, k, n, x_dtype, out_dtype):
     """x in f32 or bf16 (read in its own type, as upstream's kernel reads
@@ -121,7 +124,7 @@ def test_w1a8_gemv_matches_pallas_and_ref(m, k, n, x_dtype, out_dtype):
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("m", GEMV_ROWS)
 @pytest.mark.parametrize("k,n,r", [(64, 96, 16), (128, 256, 128)])
 def test_decoupled_gemv_matches_pallas_and_ref(m, k, n, r, x_dtype, out_dtype):
     """As the W1A8 GEMV's test, for both branches of the dual GEMV."""
@@ -414,3 +417,79 @@ def test_cuda_w1a8_matmul_alignment_by_route(cuda_device, k, n):
         torch.testing.assert_close(w1a8_matmul(x, view, gamma, lam),
                                    w1a8_matmul_plain(x, wp, gamma, lam), rtol=0, atol=0)
         assert _cuda.LAUNCHES["w1a8_matmul"] == before + 1
+
+
+# the decode GEMVs on the card: every row count of the decode tier, the
+# pquant-1.3b shapes (K 5024 = 157 k32 steps) and ragged ones (K 2056 not a
+# multiple of 32, N 72 not a multiple of 16, K 264 leaving cluster blocks
+# without a K slice, N 160 a ragged column tile), all four (x, output) types
+GEMV_SHAPES = [(2048, 2048), (5024, 2048), (2056, 72), (264, 160)]
+TYPE_PAIRS = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32"),
+              ("bfloat16", "bfloat16")]
+
+
+def _gemv_case(m, k, n, r, x_dtype, dev, seed):
+    x, packed, w8 = _inputs(m, k, n, r, seed=seed)
+    xs = _t(x).to(dev).to(getattr(torch, x_dtype))
+    sc = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (0.03, 410.0, 1.5, 0.25)]
+    return xs, _t(packed).to(dev), None if w8 is None else _t(w8).to(dev), sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,out_dtype", TYPE_PAIRS)
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+def test_cuda_w1a8_gemv_equals_plain_version_at_every_row_count(cuda_device, k, n, x_dtype,
+                                                                 out_dtype):
+    dt = getattr(torch, out_dtype)
+    for m in range(1, 33):
+        xs, ps, _, sc = _gemv_case(m, k, n, None, x_dtype, cuda_device, m + k + n)
+        before = _cuda.LAUNCHES["w1a8_gemv"]
+        got = w1a8_gemv(xs, ps, sc[0], dt)
+        assert _cuda.LAUNCHES["w1a8_gemv"] == before + 1
+        assert got.shape == (m, n) and got.dtype == dt
+        torch.testing.assert_close(got, w1a8_gemv_plain(xs, ps, sc[0], dt), rtol=0, atol=0,
+                                   msg=lambda e, m=m: f"M {m}: {e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,out_dtype", TYPE_PAIRS)
+@pytest.mark.parametrize("r", [384, 16])
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+def test_cuda_decoupled_gemv_equals_plain_version_at_every_row_count(cuda_device, k, n, r,
+                                                                      x_dtype, out_dtype):
+    dt = getattr(torch, out_dtype)
+    for m in range(1, 33):
+        xs, ps, ws, sc = _gemv_case(m, k, n, r, x_dtype, cuda_device, m + k + n + r)
+        before = _cuda.LAUNCHES["decoupled_gemv"]
+        got = decoupled_gemv(xs, ps, ws, *sc, dt)
+        assert _cuda.LAUNCHES["decoupled_gemv"] == before + 1
+        want = decoupled_gemv_plain(xs, ps, ws, *sc, dt)
+        for a, b, cols in zip(got, want, (n, r)):
+            assert a.shape == (m, cols) and a.dtype == dt
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=lambda e, m=m: f"M {m}: {e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_cuda_gemvs_constant_and_zero_rows(cuda_device, x_dtype):
+    """The act-quant's edges on the card: constant rows (every value at the
+    row's abs-max, so x * gamma = 127 |c| / (|c| + 1e-5) rounds up to the
+    clip), all-zero rows (amax 0: gamma from the 1e-5 alone, zero codes
+    and outputs) beside ordinary rows, for M across the tiles' edges."""
+    dev = cuda_device
+    k, n, r = 2056, 160, 16
+    for m in (1, 8, 9, 17, 32):
+        xs, ps, ws, sc = _gemv_case(m, k, n, r, "float32", dev, m)
+        for i in range(m):
+            if i % 3 == 0:
+                xs[i] = 0.0
+            elif i % 3 == 1:
+                xs[i] = (-1.5, 0.75, 2.0)[i % 9 // 3]
+        xs = xs.to(getattr(torch, x_dtype))
+        torch.testing.assert_close(w1a8_gemv(xs, ps, sc[0]), w1a8_gemv_plain(xs, ps, sc[0]),
+                                   rtol=0, atol=0)
+        y1, y8 = decoupled_gemv(xs, ps, ws, *sc)
+        p1, p8 = decoupled_gemv_plain(xs, ps, ws, *sc)
+        torch.testing.assert_close(y1, p1, rtol=0, atol=0)
+        torch.testing.assert_close(y8, p8, rtol=0, atol=0)
+        assert not y1[0::3].any() and not y8[0::3].any()
