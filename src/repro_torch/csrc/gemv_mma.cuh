@@ -16,22 +16,23 @@
 // no reduction inside the block.  N 2048 gives 16 clusters = 128 blocks.
 //
 // Per block, in order:
-//   1. cp.async (16 bytes a thread, all at once) stages the block's x
-//      slice (M rows x its K, f32 or bf16 as given) and its weight slice
-//      into shared memory: nothing waits on a global load after this;
-//   2. act-quant, once per cluster: each block takes the per-row abs-max
-//      of its own slice, the blocks exchange it through distributed shared
-//      memory (DSMEM), and each computes gamma = 127 / (amax + 1e-5) with
-//      IEEE division (max is exact in any order, so every block gets the
-//      plain version's gamma) and quantizes only its own slice, with
-//      round-half-even and a clip to +-127; pad rows and the K tail past
-//      K get zero codes;
+//   1. cp.async (16 bytes a thread, all at once) stages the block's weight
+//      slice into shared memory;
+//   2. act-quant, once per cluster, while the weight is in flight: each
+//      block loads its own K slice of x (f32 or bf16 as given) into
+//      registers, takes each row's abs-max, and the blocks exchange it
+//      through distributed shared memory (DSMEM); each computes gamma =
+//      127 / (amax + 1e-5) with IEEE division (max is exact in any order,
+//      so every block gets the plain version's gamma) and quantizes only
+//      its own slice into shared memory, with round-half-even and a clip
+//      to +-127; pad rows and the K tail past K get zero codes;
 //   3. the MMAs over the slice, A built in registers from the staged
 //      weight: a packed sign nibble is one word of A (sign_word), an int8
 //      column's four K values one word after a 4 x 4 byte transpose;
-//   4. each warp writes its int32 sums to shared memory; the cluster's
-//      rank q reads the eight blocks' sums of rows q, q + 8, ... over DSMEM
-//      (int32: exact in any order) and applies the epilogue.
+//   4. each warp writes its int32 sums to shared memory (over the weight
+//      stage); the cluster's rank q reads the eight blocks' sums of rows
+//      q, q + 8, ... over DSMEM (int32: exact in any order) and applies
+//      the epilogue.
 //
 // The K order inside a k32 step.  Lane l = 4 g + t of a warp holds A rows
 // g and g + 8 at MMA K quads t and t + 4, and B column g at the same
@@ -77,30 +78,27 @@ __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m -
 //   w     the weight slice: packed, per k32 step 4 rows of 128 bytes at
 //         kPackedLd; or (decoupled_gemv, whose int8 clusters need more)
 //         int8, per step 32 rows of 128 bytes, 16-byte chunks swizzled;
-//   xs    the x slice as given (M rows at xs_ld = 64 mod 128 bytes), later
-//         the warps' int32 sums (mpad rows at kPartLd words);
+//         after the MMAs, the warps' int32 sums (mpad rows at kPartLd words);
 //   xq    the int8 codes (mpad rows at xq_ld = 32 mod 128 bytes);
 //   amax, gamma: one float per row.
+// x itself is never staged: each thread keeps its loads in registers.
 struct Plan {
   int steps;  // k32 steps of a block (the last blocks may have fewer)
   int mpad;   // M rounded up to 8 (NT = mpad / 8)
-  int xs_ld, xq_ld;
-  size_t xs_off, xq_off, amax_off, gamma_off, total;
+  int xq_ld;
+  size_t xq_off, amax_off, gamma_off, total;
 };
 
-__host__ __device__ inline Plan make_plan(int m, int k, int x_size, bool int8_branch) {
+__host__ __device__ inline Plan make_plan(int m, int k, bool int8_branch) {
   Plan p;
   const int total_steps = (k + 31) / 32;
   p.steps = (total_steps + kCluster - 1) / kCluster;
   p.mpad = (int)round_up((size_t)m, 8);
   const size_t w_bytes = int8_branch ? (size_t)p.steps * 32 * kCols
                                      : (size_t)p.steps * 4 * kPackedLd;
-  p.xs_ld = (int)round_up((size_t)p.steps * 32 * x_size, 128) + 64;
   const size_t part_bytes = (size_t)p.mpad * kPartLd * 4;
-  const size_t xs_bytes = (size_t)m * p.xs_ld > part_bytes ? (size_t)m * p.xs_ld : part_bytes;
   p.xq_ld = (int)round_up((size_t)p.steps * 32 - 32, 128) + 32;
-  p.xs_off = round_up(w_bytes, 128);
-  p.xq_off = p.xs_off + round_up(xs_bytes, 128);
+  p.xq_off = round_up(w_bytes > part_bytes ? w_bytes : part_bytes, 128);
   p.amax_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
   p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
   p.total = p.gamma_off + kMaxRows * sizeof(float);
@@ -112,10 +110,6 @@ __device__ __forceinline__ void step_slice(int k, int steps, int rank, int& lo, 
   const int total = (k + 31) / 32;
   lo = min(total, rank * steps);
   hi = min(total, lo + steps);
-}
-
-__device__ __forceinline__ void cp_async_wait_group1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Stage `rows` rows of `row_bytes` bytes (valid: the first `valid_rows`
@@ -157,15 +151,8 @@ struct Int8Swizzle {
   __device__ __forceinline__ int operator()(int i) const { return ((i >> 3) & 3) << 1; }
 };
 
-// Four consecutive staged activations as floats (bf16 -> f32 is exact).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
-}
+// 16-byte loads of x a thread keeps in flight in the act-quant
+constexpr int kBatch = 16;
 
 __device__ __forceinline__ float abs_max4(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
@@ -180,38 +167,89 @@ __device__ __forceinline__ uint32_t quantize4(float4 v, float g) {
   return q(v.x) | (q(v.y) << 8) | (q(v.z) << 16) | (q(v.w) << 24);
 }
 
-// Step 2: the act-quant of the block's slice (`len` valid K values of
-// each of the m staged rows) into xq, `words` code words a row.  Four
-// threads a row (row = thread / 4), each taking every fourth word.
+// A 16-byte load of x as float4 groups: four f32 values, or eight bf16
+// values widened to f32 (exact).
+__device__ __forceinline__ float4 f32x4(uint4 u) {
+  return make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                     __uint_as_float(u.w));
+}
+__device__ __forceinline__ float4 bf16x4(uint32_t lo, uint32_t hi) {
+  return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xFFFF0000u),
+                     __uint_as_float(hi << 16), __uint_as_float(hi & 0xFFFF0000u));
+}
+__device__ __forceinline__ float item_abs_max(uint4 u, const float*) { return abs_max4(f32x4(u)); }
+__device__ __forceinline__ float item_abs_max(uint4 u, const __nv_bfloat16*) {
+  return fmaxf(abs_max4(bf16x4(u.x, u.y)), abs_max4(bf16x4(u.z, u.w)));
+}
+// The item's codes at q (one word for f32, two for bf16).
+__device__ __forceinline__ void item_quantize(uint4 u, float g, uint32_t* q, const float*) {
+  *q = quantize4(f32x4(u), g);
+}
+__device__ __forceinline__ void item_quantize(uint4 u, float g, uint32_t* q,
+                                              const __nv_bfloat16*) {
+  *reinterpret_cast<uint2*>(q) =
+      make_uint2(quantize4(bf16x4(u.x, u.y), g), quantize4(bf16x4(u.z, u.w), g));
+}
+
+// Step 2: the act-quant of the block's slice of x (m x k, row-major; this
+// block's K values [k0, k0 + len)) into xq, `words` code words a row.  The
+// rows go to groups of tpr = 128 / next_pow2(m) threads, each thread taking
+// every tpr-th 16-byte item of its row with kBatch loads in flight; the
+// second pass reads the same lines again (from L1) to quantize.  amax_s
+// must be zero on entry (it collects each row's max by atomicMax on the
+// float's bits, which orders non-negative floats).
 template <class In>
 __device__ __forceinline__ void quantize_slice(cg::cluster_group& cluster, const Plan& p,
-                                               uint8_t* smem, int m, int len, int words) {
-  const In* xs = reinterpret_cast<const In*>(smem + p.xs_off);
+                                               uint8_t* smem, const In* __restrict__ x, int m,
+                                               int k, int k0, int len, int words) {
+  constexpr int kWords = 16 / (int)sizeof(In) / 4;  // code words per 16-byte item
   uint32_t* xq = reinterpret_cast<uint32_t*>(smem + p.xq_off);
   float* amax_s = reinterpret_cast<float*>(smem + p.amax_off);
   float* gamma_s = reinterpret_cast<float*>(smem + p.gamma_off);
-  const int row = threadIdx.x >> 2, j = threadIdx.x & 3;
-  const In* xr = xs + (size_t)row * p.xs_ld / sizeof(In);
-  const int n4 = len / 4;
+  int rows = 1;
+  while (rows < m) rows <<= 1;
+  const int tpr = kThreads / rows, row = threadIdx.x / tpr, j = threadIdx.x % tpr;
+  const int items = len / (4 * kWords);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * k + k0);
   float amax = 0.0f;
   if (row < m)
-    for (int i = j; i < n4; i += 4) amax = fmaxf(amax, abs_max4(load4(xr + 4 * i)));
-  amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-  amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-  if (j == 0) amax_s[row] = amax;
-  cluster.sync();  // every block's row maxima are written and visible
+    for (int i0 = j; i0 < items; i0 += tpr * kBatch) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        v[b] = i0 + b * tpr < items ? __ldg(xr + i0 + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(v[b], x));
+    }
+  const int width = tpr < 32 ? tpr : 32;  // a row's threads inside one warp
+  for (int o = 1; o < width; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  __syncthreads();  // amax_s zeroed
+  if (row < m && (threadIdx.x & (width - 1)) == 0)
+    atomicMax(reinterpret_cast<int*>(amax_s) + row, __float_as_int(amax));
+  cluster.sync();  // every block's row maxima are in and visible
   float g = 1.0f;
   if (row < m) {
+    amax = 0.0f;
 #pragma unroll
     for (int q = 0; q < kCluster; ++q) amax = fmaxf(amax, cluster.map_shared_rank(amax_s, q)[row]);
     g = 127.0f / (amax + 1e-5f);
   }
   if (j == 0) gamma_s[row] = g;
-  if (row < p.mpad) {
-    uint32_t* qr = xq + (size_t)row * (p.xq_ld / 4);
-    for (int i = j; i < words; i += 4)
-      qr[i] = row < m && i < n4 ? quantize4(load4(xr + 4 * i), g) : 0u;
+  uint32_t* qr = xq + (size_t)row * (p.xq_ld / 4);
+  if (row < m) {
+    for (int i0 = j; i0 < items; i0 += tpr * kBatch) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (i0 + b * tpr < items) v[b] = __ldg(xr + i0 + b * tpr);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (i0 + b * tpr < items) item_quantize(v[b], g, qr + (i0 + b * tpr) * kWords, x);
+    }
+    for (int w = items * kWords + j; w < words; w += tpr) qr[w] = 0u;  // the K tail
   }
+  for (int i = threadIdx.x; i < (p.mpad - m) * words; i += kThreads)  // the pad rows
+    xq[(size_t)(m + i / words) * (p.xq_ld / 4) + i % words] = 0u;
 }
 
 template <int NT>
@@ -315,19 +353,29 @@ __device__ __forceinline__ void store_sums(const Acc<NT>& acc, int* part) {
 }
 
 // Step 4, second half: rank q sums the eight blocks' tiles at rows q, q +
-// 8, ... < m, one column a thread, and writes out[row, col0 + column] =
-// float(sum) * scale(row) for columns < ncols (out has row stride ncols).
-template <class Out, class Scale>
+// 8, ... < m, one column a thread (all its rows' remote loads in flight
+// at once), and writes out[row, col0 + column] = float(sum) * scale(row)
+// for columns < ncols (out has row stride ncols).
+template <int NT, class Out, class Scale>
 __device__ __forceinline__ void reduce_store(cg::cluster_group& cluster, int* part, int m,
                                              int col0, int ncols, Out* __restrict__ out,
                                              Scale scale) {
   const int rank = (int)cluster.block_rank(), col = col0 + (int)threadIdx.x;
-  for (int row = rank; row < m; row += kCluster) {
-    int sum = 0;
+  int sum[NT];
 #pragma unroll
-    for (int q = 0; q < kCluster; ++q)
-      sum += cluster.map_shared_rank(part, q)[row * kPartLd + threadIdx.x];
-    if (col < ncols) rt::store_out(out + (size_t)row * ncols + col, (float)sum * scale(row));
+  for (int i = 0; i < NT; ++i) {
+    const int row = rank + kCluster * i;
+    sum[i] = 0;
+    if (row < m)
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q)
+        sum[i] += cluster.map_shared_rank(part, q)[row * kPartLd + threadIdx.x];
+  }
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int row = rank + kCluster * i;
+    if (row < m && col < ncols)
+      rt::store_out(out + (size_t)row * ncols + col, (float)sum[i] * scale(row));
   }
 }
 

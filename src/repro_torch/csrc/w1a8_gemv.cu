@@ -17,9 +17,10 @@
 // activations once, at grid step (0, 0), and keeps the int8 rows in VMEM
 // for its sequential grid.  Here a thread-block cluster of 8 blocks owns
 // 128 output columns and all of K, each block one eighth of the k32 steps:
-// every block stages its x slice and its weight slice into shared memory
-// with cp.async at once, the blocks agree on each row's abs-max over DSMEM
-// and quantize only their own slice (so x is read once per cluster), and
+// every block stages its weight slice into shared memory with cp.async
+// and, while it arrives, loads its own slice of x into registers; the
+// blocks agree on each row's abs-max over DSMEM and quantize only their
+// own slice (so x is read once per cluster), and
 // the products run on the tensor cores as Y^T = W^T X^T
 // (mma.sync m16n8k32 s8, the token rows the MMA's 8-wide side), one read
 // of the weight serving all M <= 32 rows.  The int32 sums of the 8 blocks
@@ -63,19 +64,16 @@ gemv_kernel(const Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int m = a.m, k = a.k, n = a.n;
-  const Plan p = make_plan(m, k, sizeof(In), kDecoupled);
+  const Plan p = make_plan(m, k, kDecoupled);
   const int clu = blockIdx.x / kCluster, groups1 = (n + kCols - 1) / kCols;
   const bool int8_branch = kDecoupled && clu >= groups1;
   const int col0 = (int8_branch ? clu - groups1 : clu) * kCols;
   int lo, hi;
   step_slice(k, p.steps, (int)cluster.block_rank(), lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
+  if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
 
-  // 1. stage the x slice (group 0), then the weight slice (group 1)
-  const int x_bytes = len * (int)sizeof(In);
-  stage(smem + p.xs_off, p.xs_ld,
-        reinterpret_cast<const uint8_t*>(static_cast<const In*>(a.x) + (size_t)32 * lo),
-        (size_t)k * sizeof(In), m, x_bytes, m, x_bytes, true, NoSwizzle{});
+  // 1. stage the weight slice
   if (int8_branch) {
     const uint8_t* w8 = reinterpret_cast<const uint8_t*>(a.w8) + (size_t)32 * lo * a.r + col0;
     stage(smem, kCols, w8, a.r, 32 * steps, kCols, min(32 * steps, k - 32 * lo),
@@ -84,11 +82,9 @@ gemv_kernel(const Args a) {
     stage(smem, kPackedLd, a.wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
           min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), a.packed_aligned, NoSwizzle{});
   }
-  cp_async_wait_group1();
-  __syncthreads();
 
   // 2. act-quant of this block's slice, the row maxima shared over the cluster
-  quantize_slice<In>(cluster, p, smem, m, len, 8 * steps);
+  quantize_slice(cluster, p, smem, static_cast<const In*>(a.x), m, k, 32 * lo, len, 8 * steps);
   rt::cp_async_wait_all();
   __syncthreads();
 
@@ -98,25 +94,25 @@ gemv_kernel(const Args a) {
     int8_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
   else
     packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
+  __syncthreads();  // the weight stage is free for the sums
 
-  // 4. the sums over the cluster, and the epilogue (the sums reuse the x
-  // stage, which every thread of the block finished reading at step 2)
-  int* part = reinterpret_cast<int*>(smem + p.xs_off);
+  // 4. the sums over the cluster, and the epilogue
+  int* part = reinterpret_cast<int*>(smem);
   store_sums<NT>(acc, part);
   cluster.sync();
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
   if (!kDecoupled) {
     const float lam = *a.lam;
-    reduce_store(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
-                 [&](int row) { return lam / gamma[row]; });
+    reduce_store<NT>(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
+                     [&](int row) { return lam / gamma[row]; });
   } else if (!int8_branch) {
     const float bl = *a.beta * *a.lam;
-    reduce_store(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
-                 [&](int row) { return bl / gamma[row]; });
+    reduce_store<NT>(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
+                     [&](int row) { return bl / gamma[row]; });
   } else {
     const float alpha = *a.alpha, w8s = *a.w8scale;
-    reduce_store(cluster, part, m, col0, a.r, static_cast<Out*>(a.y8),
-                 [&](int row) { return alpha / (gamma[row] * w8s); });
+    reduce_store<NT>(cluster, part, m, col0, a.r, static_cast<Out*>(a.y8),
+                     [&](int row) { return alpha / (gamma[row] * w8s); });
   }
   cluster.sync();  // no block leaves while another reads its sums
 }
@@ -128,7 +124,7 @@ cudaError_t launch(const Args& a, int device, cudaStream_t s) {
   cudaError_t e = repro_sm90::allow_smem(kernel, (int)kMaxSmem, device, smem_allowed);
   if (e != cudaSuccess) return e;
   const int clusters = (a.n + kCols - 1) / kCols + (kDecoupled ? (a.r + kCols - 1) / kCols : 0);
-  const Plan p = make_plan(a.m, a.k, sizeof(In), kDecoupled);
+  const Plan p = make_plan(a.m, a.k, kDecoupled);
   kernel<<<dim3(kCluster * clusters), kThreads, p.total, s>>>(a);
   return cudaGetLastError();
 }
@@ -152,11 +148,10 @@ template <bool kDecoupled>
 int launch_checked(Args a, int x_dtype, int out_dtype, int device, void* stream) {
   const auto ok = [](int c) { return c == rt::kF32 || c == rt::kBF16; };
   cudaError_t e = cudaSetDevice(device);
-  const int x_size = x_dtype == rt::kBF16 ? 2 : 4;
   if (e == cudaSuccess &&
       (!ok(x_dtype) || !ok(out_dtype) || a.m < 1 || a.m > kMaxRows || a.k < 8 || a.k % 8 ||
        a.n < 1 || (kDecoupled && a.r < 1) ||
-       make_plan(a.m, a.k, x_size, kDecoupled).total > kMaxSmem))
+       make_plan(a.m, a.k, kDecoupled).total > kMaxSmem))
     e = cudaErrorInvalidValue;
   if (e == cudaSuccess) {
     a.packed_aligned = a.n % 16 == 0 && reinterpret_cast<uintptr_t>(a.wp) % 16 == 0;

@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Where the time of the dp4a decode GEMV goes, on one CUDA card.
+"""Where the time of a decode GEMV design goes, on one CUDA card.
 
-    python3 tools/gemv_breakdown.py SRC
+    python3 tools/gemv_breakdown.py dp4a SRC
+    python3 tools/gemv_breakdown.py mma [SRC]
 
-SRC is the ``src/`` tree of a checkout whose ``csrc/gemv_common.cuh``
-still holds the dp4a GEMV's pieces (``quantize_rows``, ``packed_column``,
-``reduce_warps``): say a ``git archive`` of such a commit unpacked under
-``_checkouts/``.  The script compiles three variants of that design's
-``w1a8_gemv`` kernel against SRC's headers (f32 in, f32 out) and times
-each at the pquant-1.3b shapes (K 2048 and 5024, N 2048) and M in
-{1, 8, 16, 32}:
+Each form compiles variants of one design's ``w1a8_gemv`` kernel (f32 in,
+f32 out) against the headers of ``SRC/repro_torch/csrc`` and times each
+at the pquant-1.3b shapes (K 2048 and 5024, N 2048) and M in {1, 8, 16,
+32}.
+
+``dp4a``: the design whose ``gemv_common.cuh`` still holds
+``quantize_rows`` and ``packed_column`` (SRC is then the ``src/`` tree of
+such a commit, say a ``git archive`` unpacked under ``_checkouts/``):
 
 * ``whole``: the kernel as it is (act-quant of all M x K activations in
   every block, then one pass over the weight slice per 8 token rows);
 * ``quant``: the act-quant alone (the product skipped);
 * ``product``: the product and the reduction alone (the shared-memory
   codes are left as they are: no activation is read).
+
+``mma``: the tensor-core design of ``gemv_mma.cuh`` (SRC defaults to this
+checkout's ``src``), cut after each of its steps, so that the differences
+between rows are what each step adds:
+
+* ``launch``: the cluster launch alone (each block writes one value);
+* ``stage``: + the weight slice's cp.async staging;
+* ``quant``: + the act-quant with its DSMEM exchange (and one more
+  cluster barrier, so that no block leaves while another reads it);
+* ``mma``: + the MMAs over the slice (and that barrier);
+* ``whole``: the kernel as ``w1a8_gemv`` runs it.
 
 Times are CUDA events over back-to-back launches with the weights rotated
 past the 50 MB L2 (``chip_smoke._time``, ``chip_smoke._copies``).  Prints
@@ -38,9 +51,10 @@ sys.path.insert(0, str(ROOT))
 
 SHAPES = ((2048, 2048), (5024, 2048))
 ROWS = (1, 8, 16, 32)
-MODES = ("whole", "quant", "product")
+DP4A_MODES = ("whole", "quant", "product")
+MMA_MODES = ("launch", "stage", "quant", "mma", "whole")
 
-SOURCE = r"""
+DP4A_SOURCE = r"""
 #include "gemv_common.cuh"
 #include "tile_gemm.cuh"
 
@@ -109,15 +123,109 @@ extern "C" int breakdown_launch(int mode, const float* x, const uint8_t* wp, con
 """
 
 
-def build(src: Path, out_dir: Path) -> tuple[ctypes.CDLL, str]:
-    """Compile the variants against SRC's headers; returns the library and
-    the compiler's resource report."""
+MMA_SOURCE = r"""
+#include "gemv_mma.cuh"
+
+using namespace repro_gemv;
+
+// w1a8_gemv_kernel's body (f32 in and out), returning after step kStop:
+// 0 launch, 1 stage, 2 act-quant, 3 MMAs, 4 the whole kernel.
+template <int NT, int kStop>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+        const float* __restrict__ lam_p, float* __restrict__ out, int m, int k, int n) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Plan p = make_plan(m, k, false);
+  const int col0 = blockIdx.x / kCluster * kCols;
+  int lo, hi;
+  step_slice(k, p.steps, (int)cluster.block_rank(), lo, hi);
+  const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
+  if (kStop == 0) {
+    if (threadIdx.x == 0) out[blockIdx.x] = (float)steps;
+    return;
+  }
+  if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
+  stage(smem, kPackedLd, wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
+        min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), true, NoSwizzle{});
+  if (kStop == 1) {
+    rt::cp_async_wait_all();
+    __syncthreads();
+    if (threadIdx.x == 0) out[blockIdx.x] = (float)smem[0];
+    return;
+  }
+  quantize_slice(cluster, p, smem, x, m, k, 32 * lo, len, 8 * steps);
+  rt::cp_async_wait_all();
+  __syncthreads();
+  if (kStop == 2) {
+    cluster.sync();
+    if (threadIdx.x == 0) out[blockIdx.x] = (float)(smem[0] + smem[p.xq_off]);
+    return;
+  }
+  Acc<NT> acc = {};
+  packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
+  if (kStop == 3) {
+    cluster.sync();
+    if (acc.c[0][0][0] == 0x7fffffff) out[threadIdx.x] = 1.0f;
+    return;
+  }
+  __syncthreads();
+  int* part = reinterpret_cast<int*>(smem);
+  store_sums<NT>(acc, part);
+  cluster.sync();
+  const float lam = *lam_p;
+  const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
+  reduce_store<NT>(cluster, part, m, col0, n, out, [&](int row) { return lam / gamma[row]; });
+  cluster.sync();
+}
+
+template <int NT, int kStop>
+cudaError_t launch(const float* x, const uint8_t* wp, const float* lam, float* out, int m, int k,
+                   int n, cudaStream_t s) {
+  const Plan p = make_plan(m, k, false);
+  cudaError_t e = cudaFuncSetAttribute(variant<NT, kStop>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (e != cudaSuccess) return e;
+  variant<NT, kStop><<<dim3(kCluster * ((n + kCols - 1) / kCols)), kThreads, p.total, s>>>(
+      x, wp, lam, out, m, k, n);
+  return cudaGetLastError();
+}
+
+template <int kStop>
+cudaError_t launch_rows(const float* x, const uint8_t* wp, const float* lam, float* out, int m,
+                        int k, int n, cudaStream_t s) {
+  switch ((m + 7) / 8) {
+    case 1: return launch<1, kStop>(x, wp, lam, out, m, k, n, s);
+    case 2: return launch<2, kStop>(x, wp, lam, out, m, k, n, s);
+    case 3: return launch<3, kStop>(x, wp, lam, out, m, k, n, s);
+    default: return launch<4, kStop>(x, wp, lam, out, m, k, n, s);
+  }
+}
+
+extern "C" int breakdown_launch(int mode, const float* x, const uint8_t* wp, const float* lam,
+                                float* out, int m, int k, int n, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (mode == 0) e = launch_rows<0>(x, wp, lam, out, m, k, n, s);
+  if (mode == 1) e = launch_rows<1>(x, wp, lam, out, m, k, n, s);
+  if (mode == 2) e = launch_rows<2>(x, wp, lam, out, m, k, n, s);
+  if (mode == 3) e = launch_rows<3>(x, wp, lam, out, m, k, n, s);
+  if (mode == 4) e = launch_rows<4>(x, wp, lam, out, m, k, n, s);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+"""
+
+
+def build(source: str, src: Path, out_dir: Path) -> tuple[ctypes.CDLL, str]:
+    """Compile the variants of ``source`` against SRC's headers; returns the
+    library and the compiler's resource report."""
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _cuda
 
     csrc = src / "repro_torch" / "csrc"
     cu = out_dir / "gemv_breakdown.cu"
-    cu.write_text(SOURCE)
+    cu.write_text(source)
     so = out_dir / "gemv_breakdown.so"
     cmd = [_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc), "-o", str(so),
            str(cu)]
@@ -138,18 +246,21 @@ def main() -> int:
 
     import chip_smoke
 
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[1] not in ("dp4a", "mma") or \
+            (sys.argv[1] == "dp4a" and len(sys.argv) != 3):
         print(__doc__, file=sys.stderr)
         return 2
+    design = sys.argv[1]
+    source, modes = (DP4A_SOURCE, DP4A_MODES) if design == "dp4a" else (MMA_SOURCE, MMA_MODES)
     if not torch.cuda.is_available():
         print("gemv_breakdown: no CUDA device", file=sys.stderr)
         return 2
-    src = Path(sys.argv[1]).resolve()
+    src = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else ROOT / "src"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
-        lib, report = build(src, Path(tmp))
+        lib, report = build(source, src, Path(tmp))
         print(report, flush=True)
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -163,7 +274,7 @@ def main() -> int:
                 x = torch.randn((m, k), generator=gen, dtype=torch.float32, device=dev)
                 out = torch.empty((m, n), dtype=torch.float32, device=dev)
                 row = {"m": m, "k": k, "n": n}
-                for mode, name in enumerate(MODES):
+                for mode, name in enumerate(modes):
                     def call(i, mode=mode):
                         err = lib.breakdown_launch(mode, x.data_ptr(), ws[i % len(ws)].data_ptr(),
                                                    lam.data_ptr(), out.data_ptr(), m, k, n,
@@ -174,8 +285,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 rows.append(row)
                 print(f"M {m} K {k} N {n}: " + ", ".join(
-                    f"{name} {row[f'{name}_us']:.2f} us" for name in MODES), flush=True)
-    print(json.dumps({"card": smi, "src": str(src), "rows": rows}))
+                    f"{name} {row[f'{name}_us']:.2f} us" for name in modes), flush=True)
+    print(json.dumps({"card": smi, "design": design, "src": str(src), "rows": rows}))
     return 0
 
 
