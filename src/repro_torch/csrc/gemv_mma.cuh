@@ -29,10 +29,12 @@
 //   3. the MMAs over the slice, A built in registers from the staged
 //      weight: a packed sign nibble is one word of A (sign_word), an int8
 //      column's four K values one word after a 4 x 4 byte transpose;
-//   4. each warp writes its int32 sums to shared memory (over the weight
-//      stage); the cluster's rank q reads the eight blocks' sums of rows
-//      q, q + 8, ... over DSMEM (int32: exact in any order) and applies
-//      the epilogue.
+//   4. each warp sends its int32 sums of row r to the block of rank r % 8
+//      (DSMEM stores), and after one cluster barrier each block sums its
+//      rows' 8 slots (int32: exact in any order) and applies the epilogue.
+//   The blocks meet at two cluster barriers (after the row maxima, after
+//   the sums) and at a split one at the start, whose wait comes just
+//   before the first DSMEM store.
 //
 // The K order inside a k32 step.  Lane l = 4 g + t of a warp holds A rows
 // g and g + 8 at MMA K quads t and t + 4, and B column g at the same
@@ -45,8 +47,8 @@
 // 4-byte word of packed row 4 s + t (columns 4 g .. 4 g + 3), and its
 // accumulators of one token row are four adjacent columns.
 //
-// Shared-memory strides are chosen so that every fragment read and the
-// sums' stores hit 32 distinct banks (see Plan).
+// Shared-memory strides are chosen so that every fragment read hits 32
+// distinct banks (see Plan).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -78,15 +80,17 @@ __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m -
 //   w     the weight slice: packed, per k32 step 4 rows of 128 bytes at
 //         kPackedLd; or (decoupled_gemv, whose int8 clusters need more)
 //         int8, per step 32 rows of 128 bytes, 16-byte chunks swizzled;
-//         after the MMAs, the warps' int32 sums (mpad rows at kPartLd words);
+//   sums  the int32 sums that the 8 blocks send this block: of rows
+//         rank + 8 i, one slot (NT rows at kPartLd words) per sender;
 //   xq    the int8 codes (mpad rows at xq_ld = 32 mod 128 bytes);
+//   amax_all  the row maxima the 8 blocks send (8 x 32 floats);
 //   amax, gamma: one float per row.
 // x itself is never staged: each thread keeps its loads in registers.
 struct Plan {
   int steps;  // k32 steps of a block (the last blocks may have fewer)
   int mpad;   // M rounded up to 8 (NT = mpad / 8)
   int xq_ld;
-  size_t xq_off, amax_off, gamma_off, total;
+  size_t sums_off, xq_off, amax_all_off, amax_off, gamma_off, total;
 };
 
 __host__ __device__ inline Plan make_plan(int m, int k, bool int8_branch) {
@@ -96,13 +100,24 @@ __host__ __device__ inline Plan make_plan(int m, int k, bool int8_branch) {
   p.mpad = (int)round_up((size_t)m, 8);
   const size_t w_bytes = int8_branch ? (size_t)p.steps * 32 * kCols
                                      : (size_t)p.steps * 4 * kPackedLd;
-  const size_t part_bytes = (size_t)p.mpad * kPartLd * 4;
   p.xq_ld = (int)round_up((size_t)p.steps * 32 - 32, 128) + 32;
-  p.xq_off = round_up(w_bytes > part_bytes ? w_bytes : part_bytes, 128);
-  p.amax_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
+  p.sums_off = round_up(w_bytes, 128);
+  p.xq_off = p.sums_off + round_up((size_t)p.mpad * kPartLd * 4, 128);
+  p.amax_all_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
+  p.amax_off = p.amax_all_off + kCluster * kMaxRows * sizeof(float);
   p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
   p.total = p.gamma_off + kMaxRows * sizeof(float);
   return p;
+}
+
+// The cluster barrier in two halves: every block arrives as it starts and
+// waits before its first access to another block's shared memory (which
+// must not come before that block has started).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // The k32 steps [lo, hi) of K that cluster rank `rank` owns.
@@ -194,57 +209,75 @@ __device__ __forceinline__ void item_quantize(uint4 u, float g, uint32_t* q,
 // Step 2: the act-quant of the block's slice of x (m x k, row-major; this
 // block's K values [k0, k0 + len)) into xq, `words` code words a row.  The
 // rows go to groups of tpr = 128 / next_pow2(m) threads, each thread taking
-// every tpr-th 16-byte item of its row with kBatch loads in flight; the
-// second pass reads the same lines again (from L1) to quantize.  amax_s
-// must be zero on entry (it collects each row's max by atomicMax on the
-// float's bits, which orders non-negative floats).
+// every tpr-th 16-byte item of its row, kBatch loads in flight; it keeps
+// its first kBatch items in registers for the quantize and reads any
+// later ones again (from L1).  The row maxima of the block (atomicMax on
+// the float's bits, which orders non-negative floats, into amax_s, which
+// must be zero on entry) go to every block of the cluster; the call must
+// follow cluster_arrive_relaxed.
 template <class In>
 __device__ __forceinline__ void quantize_slice(cg::cluster_group& cluster, const Plan& p,
                                                uint8_t* smem, const In* __restrict__ x, int m,
                                                int k, int k0, int len, int words) {
   constexpr int kWords = 16 / (int)sizeof(In) / 4;  // code words per 16-byte item
   uint32_t* xq = reinterpret_cast<uint32_t*>(smem + p.xq_off);
+  float* amax_all = reinterpret_cast<float*>(smem + p.amax_all_off);
   float* amax_s = reinterpret_cast<float*>(smem + p.amax_off);
   float* gamma_s = reinterpret_cast<float*>(smem + p.gamma_off);
   int rows = 1;
   while (rows < m) rows <<= 1;
   const int tpr = kThreads / rows, row = threadIdx.x / tpr, j = threadIdx.x % tpr;
-  const int items = len / (4 * kWords);
+  const int items = len / (4 * kWords), stride = tpr * kBatch;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * k + k0);
+  uint4 v[kBatch];
   float amax = 0.0f;
-  if (row < m)
-    for (int i0 = j; i0 < items; i0 += tpr * kBatch) {
-      uint4 v[kBatch];
+  if (row < m) {
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      v[b] = j + b * tpr < items ? __ldg(xr + j + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
+    for (int i0 = j + stride; i0 < items; i0 += stride) {
+      uint4 u[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b)
-        v[b] = i0 + b * tpr < items ? __ldg(xr + i0 + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
+        u[b] = i0 + b * tpr < items ? __ldg(xr + i0 + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(v[b], x));
+      for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(u[b], x));
     }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(v[b], x));
+  }
   const int width = tpr < 32 ? tpr : 32;  // a row's threads inside one warp
   for (int o = 1; o < width; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   __syncthreads();  // amax_s zeroed
   if (row < m && (threadIdx.x & (width - 1)) == 0)
     atomicMax(reinterpret_cast<int*>(amax_s) + row, __float_as_int(amax));
-  cluster.sync();  // every block's row maxima are in and visible
+  cluster_wait();   // every block has started
+  __syncthreads();  // this block's row maxima are complete
+  const int rank = (int)cluster.block_rank();
+  for (int i = threadIdx.x; i < kCluster * m; i += kThreads)
+    cluster.map_shared_rank(amax_all, i / m)[rank * kMaxRows + i % m] = amax_s[i % m];
+  cluster.sync();  // every block's row maxima are in
   float g = 1.0f;
   if (row < m) {
     amax = 0.0f;
 #pragma unroll
-    for (int q = 0; q < kCluster; ++q) amax = fmaxf(amax, cluster.map_shared_rank(amax_s, q)[row]);
+    for (int q = 0; q < kCluster; ++q) amax = fmaxf(amax, amax_all[q * kMaxRows + row]);
     g = 127.0f / (amax + 1e-5f);
   }
   if (j == 0) gamma_s[row] = g;
   uint32_t* qr = xq + (size_t)row * (p.xq_ld / 4);
   if (row < m) {
-    for (int i0 = j; i0 < items; i0 += tpr * kBatch) {
-      uint4 v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (j + b * tpr < items) item_quantize(v[b], g, qr + (j + b * tpr) * kWords, x);
+    for (int i0 = j + stride; i0 < items; i0 += stride) {
+      uint4 u[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b)
-        if (i0 + b * tpr < items) v[b] = __ldg(xr + i0 + b * tpr);
+        if (i0 + b * tpr < items) u[b] = __ldg(xr + i0 + b * tpr);
 #pragma unroll
       for (int b = 0; b < kBatch; ++b)
-        if (i0 + b * tpr < items) item_quantize(v[b], g, qr + (i0 + b * tpr) * kWords, x);
+        if (i0 + b * tpr < items) item_quantize(u[b], g, qr + (i0 + b * tpr) * kWords, x);
     }
     for (int w = items * kWords + j; w < words; w += tpr) qr[w] = 0u;  // the K tail
   }
@@ -339,43 +372,42 @@ __device__ __forceinline__ void int8_steps(const uint8_t* w, const uint8_t* xq, 
   }
 }
 
-// Step 4, first half: a warp's sums into the block's int32 tile (token row
-// 8 i + 2 t + e, the warp's columns 4 g .. 4 g + 3 in one 16-byte store).
+// Step 4, first half: a warp sends its sums of token row r = 8 i + 2 t + e
+// (r < m) to the block of rank r % 8 = 2 t + e, slot `rank`, as one 16-byte
+// store of the warp's columns 4 g .. 4 g + 3.
 template <int NT>
-__device__ __forceinline__ void store_sums(const Acc<NT>& acc, int* part) {
+__device__ __forceinline__ void send_sums(cg::cluster_group& cluster, const Acc<NT>& acc,
+                                          int* sums, int m) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rank = (int)cluster.block_rank();
 #pragma unroll
-  for (int i = 0; i < NT; ++i)
+  for (int e = 0; e < 2; ++e) {
+    int* dst = cluster.map_shared_rank(sums, 2 * t + e);
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      *reinterpret_cast<int4*>(part + (8 * i + 2 * t + e) * kPartLd + 32 * warp + 4 * g) =
-          make_int4(acc.c[0][i][e], acc.c[0][i][2 + e], acc.c[1][i][e], acc.c[1][i][2 + e]);
+    for (int i = 0; i < NT; ++i)
+      if (8 * i + 2 * t + e < m)
+        *reinterpret_cast<int4*>(dst + (rank * NT + i) * kPartLd + 32 * warp + 4 * g) =
+            make_int4(acc.c[0][i][e], acc.c[0][i][2 + e], acc.c[1][i][e], acc.c[1][i][2 + e]);
+  }
 }
 
-// Step 4, second half: rank q sums the eight blocks' tiles at rows q, q +
-// 8, ... < m, one column a thread (all its rows' remote loads in flight
-// at once), and writes out[row, col0 + column] = float(sum) * scale(row)
-// for columns < ncols (out has row stride ncols).
+// Step 4, second half (after a cluster barrier): the block of rank q sums
+// the 8 slots of its rows q, q + 8, ... < m, one column a thread, and
+// writes out[row, col0 + column] = float(sum) * scale(row) for columns <
+// ncols (out has row stride ncols).
 template <int NT, class Out, class Scale>
-__device__ __forceinline__ void reduce_store(cg::cluster_group& cluster, int* part, int m,
-                                             int col0, int ncols, Out* __restrict__ out,
-                                             Scale scale) {
-  const int rank = (int)cluster.block_rank(), col = col0 + (int)threadIdx.x;
-  int sum[NT];
+__device__ __forceinline__ void reduce_store(int rank, const int* sums, int m, int col0,
+                                             int ncols, Out* __restrict__ out, Scale scale) {
+  const int col = col0 + (int)threadIdx.x;
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     const int row = rank + kCluster * i;
-    sum[i] = 0;
-    if (row < m)
+    if (row < m && col < ncols) {
+      int sum = 0;
 #pragma unroll
-      for (int q = 0; q < kCluster; ++q)
-        sum[i] += cluster.map_shared_rank(part, q)[row * kPartLd + threadIdx.x];
-  }
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int row = rank + kCluster * i;
-    if (row < m && col < ncols)
-      rt::store_out(out + (size_t)row * ncols + col, (float)sum[i] * scale(row));
+      for (int q = 0; q < kCluster; ++q) sum += sums[(q * NT + i) * kPartLd + threadIdx.x];
+      rt::store_out(out + (size_t)row * ncols + col, (float)sum * scale(row));
+    }
   }
 }
 

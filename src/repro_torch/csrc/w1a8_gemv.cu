@@ -24,7 +24,8 @@
 // the products run on the tensor cores as Y^T = W^T X^T
 // (mma.sync m16n8k32 s8, the token rows the MMA's 8-wide side), one read
 // of the weight serving all M <= 32 rows.  The int32 sums of the 8 blocks
-// meet over DSMEM.  decoupled_gemv puts the clusters of its r int8 columns
+// meet over DSMEM, each block sending every other block the rows it
+// stores.  decoupled_gemv puts the clusters of its r int8 columns
 // after those of its N packed columns in one grid: one act-quant of x per
 // cluster, each weight byte read once.
 //
@@ -71,6 +72,7 @@ gemv_kernel(const Args a) {
   int lo, hi;
   step_slice(k, p.steps, (int)cluster.block_rank(), lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
+  cluster_arrive_relaxed();
   if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
 
   // 1. stage the weight slice
@@ -94,27 +96,26 @@ gemv_kernel(const Args a) {
     int8_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
   else
     packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
-  __syncthreads();  // the weight stage is free for the sums
 
   // 4. the sums over the cluster, and the epilogue
-  int* part = reinterpret_cast<int*>(smem);
-  store_sums<NT>(acc, part);
+  int* sums = reinterpret_cast<int*>(smem + p.sums_off);
+  send_sums<NT>(cluster, acc, sums, m);
   cluster.sync();
+  const int rank = (int)cluster.block_rank();
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
   if (!kDecoupled) {
     const float lam = *a.lam;
-    reduce_store<NT>(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
+    reduce_store<NT>(rank, sums, m, col0, n, static_cast<Out*>(a.y1),
                      [&](int row) { return lam / gamma[row]; });
   } else if (!int8_branch) {
     const float bl = *a.beta * *a.lam;
-    reduce_store<NT>(cluster, part, m, col0, n, static_cast<Out*>(a.y1),
+    reduce_store<NT>(rank, sums, m, col0, n, static_cast<Out*>(a.y1),
                      [&](int row) { return bl / gamma[row]; });
   } else {
     const float alpha = *a.alpha, w8s = *a.w8scale;
-    reduce_store<NT>(cluster, part, m, col0, a.r, static_cast<Out*>(a.y8),
+    reduce_store<NT>(rank, sums, m, col0, a.r, static_cast<Out*>(a.y8),
                      [&](int row) { return alpha / (gamma[row] * w8s); });
   }
-  cluster.sync();  // no block leaves while another reads its sums
 }
 
 template <class In, class Out, int NT, bool kDecoupled>

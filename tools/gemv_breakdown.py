@@ -111,7 +111,7 @@ cudaError_t launch(const float* x, const uint8_t* wp, const float* lam, float* o
 }
 
 extern "C" int breakdown_launch(int mode, const float* x, const uint8_t* wp, const float* lam,
-                                float* out, int m, int k, int n, void* stream) {
+                                float* out, int m, int k, int n, void* stream, void*) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaErrorInvalidValue;
   if (mode == 0) e = launch<0>(x, wp, lam, out, m, k, n, s);
@@ -128,13 +128,26 @@ MMA_SOURCE = r"""
 
 using namespace repro_gemv;
 
+// Thread 0's clocks at a step boundary: %globaltimer (ns, comparable across
+// SMs) and clock64 (cycles of this SM).
+__device__ __forceinline__ void mark(unsigned long long* ts, int point) {
+  if (ts == nullptr || threadIdx.x != 0) return;
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  ts[(blockIdx.x * 8 + point) * 2] = ns;
+  ts[(blockIdx.x * 8 + point) * 2 + 1] = clock64();
+}
+
 // w1a8_gemv_kernel's body (f32 in and out), returning after step kStop:
-// 0 launch, 1 stage, 2 act-quant, 3 MMAs, 4 the whole kernel.
+// 0 launch, 1 stage, 2 act-quant, 3 MMAs, 4 the whole kernel (which marks
+// its step boundaries in ts when ts is not null).
 template <int NT, int kStop>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
-        const float* __restrict__ lam_p, float* __restrict__ out, int m, int k, int n) {
+        const float* __restrict__ lam_p, float* __restrict__ out, int m, int k, int n,
+        unsigned long long* ts) {
   extern __shared__ __align__(128) uint8_t smem[];
+  mark(ts, 0);
   cg::cluster_group cluster = cg::this_cluster();
   const Plan p = make_plan(m, k, false);
   const int col0 = blockIdx.x / kCluster * kCols;
@@ -145,76 +158,86 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     if (threadIdx.x == 0) out[blockIdx.x] = (float)steps;
     return;
   }
+  cluster_arrive_relaxed();
   if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
   stage(smem, kPackedLd, wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
         min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), true, NoSwizzle{});
   if (kStop == 1) {
+    cluster_wait();
     rt::cp_async_wait_all();
     __syncthreads();
     if (threadIdx.x == 0) out[blockIdx.x] = (float)smem[0];
     return;
   }
   quantize_slice(cluster, p, smem, x, m, k, 32 * lo, len, 8 * steps);
+  mark(ts, 1);
   rt::cp_async_wait_all();
   __syncthreads();
+  mark(ts, 2);
   if (kStop == 2) {
-    cluster.sync();
     if (threadIdx.x == 0) out[blockIdx.x] = (float)(smem[0] + smem[p.xq_off]);
     return;
   }
   Acc<NT> acc = {};
   packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
+  mark(ts, 3);
   if (kStop == 3) {
-    cluster.sync();
     if (acc.c[0][0][0] == 0x7fffffff) out[threadIdx.x] = 1.0f;
     return;
   }
-  __syncthreads();
-  int* part = reinterpret_cast<int*>(smem);
-  store_sums<NT>(acc, part);
+  int* sums = reinterpret_cast<int*>(smem + p.sums_off);
+  send_sums<NT>(cluster, acc, sums, m);
   cluster.sync();
+  mark(ts, 4);
   const float lam = *lam_p;
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
-  reduce_store<NT>(cluster, part, m, col0, n, out, [&](int row) { return lam / gamma[row]; });
-  cluster.sync();
+  reduce_store<NT>((int)cluster.block_rank(), sums, m, col0, n, out,
+                   [&](int row) { return lam / gamma[row]; });
+  mark(ts, 5);
 }
 
 template <int NT, int kStop>
 cudaError_t launch(const float* x, const uint8_t* wp, const float* lam, float* out, int m, int k,
-                   int n, cudaStream_t s) {
+                   int n, unsigned long long* ts, cudaStream_t s) {
   const Plan p = make_plan(m, k, false);
   cudaError_t e = cudaFuncSetAttribute(variant<NT, kStop>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (e != cudaSuccess) return e;
   variant<NT, kStop><<<dim3(kCluster * ((n + kCols - 1) / kCols)), kThreads, p.total, s>>>(
-      x, wp, lam, out, m, k, n);
+      x, wp, lam, out, m, k, n, ts);
   return cudaGetLastError();
 }
 
 template <int kStop>
 cudaError_t launch_rows(const float* x, const uint8_t* wp, const float* lam, float* out, int m,
-                        int k, int n, cudaStream_t s) {
+                        int k, int n, unsigned long long* ts, cudaStream_t s) {
   switch ((m + 7) / 8) {
-    case 1: return launch<1, kStop>(x, wp, lam, out, m, k, n, s);
-    case 2: return launch<2, kStop>(x, wp, lam, out, m, k, n, s);
-    case 3: return launch<3, kStop>(x, wp, lam, out, m, k, n, s);
-    default: return launch<4, kStop>(x, wp, lam, out, m, k, n, s);
+    case 1: return launch<1, kStop>(x, wp, lam, out, m, k, n, ts, s);
+    case 2: return launch<2, kStop>(x, wp, lam, out, m, k, n, ts, s);
+    case 3: return launch<3, kStop>(x, wp, lam, out, m, k, n, ts, s);
+    default: return launch<4, kStop>(x, wp, lam, out, m, k, n, ts, s);
   }
 }
 
+// mode 0-4: the variants above (no marks); 5: the whole kernel, marking.
 extern "C" int breakdown_launch(int mode, const float* x, const uint8_t* wp, const float* lam,
-                                float* out, int m, int k, int n, void* stream) {
+                                float* out, int m, int k, int n, void* stream, void* ts) {
   const cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* t = static_cast<unsigned long long*>(ts);
   cudaError_t e = cudaErrorInvalidValue;
-  if (mode == 0) e = launch_rows<0>(x, wp, lam, out, m, k, n, s);
-  if (mode == 1) e = launch_rows<1>(x, wp, lam, out, m, k, n, s);
-  if (mode == 2) e = launch_rows<2>(x, wp, lam, out, m, k, n, s);
-  if (mode == 3) e = launch_rows<3>(x, wp, lam, out, m, k, n, s);
-  if (mode == 4) e = launch_rows<4>(x, wp, lam, out, m, k, n, s);
+  if (mode == 0) e = launch_rows<0>(x, wp, lam, out, m, k, n, nullptr, s);
+  if (mode == 1) e = launch_rows<1>(x, wp, lam, out, m, k, n, nullptr, s);
+  if (mode == 2) e = launch_rows<2>(x, wp, lam, out, m, k, n, nullptr, s);
+  if (mode == 3) e = launch_rows<3>(x, wp, lam, out, m, k, n, nullptr, s);
+  if (mode == 4) e = launch_rows<4>(x, wp, lam, out, m, k, n, nullptr, s);
+  if (mode == 5) e = launch_rows<4>(x, wp, lam, out, m, k, n, t, s);
   if (e != cudaSuccess) cudaGetLastError();
   return (int)e;
 }
 """
+
+# the step boundaries that mode 5 marks, in order
+MMA_MARKS = ("entry", "act-quant", "weights in", "mma", "sums in", "end")
 
 
 def build(source: str, src: Path, out_dir: Path) -> tuple[ctypes.CDLL, str]:
@@ -234,11 +257,36 @@ def build(source: str, src: Path, out_dir: Path) -> tuple[ctypes.CDLL, str]:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
     lib.breakdown_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     lib.breakdown_launch.restype = ctypes.c_int
     report = "\n".join(line for line in (proc.stdout + proc.stderr).splitlines()
                        if "registers" in line or "spill" in line or "Compiling" in line)
     return lib, report
+
+
+def marks(torch, lib, x, ws, lam, out, m, k, n, stream) -> dict:
+    """One marking launch of the whole kernel, after the timed ones (each
+    block's weights then in L2 or not, as in the timing: the next copy).
+    Returns, over the blocks, the median time of each step (ns by
+    %globaltimer, and SM cycles by clock64), the spread of the blocks'
+    entries and the kernel's span from the first entry to the last end."""
+    import statistics
+
+    blocks = 8 * -(-n // 128)
+    ts = torch.zeros((blocks, 8, 2), dtype=torch.int64, device=x.device)
+    err = lib.breakdown_launch(5, x.data_ptr(), ws[1].data_ptr(), lam.data_ptr(),
+                               out.data_ptr(), m, k, n, stream, ts.data_ptr())
+    if err:
+        raise RuntimeError(f"launch failed: CUDA error {err}")
+    t = ts.cpu()
+    res = {}
+    for a, b in zip(range(len(MMA_MARKS) - 1), range(1, len(MMA_MARKS))):
+        name = f"{MMA_MARKS[a]}->{MMA_MARKS[b]}"
+        res[name + "_ns"] = statistics.median((t[:, b, 0] - t[:, a, 0]).tolist())
+        res[name + "_cycles"] = statistics.median((t[:, b, 1] - t[:, a, 1]).tolist())
+    res["entry_spread_ns"] = int(t[:, 0, 0].max() - t[:, 0, 0].min())
+    res["span_ns"] = int(t[:, len(MMA_MARKS) - 1, 0].max() - t[:, 0, 0].min())
+    return res
 
 
 def main() -> int:
@@ -278,14 +326,18 @@ def main() -> int:
                     def call(i, mode=mode):
                         err = lib.breakdown_launch(mode, x.data_ptr(), ws[i % len(ws)].data_ptr(),
                                                    lam.data_ptr(), out.data_ptr(), m, k, n,
-                                                   stream)
+                                                   stream, None)
                         if err:
                             raise RuntimeError(f"launch failed: CUDA error {err}")
                     row[f"{name}_us"] = chip_smoke._time(torch, call, 200) * 1e3
+                if design == "mma":
+                    row["marks"] = marks(torch, lib, x, ws, lam, out, m, k, n, stream)
                 torch.cuda.synchronize()
                 rows.append(row)
                 print(f"M {m} K {k} N {n}: " + ", ".join(
                     f"{name} {row[f'{name}_us']:.2f} us" for name in modes), flush=True)
+                if design == "mma":
+                    print(f"  marks: {json.dumps(row['marks'])}", flush=True)
     print(json.dumps({"card": smi, "design": design, "src": str(src), "rows": rows}))
     return 0
 
