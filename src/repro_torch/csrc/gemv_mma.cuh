@@ -68,6 +68,9 @@ namespace rt = repro_tile;
 constexpr int kCluster = 8;            // blocks of a cluster, one K slice each
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+// blocks an SM must hold (at most 128 registers a thread): decoupled_gemv
+// at pquant-1.3b's widths runs 43 clusters of 8 blocks in one wave
+constexpr int kMinBlocks = 4;
 constexpr int kCols = 128;             // output columns of a cluster (32 a warp)
 constexpr int kMaxRows = 32;           // token rows a launch takes
 constexpr int kPackedLd = kCols + 32;  // packed stage row stride: rows 4 s + t on 8-bank offsets
@@ -167,7 +170,14 @@ struct Int8Swizzle {
 };
 
 // 16-byte loads of x a thread keeps in flight in the act-quant
-constexpr int kBatch = 16;
+constexpr int kBatch = 8;
+
+// A no-op hook at the act-quant's inner step boundaries (points 0-3: x
+// loaded and its maxima taken, the cluster's blocks all started, the
+// maxima exchanged, the codes written); a measurement passes its own.
+struct NoMark {
+  __device__ __forceinline__ void operator()(int) const {}
+};
 
 __device__ __forceinline__ float abs_max4(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
@@ -215,10 +225,11 @@ __device__ __forceinline__ void item_quantize(uint4 u, float g, uint32_t* q,
 // the float's bits, which orders non-negative floats, into amax_s, which
 // must be zero on entry) go to every block of the cluster; the call must
 // follow cluster_arrive_relaxed.
-template <class In>
+template <class In, class Mark = NoMark>
 __device__ __forceinline__ void quantize_slice(cg::cluster_group& cluster, const Plan& p,
                                                uint8_t* smem, const In* __restrict__ x, int m,
-                                               int k, int k0, int len, int words) {
+                                               int k, int k0, int len, int words,
+                                               Mark mark = {}) {
   constexpr int kWords = 16 / (int)sizeof(In) / 4;  // code words per 16-byte item
   uint32_t* xq = reinterpret_cast<uint32_t*>(smem + p.xq_off);
   float* amax_all = reinterpret_cast<float*>(smem + p.amax_all_off);
@@ -248,15 +259,18 @@ __device__ __forceinline__ void quantize_slice(cg::cluster_group& cluster, const
   }
   const int width = tpr < 32 ? tpr : 32;  // a row's threads inside one warp
   for (int o = 1; o < width; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  mark(0);
   __syncthreads();  // amax_s zeroed
   if (row < m && (threadIdx.x & (width - 1)) == 0)
     atomicMax(reinterpret_cast<int*>(amax_s) + row, __float_as_int(amax));
   cluster_wait();   // every block has started
   __syncthreads();  // this block's row maxima are complete
+  mark(1);
   const int rank = (int)cluster.block_rank();
   for (int i = threadIdx.x; i < kCluster * m; i += kThreads)
     cluster.map_shared_rank(amax_all, i / m)[rank * kMaxRows + i % m] = amax_s[i % m];
   cluster.sync();  // every block's row maxima are in
+  mark(2);
   float g = 1.0f;
   if (row < m) {
     amax = 0.0f;
@@ -283,7 +297,11 @@ __device__ __forceinline__ void quantize_slice(cg::cluster_group& cluster, const
   }
   for (int i = threadIdx.x; i < (p.mpad - m) * words; i += kThreads)  // the pad rows
     xq[(size_t)(m + i / words) * (p.xq_ld / 4) + i % words] = 0u;
+  mark(3);
 }
+
+// k32 steps whose shared loads a warp issues together before their MMAs
+constexpr int kUnroll = 4;
 
 template <int NT>
 struct Acc {
@@ -321,20 +339,28 @@ __device__ __forceinline__ void packed_steps(const uint8_t* w, const uint8_t* xq
                                              int steps, Acc<NT>& acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint8_t* wl = w + t * kPackedLd + 32 * warp + 4 * g;
-#pragma unroll 2
-  for (int s = 0; s < steps; ++s) {
-    const uint32_t word = *reinterpret_cast<const uint32_t*>(wl + (size_t)s * 4 * kPackedLd);
-    uint32_t a[2][4], b[NT][2];
+  for (int s0 = 0; s0 < steps; s0 += kUnroll) {  // kUnroll steps' loads, then their MMAs
+    uint32_t word[kUnroll], b[kUnroll][NT][2];
 #pragma unroll
-    for (int tau = 0; tau < 2; ++tau) {
-      const uint32_t lo = word >> (16 * tau), hi = lo >> 8;
-      a[tau][0] = repro_sm90::sign_word(lo & 0xFu);
-      a[tau][1] = repro_sm90::sign_word(hi & 0xFu);
-      a[tau][2] = repro_sm90::sign_word((lo >> 4) & 0xFu);
-      a[tau][3] = repro_sm90::sign_word((hi >> 4) & 0xFu);
-    }
-    b_frags<NT>(xq, xq_ld, s, g, t, b);
-    mma_step<NT>(a, b, acc);
+    for (int u = 0; u < kUnroll; ++u)
+      if (s0 + u < steps) {
+        word[u] = *reinterpret_cast<const uint32_t*>(wl + (size_t)(s0 + u) * 4 * kPackedLd);
+        b_frags<NT>(xq, xq_ld, s0 + u, g, t, b[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (s0 + u < steps) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int tau = 0; tau < 2; ++tau) {
+          const uint32_t lo = word[u] >> (16 * tau), hi = lo >> 8;
+          a[tau][0] = repro_sm90::sign_word(lo & 0xFu);
+          a[tau][1] = repro_sm90::sign_word(hi & 0xFu);
+          a[tau][2] = repro_sm90::sign_word((lo >> 4) & 0xFu);
+          a[tau][3] = repro_sm90::sign_word((hi >> 4) & 0xFu);
+        }
+        mma_step<NT>(a, b[u], acc);
+      }
   }
 }
 
@@ -348,27 +374,34 @@ __device__ __forceinline__ void int8_steps(const uint8_t* w, const uint8_t* xq, 
   // chunk 2 warp + g / 4 of the row, swizzled by 2 t (Int8Swizzle of rows 32 s + 8 t + j)
   const uint8_t* wl = w + (size_t)(8 * t) * kCols + 16 * ((2 * warp + (g >> 2)) ^ (2 * t)) +
                       4 * (g & 3);
-#pragma unroll 2
-  for (int s = 0; s < steps; ++s) {
-    const uint8_t* ws = wl + (size_t)s * 32 * kCols;
-    uint32_t v0[4], v1[4], q0[4], q1[4];
+  for (int s0 = 0; s0 < steps; s0 += kUnroll) {  // kUnroll steps' loads, then their MMAs
+    uint32_t v0[kUnroll][4], v1[kUnroll][4], b[kUnroll][NT][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v0[j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + j * kCols));
-      v1[j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + (4 + j) * kCols));
-    }
-    rt::transpose4x4(v0, q0);
-    rt::transpose4x4(v1, q1);
-    uint32_t a[2][4], b[NT][2];
+    for (int u = 0; u < kUnroll; ++u)
+      if (s0 + u < steps) {
+        const uint8_t* ws = wl + (size_t)(s0 + u) * 32 * kCols;
 #pragma unroll
-    for (int tau = 0; tau < 2; ++tau) {
-      a[tau][0] = q0[2 * tau];
-      a[tau][1] = q0[2 * tau + 1];
-      a[tau][2] = q1[2 * tau];
-      a[tau][3] = q1[2 * tau + 1];
-    }
-    b_frags<NT>(xq, xq_ld, s, g, t, b);
-    mma_step<NT>(a, b, acc);
+        for (int j = 0; j < 4; ++j) {
+          v0[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + j * kCols));
+          v1[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + (4 + j) * kCols));
+        }
+        b_frags<NT>(xq, xq_ld, s0 + u, g, t, b[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (s0 + u < steps) {
+        uint32_t q0[4], q1[4], a[2][4];
+        rt::transpose4x4(v0[u], q0);
+        rt::transpose4x4(v1[u], q1);
+#pragma unroll
+        for (int tau = 0; tau < 2; ++tau) {
+          a[tau][0] = q0[2 * tau];
+          a[tau][1] = q0[2 * tau + 1];
+          a[tau][2] = q1[2 * tau];
+          a[tau][3] = q1[2 * tau + 1];
+        }
+        mma_step<NT>(a, b[u], acc);
+      }
   }
 }
 

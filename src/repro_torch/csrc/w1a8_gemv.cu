@@ -60,7 +60,7 @@ struct Args {
 // One block of the cluster grid: clusters [0, ceil(n / 128)) own packed
 // columns, the rest (decoupled_gemv only) the int8 branch's columns.
 template <class In, class Out, int NT, bool kDecoupled>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
 gemv_kernel(const Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();

@@ -128,21 +128,28 @@ MMA_SOURCE = r"""
 
 using namespace repro_gemv;
 
+constexpr int kMarks = 10;
+
 // Thread 0's clocks at a step boundary: %globaltimer (ns, comparable across
 // SMs) and clock64 (cycles of this SM).
 __device__ __forceinline__ void mark(unsigned long long* ts, int point) {
   if (ts == nullptr || threadIdx.x != 0) return;
   unsigned long long ns;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  ts[(blockIdx.x * 8 + point) * 2] = ns;
-  ts[(blockIdx.x * 8 + point) * 2 + 1] = clock64();
+  ts[(blockIdx.x * kMarks + point) * 2] = ns;
+  ts[(blockIdx.x * kMarks + point) * 2 + 1] = clock64();
 }
+// the act-quant's inner boundaries (its points 0-3) as marks 6-9
+struct QuantMark {
+  unsigned long long* ts;
+  __device__ __forceinline__ void operator()(int point) const { mark(ts, 6 + point); }
+};
 
 // w1a8_gemv_kernel's body (f32 in and out), returning after step kStop:
 // 0 launch, 1 stage, 2 act-quant, 3 MMAs, 4 the whole kernel (which marks
 // its step boundaries in ts when ts is not null).
 template <int NT, int kStop>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
 variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
         const float* __restrict__ lam_p, float* __restrict__ out, int m, int k, int n,
         unsigned long long* ts) {
@@ -169,7 +176,7 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     if (threadIdx.x == 0) out[blockIdx.x] = (float)smem[0];
     return;
   }
-  quantize_slice(cluster, p, smem, x, m, k, 32 * lo, len, 8 * steps);
+  quantize_slice(cluster, p, smem, x, m, k, 32 * lo, len, 8 * steps, QuantMark{ts});
   mark(ts, 1);
   rt::cp_async_wait_all();
   __syncthreads();
@@ -236,8 +243,9 @@ extern "C" int breakdown_launch(int mode, const float* x, const uint8_t* wp, con
 }
 """
 
-# the step boundaries that mode 5 marks, in order
-MMA_MARKS = ("entry", "act-quant", "weights in", "mma", "sums in", "end")
+# the step boundaries that mode 5 marks, in time order: (mark, name)
+MMA_MARKS = ((0, "entry"), (6, "x maxima"), (7, "blocks started"), (8, "maxima exchanged"),
+             (9, "codes written"), (2, "weights in"), (3, "mma"), (4, "sums in"), (5, "end"))
 
 
 def build(source: str, src: Path, out_dir: Path) -> tuple[ctypes.CDLL, str]:
@@ -273,19 +281,19 @@ def marks(torch, lib, x, ws, lam, out, m, k, n, stream) -> dict:
     import statistics
 
     blocks = 8 * -(-n // 128)
-    ts = torch.zeros((blocks, 8, 2), dtype=torch.int64, device=x.device)
+    ts = torch.zeros((blocks, 10, 2), dtype=torch.int64, device=x.device)
     err = lib.breakdown_launch(5, x.data_ptr(), ws[1].data_ptr(), lam.data_ptr(),
                                out.data_ptr(), m, k, n, stream, ts.data_ptr())
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
     t = ts.cpu()
     res = {}
-    for a, b in zip(range(len(MMA_MARKS) - 1), range(1, len(MMA_MARKS))):
-        name = f"{MMA_MARKS[a]}->{MMA_MARKS[b]}"
+    for (a, name_a), (b, name_b) in zip(MMA_MARKS, MMA_MARKS[1:]):
+        name = f"{name_a}->{name_b}"
         res[name + "_ns"] = statistics.median((t[:, b, 0] - t[:, a, 0]).tolist())
         res[name + "_cycles"] = statistics.median((t[:, b, 1] - t[:, a, 1]).tolist())
     res["entry_spread_ns"] = int(t[:, 0, 0].max() - t[:, 0, 0].min())
-    res["span_ns"] = int(t[:, len(MMA_MARKS) - 1, 0].max() - t[:, 0, 0].min())
+    res["span_ns"] = int(t[:, 5, 0].max() - t[:, 0, 0].min())
     return res
 
 
