@@ -9,19 +9,20 @@
 // codes of 8 token rows, and M <= 32 rows take NT = ceil(M / 8) MMAs per
 // 16 columns per step, all from one read of the weight.
 //
-// Work split.  A cluster owns 128 output columns and all of K; its block
+// Work split.  A cluster owns 256 output columns and all of K; its block
 // of rank q owns the q-th eighth of the k32 steps (the last steps may hold
-// none).  A block has 4 warps, warp w owning columns 32 w .. 32 w + 31 of
-// the cluster's 128 over the block's whole K slice, so a warp's sums need
-// no reduction inside the block.  N 2048 gives 16 clusters = 128 blocks.
+// none).  A block has 8 warps, warp w owning columns 32 w .. 32 w + 31 of
+// the cluster's 256 over the block's whole K slice, so a warp's sums need
+// no reduction inside the block.  N 2048 gives 8 clusters = 64 blocks.
 //
 // Per block, in order:
-//   1. cp.async (16 bytes a thread, all at once) stages the block's weight
-//      slice into shared memory;
-//   2. act-quant, once per cluster, while the weight is in flight: each
-//      block loads its own K slice of x (f32 or bf16 as given) into
-//      registers, takes each row's abs-max, and the blocks exchange it
-//      through distributed shared memory (DSMEM); each computes gamma =
+//   1. the first 16-byte loads of the block's x slice (f32 or bf16 as
+//      given) go out, then cp.async (16 bytes a thread, all at once) stages
+//      the weight slice into shared memory;
+//   2. act-quant, once per cluster, while the weight arrives: each block
+//      takes each row's abs-max over its own K slice and sends it to every
+//      block of the cluster (st.async into distributed shared memory,
+//      DSMEM, completing on the receiver's mbarrier); each computes gamma =
 //      127 / (amax + 1e-5) with IEEE division (max is exact in any order,
 //      so every block gets the plain version's gamma) and quantizes only
 //      its own slice into shared memory, with round-half-even and a clip
@@ -30,11 +31,12 @@
 //      weight: a packed sign nibble is one word of A (sign_word), an int8
 //      column's four K values one word after a 4 x 4 byte transpose;
 //   4. each warp sends its int32 sums of row r to the block of rank r % 8
-//      (DSMEM stores), and after one cluster barrier each block sums its
-//      rows' 8 slots (int32: exact in any order) and applies the epilogue.
-//   The blocks meet at two cluster barriers (after the row maxima, after
-//   the sums) and at a split one at the start, whose wait comes just
-//   before the first DSMEM store.
+//      (st.async again), which waits on its mbarrier for the 8 blocks'
+//      sums of its rows, adds them (int32: exact in any order) and applies
+//      the epilogue.
+// The only cluster barrier is split: every block arrives as it starts and
+// waits just before its first DSMEM store, so that no block writes into
+// one that has not started.
 //
 // The K order inside a k32 step.  Lane l = 4 g + t of a warp holds A rows
 // g and g + 8 at MMA K quads t and t + 4, and B column g at the same
@@ -58,20 +60,21 @@
 #include <cuda_runtime.h>
 
 #include "tile_gemm.cuh"   // mma_s8, transpose4x4, cp_async16, store_out
-#include "wgmma_pipe.cuh"  // sign_word
+#include "wgmma_pipe.cuh"  // sign_word, mbarriers
 
 namespace repro_gemv {
 
 namespace cg = cooperative_groups;
 namespace rt = repro_tile;
+namespace sm90 = repro_sm90;
 
 constexpr int kCluster = 8;            // blocks of a cluster, one K slice each
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 // blocks an SM must hold (at most 128 registers a thread): decoupled_gemv
-// at pquant-1.3b's widths runs 43 clusters of 8 blocks in one wave
-constexpr int kMinBlocks = 4;
-constexpr int kCols = 128;             // output columns of a cluster (32 a warp)
+// at pquant-1.3b's widths runs 22 clusters of 8 blocks in one wave
+constexpr int kMinBlocks = 2;
+constexpr int kCols = 32 * kWarps;     // output columns of a cluster (32 a warp)
 constexpr int kMaxRows = 32;           // token rows a launch takes
 constexpr int kPackedLd = kCols + 32;  // packed stage row stride: rows 4 s + t on 8-bank offsets
 constexpr int kPartLd = kCols + 4;     // int32 sums row stride (words)
@@ -80,20 +83,20 @@ constexpr size_t kMaxSmem = 232448;    // dynamic shared memory a block may use 
 __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m - 1) / m * m; }
 
 // The shared memory of one block, the same for every block of a launch:
-//   w     the weight slice: packed, per k32 step 4 rows of 128 bytes at
+//   w     the weight slice: packed, per k32 step 4 rows of kCols bytes at
 //         kPackedLd; or (decoupled_gemv, whose int8 clusters need more)
-//         int8, per step 32 rows of 128 bytes, 16-byte chunks swizzled;
+//         int8, per step 32 rows of kCols bytes, 16-byte chunks swizzled;
 //   sums  the int32 sums that the 8 blocks send this block: of rows
 //         rank + 8 i, one slot (NT rows at kPartLd words) per sender;
 //   xq    the int8 codes (mpad rows at xq_ld = 32 mod 128 bytes);
 //   amax_all  the row maxima the 8 blocks send (8 x 32 floats);
-//   amax, gamma: one float per row.
+//   amax, gamma: one float per row; two mbarriers (maxima, sums).
 // x itself is never staged: each thread keeps its loads in registers.
 struct Plan {
   int steps;  // k32 steps of a block (the last blocks may have fewer)
   int mpad;   // M rounded up to 8 (NT = mpad / 8)
   int xq_ld;
-  size_t sums_off, xq_off, amax_all_off, amax_off, gamma_off, total;
+  size_t sums_off, xq_off, amax_all_off, amax_off, gamma_off, bar_off, total;
 };
 
 __host__ __device__ inline Plan make_plan(int m, int k, bool int8_branch) {
@@ -109,18 +112,9 @@ __host__ __device__ inline Plan make_plan(int m, int k, bool int8_branch) {
   p.amax_all_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
   p.amax_off = p.amax_all_off + kCluster * kMaxRows * sizeof(float);
   p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
-  p.total = p.gamma_off + kMaxRows * sizeof(float);
+  p.bar_off = p.gamma_off + kMaxRows * sizeof(float);
+  p.total = p.bar_off + 2 * sizeof(uint64_t);
   return p;
-}
-
-// The cluster barrier in two halves: every block arrives as it starts and
-// waits before its first access to another block's shared memory (which
-// must not come before that block has started).
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // The k32 steps [lo, hi) of K that cluster rank `rank` owns.
@@ -128,6 +122,59 @@ __device__ __forceinline__ void step_slice(int k, int steps, int rank, int& lo, 
   const int total = (k + 31) / 32;
   lo = min(total, rank * steps);
   hi = min(total, lo + steps);
+}
+
+// ---- the cluster: its split barrier, DSMEM addresses, st.async ----
+
+// Arrive (release: the mbarriers' initialisation is published) as the
+// block starts; wait (acquire) before the first DSMEM store.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of this block's shared `p` in block `rank`.
+__device__ __forceinline__ uint32_t remote(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(sm90::smem_addr(p)),
+               "r"(rank));
+  return r;
+}
+
+// Stores into another block's shared memory that complete their bytes on
+// that block's mbarrier `bar` (both shared::cluster addresses).
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, int4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Thread 0 at the start: the two mbarriers, each expecting its bytes (the
+// 8 blocks' maxima of m rows; the 8 blocks' sums of this block's rows
+// rank + 8 i < m), and amax zeroed; then every thread arrives on the
+// cluster barrier.
+__device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int m, int rank) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars[0], 1);
+    sm90::mbar_init(&bars[1], 1);
+    const int rows = rank < m ? (m - rank + kCluster - 1) / kCluster : 0;
+    sm90::mbar_expect_tx(&bars[0], kCluster * m * (int)sizeof(float));
+    sm90::mbar_expect_tx(&bars[1], rows * kCluster * kCols * (int)sizeof(int));
+    sm90::mbar_fence_init();
+  }
+  cluster_arrive();
 }
 
 // Stage `rows` rows of `row_bytes` bytes (valid: the first `valid_rows`
@@ -216,60 +263,79 @@ __device__ __forceinline__ void item_quantize(uint4 u, float g, uint32_t* q,
       make_uint2(quantize4(bf16x4(u.x, u.y), g), quantize4(bf16x4(u.z, u.w), g));
 }
 
-// Step 2: the act-quant of the block's slice of x (m x k, row-major; this
-// block's K values [k0, k0 + len)) into xq, `words` code words a row.  The
-// rows go to groups of tpr = 128 / next_pow2(m) threads, each thread taking
-// every tpr-th 16-byte item of its row, kBatch loads in flight; it keeps
-// its first kBatch items in registers for the quantize and reads any
-// later ones again (from L1).  The row maxima of the block (atomicMax on
-// the float's bits, which orders non-negative floats, into amax_s, which
-// must be zero on entry) go to every block of the cluster; the call must
-// follow cluster_arrive_relaxed.
+// A thread's share of the block's x slice (m x k, row-major; K values [k0,
+// k0 + len)): the rows go to groups of tpr = kThreads / next_pow2(m)
+// threads, each taking every tpr-th 16-byte item of its row; v holds its
+// first kBatch items.
+template <class In>
+struct XSlice {
+  const In* x;
+  const uint4* xr;  // the thread's row at k0
+  int row, j, tpr, items;
+  uint4 v[kBatch];
+};
+
+// Step 1's loads: the thread's first kBatch items.
+template <class In>
+__device__ __forceinline__ void load_x(XSlice<In>& s, const In* __restrict__ x, int m, int k,
+                                       int k0, int len) {
+  int rows = 1;
+  while (rows < m) rows <<= 1;
+  s.x = x;
+  s.tpr = kThreads / rows;
+  s.row = threadIdx.x / s.tpr;
+  s.j = threadIdx.x % s.tpr;
+  s.items = len * (int)sizeof(In) / 16;
+  s.xr = reinterpret_cast<const uint4*>(x + (size_t)s.row * k + k0);
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b) {
+    const int i = s.j + b * s.tpr;
+    s.v[b] = s.row < m && i < s.items ? __ldg(s.xr + i) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Step 2: the act-quant of the slice into xq, `words` code words a row.
+// Items past the first kBatch are read once for the max and again (from
+// L1 or L2) for the codes.  The block's row maxima (atomicMax on the
+// float's bits, which orders non-negative floats, into amax, zeroed by
+// exchange_init) go to every block of the cluster.
 template <class In, class Mark = NoMark>
-__device__ __forceinline__ void quantize_slice(cg::cluster_group& cluster, const Plan& p,
-                                               uint8_t* smem, const In* __restrict__ x, int m,
-                                               int k, int k0, int len, int words,
-                                               Mark mark = {}) {
+__device__ __forceinline__ void quantize_slice(XSlice<In>& s, const Plan& p, uint8_t* smem,
+                                               int m, int rank, int words, Mark mark = {}) {
   constexpr int kWords = 16 / (int)sizeof(In) / 4;  // code words per 16-byte item
   uint32_t* xq = reinterpret_cast<uint32_t*>(smem + p.xq_off);
   float* amax_all = reinterpret_cast<float*>(smem + p.amax_all_off);
   float* amax_s = reinterpret_cast<float*>(smem + p.amax_off);
   float* gamma_s = reinterpret_cast<float*>(smem + p.gamma_off);
-  int rows = 1;
-  while (rows < m) rows <<= 1;
-  const int tpr = kThreads / rows, row = threadIdx.x / tpr, j = threadIdx.x % tpr;
-  const int items = len / (4 * kWords), stride = tpr * kBatch;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * k + k0);
-  uint4 v[kBatch];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  const int tpr = s.tpr, row = s.row, j = s.j, items = s.items, stride = tpr * kBatch;
   float amax = 0.0f;
   if (row < m) {
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b)
-      v[b] = j + b * tpr < items ? __ldg(xr + j + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
     for (int i0 = j + stride; i0 < items; i0 += stride) {
       uint4 u[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b)
-        u[b] = i0 + b * tpr < items ? __ldg(xr + i0 + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
+        u[b] = i0 + b * tpr < items ? __ldg(s.xr + i0 + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(u[b], x));
+      for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(u[b], s.x));
     }
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(v[b], x));
+    for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(s.v[b], s.x));
   }
   const int width = tpr < 32 ? tpr : 32;  // a row's threads inside one warp
   for (int o = 1; o < width; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   mark(0);
-  __syncthreads();  // amax_s zeroed
+  __syncthreads();  // amax zeroed
   if (row < m && (threadIdx.x & (width - 1)) == 0)
     atomicMax(reinterpret_cast<int*>(amax_s) + row, __float_as_int(amax));
   cluster_wait();   // every block has started
   __syncthreads();  // this block's row maxima are complete
   mark(1);
-  const int rank = (int)cluster.block_rank();
-  for (int i = threadIdx.x; i < kCluster * m; i += kThreads)
-    cluster.map_shared_rank(amax_all, i / m)[rank * kMaxRows + i % m] = amax_s[i % m];
-  cluster.sync();  // every block's row maxima are in
+  if ((int)threadIdx.x < kCluster * m) {
+    const int q = threadIdx.x / m, r = threadIdx.x % m;
+    st_async(remote(amax_all + rank * kMaxRows + r, q), amax_s[r], remote(&bar[0], q));
+  }
+  sm90::mbar_wait(&bar[0], 0);  // every block's row maxima are in
   mark(2);
   float g = 1.0f;
   if (row < m) {
@@ -283,15 +349,15 @@ __device__ __forceinline__ void quantize_slice(cg::cluster_group& cluster, const
   if (row < m) {
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
-      if (j + b * tpr < items) item_quantize(v[b], g, qr + (j + b * tpr) * kWords, x);
+      if (j + b * tpr < items) item_quantize(s.v[b], g, qr + (j + b * tpr) * kWords, s.x);
     for (int i0 = j + stride; i0 < items; i0 += stride) {
       uint4 u[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b)
-        if (i0 + b * tpr < items) u[b] = __ldg(xr + i0 + b * tpr);
+        if (i0 + b * tpr < items) u[b] = __ldg(s.xr + i0 + b * tpr);
 #pragma unroll
       for (int b = 0; b < kBatch; ++b)
-        if (i0 + b * tpr < items) item_quantize(u[b], g, qr + (i0 + b * tpr) * kWords, x);
+        if (i0 + b * tpr < items) item_quantize(u[b], g, qr + (i0 + b * tpr) * kWords, s.x);
     }
     for (int w = items * kWords + j; w < words; w += tpr) qr[w] = 0u;  // the K tail
   }
@@ -407,30 +473,36 @@ __device__ __forceinline__ void int8_steps(const uint8_t* w, const uint8_t* xq, 
 
 // Step 4, first half: a warp sends its sums of token row r = 8 i + 2 t + e
 // (r < m) to the block of rank r % 8 = 2 t + e, slot `rank`, as one 16-byte
-// store of the warp's columns 4 g .. 4 g + 3.
+// st.async of the warp's columns 4 g .. 4 g + 3.
 template <int NT>
-__device__ __forceinline__ void send_sums(cg::cluster_group& cluster, const Acc<NT>& acc,
-                                          int* sums, int m) {
+__device__ __forceinline__ void send_sums(const Acc<NT>& acc, const Plan& p, uint8_t* smem,
+                                          int m, int rank) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int rank = (int)cluster.block_rank();
+  const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
+  const uint64_t* bar = reinterpret_cast<const uint64_t*>(smem + p.bar_off) + 1;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    int* dst = cluster.map_shared_rank(sums, 2 * t + e);
+    const int owner = 2 * t + e;
 #pragma unroll
     for (int i = 0; i < NT; ++i)
-      if (8 * i + 2 * t + e < m)
-        *reinterpret_cast<int4*>(dst + (rank * NT + i) * kPartLd + 32 * warp + 4 * g) =
-            make_int4(acc.c[0][i][e], acc.c[0][i][2 + e], acc.c[1][i][e], acc.c[1][i][2 + e]);
+      if (8 * i + owner < m)
+        st_async(remote(sums + (rank * NT + i) * kPartLd + 32 * warp + 4 * g, owner),
+                 make_int4(acc.c[0][i][e], acc.c[0][i][2 + e], acc.c[1][i][e], acc.c[1][i][2 + e]),
+                 remote(bar, owner));
   }
 }
 
-// Step 4, second half (after a cluster barrier): the block of rank q sums
-// the 8 slots of its rows q, q + 8, ... < m, one column a thread, and
-// writes out[row, col0 + column] = float(sum) * scale(row) for columns <
-// ncols (out has row stride ncols).
-template <int NT, class Out, class Scale>
-__device__ __forceinline__ void reduce_store(int rank, const int* sums, int m, int col0,
-                                             int ncols, Out* __restrict__ out, Scale scale) {
+// Step 4, second half: once the 8 blocks' sums of its rows rank, rank + 8,
+// ... < m are in (`mark(0)`), the block adds the 8 slots, one column a
+// thread, and writes out[row, col0 + column] = float(sum) * scale(row) for
+// columns < ncols (out has row stride ncols).
+template <int NT, class Out, class Scale, class Mark = NoMark>
+__device__ __forceinline__ void reduce_store(const Plan& p, uint8_t* smem, int m, int rank,
+                                             int col0, int ncols, Out* __restrict__ out,
+                                             Scale scale, Mark mark = {}) {
+  const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
+  sm90::mbar_wait(reinterpret_cast<uint64_t*>(smem + p.bar_off) + 1, 0);
+  mark(0);
   const int col = col0 + (int)threadIdx.x;
 #pragma unroll
   for (int i = 0; i < NT; ++i) {

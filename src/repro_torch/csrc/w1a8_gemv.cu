@@ -16,11 +16,11 @@
 // Design (the pieces are in gemv_mma.cuh).  The TPU kernel quantizes the
 // activations once, at grid step (0, 0), and keeps the int8 rows in VMEM
 // for its sequential grid.  Here a thread-block cluster of 8 blocks owns
-// 128 output columns and all of K, each block one eighth of the k32 steps:
-// every block stages its weight slice into shared memory with cp.async
-// and, while it arrives, loads its own slice of x into registers; the
-// blocks agree on each row's abs-max over DSMEM and quantize only their
-// own slice (so x is read once per cluster), and
+// 256 output columns and all of K, each block one eighth of the k32 steps:
+// every block loads its own slice of x into registers and stages its
+// weight slice into shared memory with cp.async; the blocks agree on each
+// row's abs-max over DSMEM and quantize only their own slice (so x is
+// read once per cluster), and
 // the products run on the tensor cores as Y^T = W^T X^T
 // (mma.sync m16n8k32 s8, the token rows the MMA's 8-wide side), one read
 // of the weight serving all M <= 32 rows.  The int32 sums of the 8 blocks
@@ -57,25 +57,25 @@ struct Args {
   int packed_aligned, int8_aligned;  // 16-byte copies of the weight rows are possible
 };
 
-// One block of the cluster grid: clusters [0, ceil(n / 128)) own packed
+// One block of the cluster grid: clusters [0, ceil(n / 256)) own packed
 // columns, the rest (decoupled_gemv only) the int8 branch's columns.
 template <class In, class Out, int NT, bool kDecoupled>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
 gemv_kernel(const Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int m = a.m, k = a.k, n = a.n;
+  const int m = a.m, k = a.k, n = a.n, rank = (int)cg::this_cluster().block_rank();
   const Plan p = make_plan(m, k, kDecoupled);
   const int clu = blockIdx.x / kCluster, groups1 = (n + kCols - 1) / kCols;
   const bool int8_branch = kDecoupled && clu >= groups1;
   const int col0 = (int8_branch ? clu - groups1 : clu) * kCols;
   int lo, hi;
-  step_slice(k, p.steps, (int)cluster.block_rank(), lo, hi);
+  step_slice(k, p.steps, rank, lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
-  cluster_arrive_relaxed();
-  if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
+  exchange_init(p, smem, m, rank);
 
-  // 1. stage the weight slice
+  // 1. the first x loads, then the weight slice's staging
+  XSlice<In> xs;
+  load_x(xs, static_cast<const In*>(a.x), m, k, 32 * lo, len);
   if (int8_branch) {
     const uint8_t* w8 = reinterpret_cast<const uint8_t*>(a.w8) + (size_t)32 * lo * a.r + col0;
     stage(smem, kCols, w8, a.r, 32 * steps, kCols, min(32 * steps, k - 32 * lo),
@@ -86,7 +86,7 @@ gemv_kernel(const Args a) {
   }
 
   // 2. act-quant of this block's slice, the row maxima shared over the cluster
-  quantize_slice(cluster, p, smem, static_cast<const In*>(a.x), m, k, 32 * lo, len, 8 * steps);
+  quantize_slice(xs, p, smem, m, rank, 8 * steps);
   rt::cp_async_wait_all();
   __syncthreads();
 
@@ -98,22 +98,19 @@ gemv_kernel(const Args a) {
     packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
 
   // 4. the sums over the cluster, and the epilogue
-  int* sums = reinterpret_cast<int*>(smem + p.sums_off);
-  send_sums<NT>(cluster, acc, sums, m);
-  cluster.sync();
-  const int rank = (int)cluster.block_rank();
+  send_sums<NT>(acc, p, smem, m, rank);
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
   if (!kDecoupled) {
     const float lam = *a.lam;
-    reduce_store<NT>(rank, sums, m, col0, n, static_cast<Out*>(a.y1),
+    reduce_store<NT>(p, smem, m, rank, col0, n, static_cast<Out*>(a.y1),
                      [&](int row) { return lam / gamma[row]; });
   } else if (!int8_branch) {
     const float bl = *a.beta * *a.lam;
-    reduce_store<NT>(rank, sums, m, col0, n, static_cast<Out*>(a.y1),
+    reduce_store<NT>(p, smem, m, rank, col0, n, static_cast<Out*>(a.y1),
                      [&](int row) { return bl / gamma[row]; });
   } else {
     const float alpha = *a.alpha, w8s = *a.w8scale;
-    reduce_store<NT>(rank, sums, m, col0, a.r, static_cast<Out*>(a.y8),
+    reduce_store<NT>(p, smem, m, rank, col0, a.r, static_cast<Out*>(a.y8),
                      [&](int row) { return alpha / (gamma[row] * w8s); });
   }
 }

@@ -155,28 +155,29 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
         unsigned long long* ts) {
   extern __shared__ __align__(128) uint8_t smem[];
   mark(ts, 0);
-  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cg::this_cluster().block_rank();
   const Plan p = make_plan(m, k, false);
   const int col0 = blockIdx.x / kCluster * kCols;
   int lo, hi;
-  step_slice(k, p.steps, (int)cluster.block_rank(), lo, hi);
+  step_slice(k, p.steps, rank, lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
   if (kStop == 0) {
     if (threadIdx.x == 0) out[blockIdx.x] = (float)steps;
     return;
   }
-  cluster_arrive_relaxed();
-  if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
+  exchange_init(p, smem, m, rank);
+  XSlice<float> xs;
+  load_x(xs, x, m, k, 32 * lo, len);
   stage(smem, kPackedLd, wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
         min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), true, NoSwizzle{});
   if (kStop == 1) {
     cluster_wait();
     rt::cp_async_wait_all();
     __syncthreads();
-    if (threadIdx.x == 0) out[blockIdx.x] = (float)smem[0];
+    if (threadIdx.x == 0) out[blockIdx.x] = (float)smem[0] + __uint_as_float(xs.v[0].x);
     return;
   }
-  quantize_slice(cluster, p, smem, x, m, k, 32 * lo, len, 8 * steps, QuantMark{ts});
+  quantize_slice(xs, p, smem, m, rank, 8 * steps, QuantMark{ts});
   mark(ts, 1);
   rt::cp_async_wait_all();
   __syncthreads();
@@ -192,14 +193,11 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     if (acc.c[0][0][0] == 0x7fffffff) out[threadIdx.x] = 1.0f;
     return;
   }
-  int* sums = reinterpret_cast<int*>(smem + p.sums_off);
-  send_sums<NT>(cluster, acc, sums, m);
-  cluster.sync();
-  mark(ts, 4);
+  send_sums<NT>(acc, p, smem, m, rank);
   const float lam = *lam_p;
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
-  reduce_store<NT>((int)cluster.block_rank(), sums, m, col0, n, out,
-                   [&](int row) { return lam / gamma[row]; });
+  reduce_store<NT>(p, smem, m, rank, col0, n, out, [&](int row) { return lam / gamma[row]; },
+                   [&](int) { mark(ts, 4); });
   mark(ts, 5);
 }
 
@@ -280,7 +278,7 @@ def marks(torch, lib, x, ws, lam, out, m, k, n, stream) -> dict:
     entries and the kernel's span from the first entry to the last end."""
     import statistics
 
-    blocks = 8 * -(-n // 128)
+    blocks = 8 * -(-n // 256)
     ts = torch.zeros((blocks, 10, 2), dtype=torch.int64, device=x.device)
     err = lib.breakdown_launch(5, x.data_ptr(), ws[1].data_ptr(), lam.data_ptr(),
                                out.data_ptr(), m, k, n, stream, ts.data_ptr())
