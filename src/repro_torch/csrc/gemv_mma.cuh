@@ -9,11 +9,13 @@
 // codes of 8 token rows, and M <= 32 rows take NT = ceil(M / 8) MMAs per
 // 16 columns per step, all from one read of the weight.
 //
-// Work split.  A cluster owns 256 output columns and all of K; its block
-// of rank q owns the q-th eighth of the k32 steps (the last steps may hold
-// none).  A block has 8 warps, warp w owning columns 32 w .. 32 w + 31 of
-// the cluster's 256 over the block's whole K slice, so a warp's sums need
-// no reduction inside the block.  N 2048 gives 8 clusters = 64 blocks.
+// Work split.  A cluster owns 128 or 256 output columns (Config) and all
+// of K; its block of rank q owns the q-th eighth of the k32 steps (the
+// last steps may hold none).  A block has 8 warps, each on 32 columns over
+// the block's K slice: at 256 columns one warp a column group; at 128 two,
+// each taking every other k32 step, the second handing its sums to the
+// first in shared memory.  w1a8_gemv at N 2048 runs 16 clusters (128
+// blocks); decoupled_gemv at N 5024 + r 384 runs 20 packed and 3 int8.
 //
 // Per block, in order:
 //   1. the first 16-byte loads of the block's x slice (f32 or bf16 as
@@ -29,7 +31,8 @@
 //      to +-127; pad rows and the K tail past K get zero codes;
 //   3. the MMAs over the slice, A built in registers from the staged
 //      weight: a packed sign nibble is one word of A (sign_word), an int8
-//      column's four K values one word after a 4 x 4 byte transpose;
+//      column's four K values one word after a 4 x 4 byte transpose (two
+//      warps sharing a column group then add their sums);
 //   4. each warp sends its int32 sums of row r to the block of rank r % 8
 //      (st.async again), which waits on its mbarrier for the 8 blocks'
 //      sums of its rows, adds them (int32: exact in any order) and applies
@@ -71,23 +74,49 @@ namespace sm90 = repro_sm90;
 constexpr int kCluster = 8;            // blocks of a cluster, one K slice each
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-// blocks an SM must hold (at most 128 registers a thread): decoupled_gemv
-// at pquant-1.3b's widths runs 22 clusters of 8 blocks in one wave
-constexpr int kMinBlocks = 2;
-constexpr int kCols = 32 * kWarps;     // output columns of a cluster (32 a warp)
 constexpr int kMaxRows = 32;           // token rows a launch takes
-constexpr int kPackedLd = kCols + 32;  // packed stage row stride: rows 4 s + t on 8-bank offsets
-constexpr int kPartLd = kCols + 4;     // int32 sums row stride (words)
+constexpr int kMaxCols = 32 * kWarps;  // output columns of a cluster, at most (32 a warp)
 constexpr size_t kMaxSmem = 232448;    // dynamic shared memory a block may use on sm_90
 
+// Each kernel's clusters: the output columns of a packed (1-bit) and of an
+// int8 cluster (128 or 256: with 128, two warps share each 32 columns,
+// each taking every other k32 step), the blocks an SM must hold (so its
+// registers are capped at 65536 / (256 x that)) and the x loads a thread
+// keeps in registers.  w1a8_gemv at N 2048 runs 16 clusters, one block an
+// SM, with room to keep a K 5024 slice of 32 rows in registers;
+// decoupled_gemv at pquant-1.3b's widths (N 5024 + r 384) runs 20 + 3
+// clusters, two blocks an SM, in one wave.
+template <bool kDecoupled>
+struct Config {
+  static constexpr int kPackedCols = 128, kInt8Cols = 0, kMinBlocks = 1, kBatch = 24;
+};
+template <>
+struct Config<true> {
+  static constexpr int kPackedCols = 256, kInt8Cols = 128, kMinBlocks = 2, kBatch = 8;
+};
+
 __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m - 1) / m * m; }
+__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
+
+// A block's branch: its cluster's `cols` output columns (a warp's 32
+// columns are column group w % (cols / 32)), the `split` warps sharing a
+// column group (warp w taking k32 steps w / groups, + split, ...), and the
+// weight stage's row stride `ld` in bytes.
+struct Tile {
+  int cols, split, ld;
+};
+// packed rows 4 s + t land on 8-bank offsets (ld = 32 mod 128); int8 rows
+// are swizzled instead (Int8Swizzle)
+__host__ __device__ inline Tile packed_tile(int cols) { return {cols, kMaxCols / cols, cols + 32}; }
+__host__ __device__ inline Tile int8_tile(int cols) { return {cols, kMaxCols / cols, cols}; }
 
 // The shared memory of one block, the same for every block of a launch:
-//   w     the weight slice: packed, per k32 step 4 rows of kCols bytes at
-//         kPackedLd; or (decoupled_gemv, whose int8 clusters need more)
-//         int8, per step 32 rows of kCols bytes, 16-byte chunks swizzled;
+//   w     the weight slice: packed, per k32 step 4 rows of cols bytes at
+//         stride ld; or int8, per step 32 rows of cols bytes, 16-byte
+//         chunks swizzled; after the MMAs, where two warps share a column
+//         group, the second warp's sums for the first to add;
 //   sums  the int32 sums that the 8 blocks send this block: of rows
-//         rank + 8 i, one slot (NT rows at kPartLd words) per sender;
+//         rank + 8 i, one slot (NT rows of cols + 4 words) per sender;
 //   xq    the int8 codes (mpad rows at xq_ld = 32 mod 128 bytes);
 //   amax_all  the row maxima the 8 blocks send (8 x 32 floats);
 //   amax, gamma: one float per row; two mbarriers (maxima, sums).
@@ -99,16 +128,26 @@ struct Plan {
   size_t sums_off, xq_off, amax_all_off, amax_off, gamma_off, bar_off, total;
 };
 
-__host__ __device__ inline Plan make_plan(int m, int k, bool int8_branch) {
+template <bool kDecoupled>
+__host__ __device__ inline Plan make_plan(int m, int k) {
+  using C = Config<kDecoupled>;
   Plan p;
   const int total_steps = (k + 31) / 32;
   p.steps = (total_steps + kCluster - 1) / kCluster;
   p.mpad = (int)round_up((size_t)m, 8);
-  const size_t w_bytes = int8_branch ? (size_t)p.steps * 32 * kCols
-                                     : (size_t)p.steps * 4 * kPackedLd;
+  size_t w_bytes = (size_t)p.steps * 4 * packed_tile(C::kPackedCols).ld;
+  if constexpr (C::kInt8Cols > 0) {
+    const size_t int8_bytes = (size_t)p.steps * 32 * C::kInt8Cols;
+    w_bytes = int8_bytes > w_bytes ? int8_bytes : w_bytes;
+  }
+  // two warps' halves combined: 2 NT int4 for each lane of 4 warps
+  const size_t combine_bytes = (size_t)(p.mpad / 8) * 2 * 128 * 16;
+  w_bytes = combine_bytes > w_bytes ? combine_bytes : w_bytes;
+  const int max_cols = max_of(C::kPackedCols, C::kInt8Cols);
   p.xq_ld = (int)round_up((size_t)p.steps * 32 - 32, 128) + 32;
   p.sums_off = round_up(w_bytes, 128);
-  p.xq_off = p.sums_off + round_up((size_t)p.mpad * kPartLd * 4, 128);
+  // NT rows from each of the 8 blocks
+  p.xq_off = p.sums_off + round_up((size_t)(p.mpad / 8) * kCluster * (max_cols + 4) * 4, 128);
   p.amax_all_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
   p.amax_off = p.amax_all_off + kCluster * kMaxRows * sizeof(float);
   p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
@@ -161,9 +200,10 @@ __device__ __forceinline__ void st_async(uint32_t addr, int4 v, uint32_t bar) {
 
 // Thread 0 at the start: the two mbarriers, each expecting its bytes (the
 // 8 blocks' maxima of m rows; the 8 blocks' sums of this block's rows
-// rank + 8 i < m), and amax zeroed; then every thread arrives on the
-// cluster barrier.
-__device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int m, int rank) {
+// rank + 8 i < m, `cols` each), and amax zeroed; then every thread arrives
+// on the cluster barrier.
+__device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int m, int rank,
+                                              int cols) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.bar_off);
   if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
   if (threadIdx.x == 0) {
@@ -171,7 +211,7 @@ __device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int 
     sm90::mbar_init(&bars[1], 1);
     const int rows = rank < m ? (m - rank + kCluster - 1) / kCluster : 0;
     sm90::mbar_expect_tx(&bars[0], kCluster * m * (int)sizeof(float));
-    sm90::mbar_expect_tx(&bars[1], rows * kCluster * kCols * (int)sizeof(int));
+    sm90::mbar_expect_tx(&bars[1], rows * kCluster * cols * (int)sizeof(int));
     sm90::mbar_fence_init();
   }
   cluster_arrive();
@@ -215,9 +255,6 @@ struct NoSwizzle {
 struct Int8Swizzle {
   __device__ __forceinline__ int operator()(int i) const { return ((i >> 3) & 3) << 1; }
 };
-
-// 16-byte loads of x a thread keeps in flight in the act-quant
-constexpr int kBatch = 8;
 
 // A no-op hook at the act-quant's inner step boundaries (points 0-3: x
 // loaded and its maxima taken, the cluster's blocks all started, the
@@ -266,8 +303,8 @@ __device__ __forceinline__ void item_quantize(uint4 u, float g, uint32_t* q,
 // A thread's share of the block's x slice (m x k, row-major; K values [k0,
 // k0 + len)): the rows go to groups of tpr = kThreads / next_pow2(m)
 // threads, each taking every tpr-th 16-byte item of its row; v holds its
-// first kBatch items.
-template <class In>
+// first kBatch items (the loads it keeps in flight at once).
+template <class In, int kBatch>
 struct XSlice {
   const In* x;
   const uint4* xr;  // the thread's row at k0
@@ -276,9 +313,9 @@ struct XSlice {
 };
 
 // Step 1's loads: the thread's first kBatch items.
-template <class In>
-__device__ __forceinline__ void load_x(XSlice<In>& s, const In* __restrict__ x, int m, int k,
-                                       int k0, int len) {
+template <class In, int kBatch>
+__device__ __forceinline__ void load_x(XSlice<In, kBatch>& s, const In* __restrict__ x, int m,
+                                       int k, int k0, int len) {
   int rows = 1;
   while (rows < m) rows <<= 1;
   s.x = x;
@@ -294,30 +331,34 @@ __device__ __forceinline__ void load_x(XSlice<In>& s, const In* __restrict__ x, 
   }
 }
 
+// x loads a thread keeps in flight past its first kBatch
+constexpr int kMore = 8;
+
 // Step 2: the act-quant of the slice into xq, `words` code words a row.
-// Items past the first kBatch are read once for the max and again (from
-// L1 or L2) for the codes.  The block's row maxima (atomicMax on the
+// Items past the first kBatch are read, kMore at a time, once for the max
+// and again (from L1 or L2) for the codes.  The block's row maxima (atomicMax on the
 // float's bits, which orders non-negative floats, into amax, zeroed by
 // exchange_init) go to every block of the cluster.
-template <class In, class Mark = NoMark>
-__device__ __forceinline__ void quantize_slice(XSlice<In>& s, const Plan& p, uint8_t* smem,
-                                               int m, int rank, int words, Mark mark = {}) {
+template <class In, int kBatch, class Mark = NoMark>
+__device__ __forceinline__ void quantize_slice(XSlice<In, kBatch>& s, const Plan& p,
+                                               uint8_t* smem, int m, int rank, int words,
+                                               Mark mark = {}) {
   constexpr int kWords = 16 / (int)sizeof(In) / 4;  // code words per 16-byte item
   uint32_t* xq = reinterpret_cast<uint32_t*>(smem + p.xq_off);
   float* amax_all = reinterpret_cast<float*>(smem + p.amax_all_off);
   float* amax_s = reinterpret_cast<float*>(smem + p.amax_off);
   float* gamma_s = reinterpret_cast<float*>(smem + p.gamma_off);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + p.bar_off);
-  const int tpr = s.tpr, row = s.row, j = s.j, items = s.items, stride = tpr * kBatch;
+  const int tpr = s.tpr, row = s.row, j = s.j, items = s.items, stride = tpr * kMore;
   float amax = 0.0f;
   if (row < m) {
-    for (int i0 = j + stride; i0 < items; i0 += stride) {
-      uint4 u[kBatch];
+    for (int i0 = j + tpr * kBatch; i0 < items; i0 += stride) {
+      uint4 u[kMore];
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b)
+      for (int b = 0; b < kMore; ++b)
         u[b] = i0 + b * tpr < items ? __ldg(s.xr + i0 + b * tpr) : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(u[b], s.x));
+      for (int b = 0; b < kMore; ++b) amax = fmaxf(amax, item_abs_max(u[b], s.x));
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(s.v[b], s.x));
@@ -350,13 +391,13 @@ __device__ __forceinline__ void quantize_slice(XSlice<In>& s, const Plan& p, uin
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
       if (j + b * tpr < items) item_quantize(s.v[b], g, qr + (j + b * tpr) * kWords, s.x);
-    for (int i0 = j + stride; i0 < items; i0 += stride) {
-      uint4 u[kBatch];
+    for (int i0 = j + tpr * kBatch; i0 < items; i0 += stride) {
+      uint4 u[kMore];
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b)
+      for (int b = 0; b < kMore; ++b)
         if (i0 + b * tpr < items) u[b] = __ldg(s.xr + i0 + b * tpr);
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b)
+      for (int b = 0; b < kMore; ++b)
         if (i0 + b * tpr < items) item_quantize(u[b], g, qr + (i0 + b * tpr) * kWords, s.x);
     }
     for (int w = items * kWords + j; w < words; w += tpr) qr[w] = 0u;  // the K tail
@@ -397,33 +438,45 @@ __device__ __forceinline__ void mma_step(const uint32_t (&a)[2][4], const uint32
     for (int i = 0; i < NT; ++i) rt::mma_s8(acc.c[tau][i], a[tau], b[i]);
 }
 
+// A warp's column group and first k32 step in the block's tile.
+__device__ __forceinline__ void warp_role(const Tile& tile, int& group, int& first) {
+  const int warp = threadIdx.x >> 5, groups = tile.cols / 32;
+  group = warp % groups;
+  first = warp / groups;
+}
+
 // Step 3, 1-bit weight: A of step s from the word of packed row 4 s + t at
 // the warp's columns 4 g .. 4 g + 3 (byte 2 tau: A row g of tile tau;
 // byte 2 tau + 1: A row g + 8; low nibble quad t, high nibble quad t + 4).
 template <int NT>
-__device__ __forceinline__ void packed_steps(const uint8_t* w, const uint8_t* xq, int xq_ld,
-                                             int steps, Acc<NT>& acc) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint8_t* wl = w + t * kPackedLd + 32 * warp + 4 * g;
-  for (int s0 = 0; s0 < steps; s0 += kUnroll) {  // kUnroll steps' loads, then their MMAs
+__device__ __forceinline__ void packed_steps(const Tile& tile, const uint8_t* w,
+                                             const uint8_t* xq, int xq_ld, int steps,
+                                             Acc<NT>& acc) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int group, first;
+  warp_role(tile, group, first);
+  const uint8_t* wl = w + t * tile.ld + 32 * group + 4 * g;
+  for (int s0 = first; s0 < steps; s0 += kUnroll * tile.split) {  // kUnroll steps' loads first
     uint32_t word[kUnroll], b[kUnroll][NT][2];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (s0 + u < steps) {
-        word[u] = *reinterpret_cast<const uint32_t*>(wl + (size_t)(s0 + u) * 4 * kPackedLd);
-        b_frags<NT>(xq, xq_ld, s0 + u, g, t, b[u]);
+    for (int u = 0; u < kUnroll; ++u) {
+      const int s = s0 + u * tile.split;
+      if (s < steps) {
+        word[u] = *reinterpret_cast<const uint32_t*>(wl + (size_t)s * 4 * tile.ld);
+        b_frags<NT>(xq, xq_ld, s, g, t, b[u]);
       }
+    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (s0 + u < steps) {
+      if (s0 + u * tile.split < steps) {
         uint32_t a[2][4];
 #pragma unroll
         for (int tau = 0; tau < 2; ++tau) {
           const uint32_t lo = word[u] >> (16 * tau), hi = lo >> 8;
-          a[tau][0] = repro_sm90::sign_word(lo & 0xFu);
-          a[tau][1] = repro_sm90::sign_word(hi & 0xFu);
-          a[tau][2] = repro_sm90::sign_word((lo >> 4) & 0xFu);
-          a[tau][3] = repro_sm90::sign_word((hi >> 4) & 0xFu);
+          a[tau][0] = sm90::sign_word(lo & 0xFu);
+          a[tau][1] = sm90::sign_word(hi & 0xFu);
+          a[tau][2] = sm90::sign_word((lo >> 4) & 0xFu);
+          a[tau][3] = sm90::sign_word((hi >> 4) & 0xFu);
         }
         mma_step<NT>(a, b[u], acc);
       }
@@ -434,28 +487,33 @@ __device__ __forceinline__ void packed_steps(const uint8_t* w, const uint8_t* xq
 // int8 stage at the warp's columns 4 g .. 4 g + 3, transposed 4 x 4 so
 // that each word is one column's four K values.
 template <int NT>
-__device__ __forceinline__ void int8_steps(const uint8_t* w, const uint8_t* xq, int xq_ld,
-                                           int steps, Acc<NT>& acc) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  // chunk 2 warp + g / 4 of the row, swizzled by 2 t (Int8Swizzle of rows 32 s + 8 t + j)
-  const uint8_t* wl = w + (size_t)(8 * t) * kCols + 16 * ((2 * warp + (g >> 2)) ^ (2 * t)) +
+__device__ __forceinline__ void int8_steps(const Tile& tile, const uint8_t* w,
+                                           const uint8_t* xq, int xq_ld, int steps,
+                                           Acc<NT>& acc) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int group, first;
+  warp_role(tile, group, first);
+  // chunk 2 group + g / 4 of the row, swizzled by 2 t (Int8Swizzle of rows 32 s + 8 t + j)
+  const uint8_t* wl = w + (size_t)(8 * t) * tile.ld + 16 * ((2 * group + (g >> 2)) ^ (2 * t)) +
                       4 * (g & 3);
-  for (int s0 = 0; s0 < steps; s0 += kUnroll) {  // kUnroll steps' loads, then their MMAs
+  for (int s0 = first; s0 < steps; s0 += kUnroll * tile.split) {  // kUnroll steps' loads first
     uint32_t v0[kUnroll][4], v1[kUnroll][4], b[kUnroll][NT][2];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (s0 + u < steps) {
-        const uint8_t* ws = wl + (size_t)(s0 + u) * 32 * kCols;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int s = s0 + u * tile.split;
+      if (s < steps) {
+        const uint8_t* ws = wl + (size_t)s * 32 * tile.ld;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          v0[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + j * kCols));
-          v1[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + (4 + j) * kCols));
+          v0[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + j * tile.ld));
+          v1[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + (4 + j) * tile.ld));
         }
-        b_frags<NT>(xq, xq_ld, s0 + u, g, t, b[u]);
+        b_frags<NT>(xq, xq_ld, s, g, t, b[u]);
       }
+    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (s0 + u < steps) {
+      if (s0 + u * tile.split < steps) {
         uint32_t q0[4], q1[4], a[2][4];
         rt::transpose4x4(v0[u], q0);
         rt::transpose4x4(v1[u], q1);
@@ -471,13 +529,45 @@ __device__ __forceinline__ void int8_steps(const uint8_t* w, const uint8_t* xq, 
   }
 }
 
-// Step 4, first half: a warp sends its sums of token row r = 8 i + 2 t + e
-// (r < m) to the block of rank r % 8 = 2 t + e, slot `rank`, as one 16-byte
-// st.async of the warp's columns 4 g .. 4 g + 3.
+// Where two warps share a column group, the second hands its sums to the
+// first through the (now free) weight stage; returns whether this warp
+// holds its group's sums.  A barrier for the block in either case.
 template <int NT>
-__device__ __forceinline__ void send_sums(const Acc<NT>& acc, const Plan& p, uint8_t* smem,
-                                          int m, int rank) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ bool combine(const Tile& tile, uint8_t* w, Acc<NT>& acc) {
+  int group, first;
+  warp_role(tile, group, first);
+  __syncthreads();  // every warp is done with the weight stage
+  if (tile.split == 1) return true;
+  int4* buf = reinterpret_cast<int4*>(w) + (size_t)(group * 32 + (threadIdx.x & 31)) * 2 * NT;
+  if (first == 1)
+#pragma unroll
+    for (int q = 0; q < 2 * NT; ++q)
+      buf[q] = make_int4(acc.c[q / NT][q % NT][0], acc.c[q / NT][q % NT][1],
+                         acc.c[q / NT][q % NT][2], acc.c[q / NT][q % NT][3]);
+  __syncthreads();
+  if (first == 1) return false;
+#pragma unroll
+  for (int q = 0; q < 2 * NT; ++q) {
+    const int4 o = buf[q];
+    int* c = acc.c[q / NT][q % NT];
+    c[0] += o.x;
+    c[1] += o.y;
+    c[2] += o.z;
+    c[3] += o.w;
+  }
+  return true;
+}
+
+// Step 4, first half: a warp holding its group's sums sends those of token
+// row r = 8 i + 2 t + e (r < m) to the block of rank r % 8 = 2 t + e, slot
+// `rank` (rows of cols + 4 words), as one 16-byte st.async of the warp's
+// columns 4 g .. 4 g + 3.
+template <int NT>
+__device__ __forceinline__ void send_sums(const Tile& tile, const Acc<NT>& acc, const Plan& p,
+                                          uint8_t* smem, int m, int rank) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = tile.cols + 4;
+  int group, first;
+  warp_role(tile, group, first);
   const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
   const uint64_t* bar = reinterpret_cast<const uint64_t*>(smem + p.bar_off) + 1;
 #pragma unroll
@@ -486,7 +576,7 @@ __device__ __forceinline__ void send_sums(const Acc<NT>& acc, const Plan& p, uin
 #pragma unroll
     for (int i = 0; i < NT; ++i)
       if (8 * i + owner < m)
-        st_async(remote(sums + (rank * NT + i) * kPartLd + 32 * warp + 4 * g, owner),
+        st_async(remote(sums + (rank * NT + i) * ld + 32 * group + 4 * g, owner),
                  make_int4(acc.c[0][i][e], acc.c[0][i][2 + e], acc.c[1][i][e], acc.c[1][i][2 + e]),
                  remote(bar, owner));
   }
@@ -497,12 +587,15 @@ __device__ __forceinline__ void send_sums(const Acc<NT>& acc, const Plan& p, uin
 // thread, and writes out[row, col0 + column] = float(sum) * scale(row) for
 // columns < ncols (out has row stride ncols).
 template <int NT, class Out, class Scale, class Mark = NoMark>
-__device__ __forceinline__ void reduce_store(const Plan& p, uint8_t* smem, int m, int rank,
-                                             int col0, int ncols, Out* __restrict__ out,
-                                             Scale scale, Mark mark = {}) {
+__device__ __forceinline__ void reduce_store(const Tile& tile, const Plan& p, uint8_t* smem,
+                                             int m, int rank, int col0, int ncols,
+                                             Out* __restrict__ out, Scale scale,
+                                             Mark mark = {}) {
   const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
+  const int ld = tile.cols + 4;
   sm90::mbar_wait(reinterpret_cast<uint64_t*>(smem + p.bar_off) + 1, 0);
   mark(0);
+  if ((int)threadIdx.x >= tile.cols) return;
   const int col = col0 + (int)threadIdx.x;
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
@@ -510,7 +603,7 @@ __device__ __forceinline__ void reduce_store(const Plan& p, uint8_t* smem, int m
     if (row < m && col < ncols) {
       int sum = 0;
 #pragma unroll
-      for (int q = 0; q < kCluster; ++q) sum += sums[(q * NT + i) * kPartLd + threadIdx.x];
+      for (int q = 0; q < kCluster; ++q) sum += sums[(q * NT + i) * ld + threadIdx.x];
       rt::store_out(out + (size_t)row * ncols + col, (float)sum * scale(row));
     }
   }

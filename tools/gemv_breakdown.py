@@ -149,15 +149,18 @@ struct QuantMark {
 // 0 launch, 1 stage, 2 act-quant, 3 MMAs, 4 the whole kernel (which marks
 // its step boundaries in ts when ts is not null).
 template <int NT, int kStop>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreads, Config<false>::kMinBlocks)
 variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
         const float* __restrict__ lam_p, float* __restrict__ out, int m, int k, int n,
         unsigned long long* ts) {
+  using C = Config<false>;
   extern __shared__ __align__(128) uint8_t smem[];
   mark(ts, 0);
   const int rank = (int)cg::this_cluster().block_rank();
-  const Plan p = make_plan(m, k, false);
-  const int col0 = blockIdx.x / kCluster * kCols;
+  const Plan p = make_plan<false>(m, k);
+  const Tile tile = packed_tile(C::kPackedCols);
+  const int col0 = blockIdx.x / kCluster * tile.cols;
   int lo, hi;
   step_slice(k, p.steps, rank, lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
@@ -165,11 +168,11 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     if (threadIdx.x == 0) out[blockIdx.x] = (float)steps;
     return;
   }
-  exchange_init(p, smem, m, rank);
-  XSlice<float> xs;
+  exchange_init(p, smem, m, rank, tile.cols);
+  XSlice<float, C::kBatch> xs;
   load_x(xs, x, m, k, 32 * lo, len);
-  stage(smem, kPackedLd, wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
-        min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), true, NoSwizzle{});
+  stage(smem, tile.ld, wp + (size_t)4 * lo * n + col0, n, 4 * steps, tile.cols,
+        min(4 * steps, k / 8 - 4 * lo), min(tile.cols, n - col0), true, NoSwizzle{});
   if (kStop == 1) {
     cluster_wait();
     rt::cp_async_wait_all();
@@ -187,28 +190,29 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     return;
   }
   Acc<NT> acc = {};
-  packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
+  packed_steps<NT>(tile, smem, smem + p.xq_off, p.xq_ld, steps, acc);
   mark(ts, 3);
   if (kStop == 3) {
     if (acc.c[0][0][0] == 0x7fffffff) out[threadIdx.x] = 1.0f;
     return;
   }
-  send_sums<NT>(acc, p, smem, m, rank);
+  if (combine<NT>(tile, smem, acc)) send_sums<NT>(tile, acc, p, smem, m, rank);
   const float lam = *lam_p;
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
-  reduce_store<NT>(p, smem, m, rank, col0, n, out, [&](int row) { return lam / gamma[row]; },
-                   [&](int) { mark(ts, 4); });
+  reduce_store<NT>(tile, p, smem, m, rank, col0, n, out,
+                   [&](int row) { return lam / gamma[row]; }, [&](int) { mark(ts, 4); });
   mark(ts, 5);
 }
 
 template <int NT, int kStop>
 cudaError_t launch(const float* x, const uint8_t* wp, const float* lam, float* out, int m, int k,
                    int n, unsigned long long* ts, cudaStream_t s) {
-  const Plan p = make_plan(m, k, false);
+  const Plan p = make_plan<false>(m, k);
   cudaError_t e = cudaFuncSetAttribute(variant<NT, kStop>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (e != cudaSuccess) return e;
-  variant<NT, kStop><<<dim3(kCluster * ((n + kCols - 1) / kCols)), kThreads, p.total, s>>>(
+  const int cols = Config<false>::kPackedCols;
+  variant<NT, kStop><<<dim3(kCluster * ((n + cols - 1) / cols)), kThreads, p.total, s>>>(
       x, wp, lam, out, m, k, n, ts);
   return cudaGetLastError();
 }
@@ -278,7 +282,7 @@ def marks(torch, lib, x, ws, lam, out, m, k, n, stream) -> dict:
     entries and the kernel's span from the first entry to the last end."""
     import statistics
 
-    blocks = 8 * -(-n // 256)
+    blocks = 8 * -(-n // 128)  # Config<false>::kPackedCols
     ts = torch.zeros((blocks, 10, 2), dtype=torch.int64, device=x.device)
     err = lib.breakdown_launch(5, x.data_ptr(), ws[1].data_ptr(), lam.data_ptr(),
                                out.data_ptr(), m, k, n, stream, ts.data_ptr())
