@@ -62,9 +62,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (a) paged, one-shot admission; (b) paged, ``prefill_chunk`` 64; (c)
    paged with ``REPRO_PAGED_ATTN=0`` (the gather path); (d) dense; (e)
    paged with a third of the blocks (forces preemption).  Prints TTFT p50
-   and p99, tokens/s, ms per engine step, the device busy share (engine
-   steps 4-9 profiled on a second run), preemptions and launches per
-   kernel; fails unless (c) equals (d) and (e) equals (a) stream for
+   and p99, tokens/s, ms per engine step, the device busy share and the
+   decode GEMVs' device time (engine steps 4-5 profiled on a second run),
+   preemptions and launches per kernel; fails unless (c) equals (d) and (e) equals (a) stream for
    stream, (e) preempted, every pool drained, ``paged_attention`` launched
    layers x (decode steps + chunked slices) times on (a), (b), (e) and
    never on (c), (d), and every request finished once by length;
@@ -1135,7 +1135,8 @@ def _cb_busy(torch, params, cfg, layout, prefill_chunk, pool_div, env, step_wall
     time of its kernels, copies and sets is divided by the same steps'
     wall time in the unprofiled run (the profiler slows the host, not the
     kernels).  Returns (busy share, the six kernels with the most device
-    time: [(name, (us, launches))])."""
+    time: [(name, (us, launches))], the device ms of each decode GEMV's
+    kernels, every instantiation summed)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1165,7 +1166,9 @@ def _cb_busy(torch, params, cfg, layout, prefill_chunk, pool_div, env, step_wall
     del eng
     torch.cuda.empty_cache()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return busy_us / 1e6 / sum(step_walls[lo:hi]), top
+    gemv_ms = {g: sum(us for k, (us, _) in by_name.items() if f"{g}_kernel" in k) / 1e3
+               for g in ("w1a8_gemv", "decoupled_gemv")}
+    return busy_us / 1e6 / sum(step_walls[lo:hi]), top, gemv_ms
 
 
 def phase_continuous(torch, params, cfg):
@@ -1179,8 +1182,8 @@ def phase_continuous(torch, params, cfg):
     recs, streams = {}, {}
     for name, layout, pc, div, env in CB_CONFIGS:
         rec, st, reasons, _ = _cb_run(torch, params, cfg, name, layout, pc, div, env)
-        rec["device_busy_share"], top = _cb_busy(torch, params, cfg, layout, pc, div, env,
-                                                 rec.pop("step_walls"))
+        rec["device_busy_share"], top, rec["gemv_device_ms"] = _cb_busy(
+            torch, params, cfg, layout, pc, div, env, rec.pop("step_walls"))
         recs[name], streams[name] = rec, st
         log(f"[8] ({name}) {json.dumps(rec)}")
         lo, hi = CB_PROFILE_STEPS

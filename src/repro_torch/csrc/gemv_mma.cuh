@@ -14,7 +14,7 @@
 // last steps may hold none).  A block has 8 warps, each on 32 columns over
 // the block's K slice: at 256 columns one warp a column group; at 128 two,
 // each taking every other k32 step, the second handing its sums to the
-// first in shared memory.  w1a8_gemv at N 2048 runs 16 clusters (128
+// first in shared memory.  w1a8_gemv at N 2048 runs 8 clusters (64
 // blocks); decoupled_gemv at N 5024 + r 384 runs 20 packed and 3 int8.
 //
 // Per block, in order:
@@ -79,16 +79,18 @@ constexpr int kMaxCols = 32 * kWarps;  // output columns of a cluster, at most (
 constexpr size_t kMaxSmem = 232448;    // dynamic shared memory a block may use on sm_90
 
 // Each kernel's clusters: the output columns of a packed (1-bit) and of an
-// int8 cluster (128 or 256: with 128, two warps share each 32 columns,
-// each taking every other k32 step), the blocks an SM must hold (so its
-// registers are capped at 65536 / (256 x that)) and the x loads a thread
-// keeps in registers.  w1a8_gemv at N 2048 runs 16 clusters, one block an
-// SM, with room to keep a K 5024 slice of 32 rows in registers;
-// decoupled_gemv at pquant-1.3b's widths (N 5024 + r 384) runs 20 + 3
-// clusters, two blocks an SM, in one wave.
+// int8 cluster (256, one warp on each 32 columns, or 128, two warps on
+// each 32 columns taking alternate k32 steps), the blocks an SM must hold
+// (so registers are capped at 65536 / (256 x that)) and the x loads a
+// thread keeps in registers.  Eight blocks of a cluster must find room in
+// one GPC at once, and an H100 does not hold 16 clusters of 8 one-block-
+// an-SM blocks in one wave.  So w1a8_gemv at N 2048 runs 8 clusters of
+// 256 columns, one block an SM, with room to keep a K 5024 slice of 32
+// rows in registers; decoupled_gemv at pquant-1.3b's widths (N 5024 + r
+// 384) runs 20 + 3 clusters, two blocks an SM.
 template <bool kDecoupled>
 struct Config {
-  static constexpr int kPackedCols = 128, kInt8Cols = 0, kMinBlocks = 1, kBatch = 24;
+  static constexpr int kPackedCols = 256, kInt8Cols = 0, kMinBlocks = 1, kBatch = 24;
 };
 template <>
 struct Config<true> {

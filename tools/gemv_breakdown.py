@@ -228,6 +228,19 @@ cudaError_t launch_rows(const float* x, const uint8_t* wp, const float* lam, flo
   }
 }
 
+// How many clusters of the whole kernel the card holds at once at (m, k, n).
+extern "C" int max_active_clusters(int m, int k, int n, int* clusters) {
+  cudaError_t e = cudaFuncSetAttribute(variant<4, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int cols = Config<false>::kPackedCols;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * ((n + cols - 1) / cols));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = make_plan<false>(m, k).total;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)variant<4, 4>, &cfg);
+}
+
 // mode 0-4: the variants above (no marks); 5: the whole kernel, marking.
 extern "C" int breakdown_launch(int mode, const float* x, const uint8_t* wp, const float* lam,
                                 float* out, int m, int k, int n, void* stream, void* ts) {
@@ -282,7 +295,7 @@ def marks(torch, lib, x, ws, lam, out, m, k, n, stream) -> dict:
     entries and the kernel's span from the first entry to the last end."""
     import statistics
 
-    blocks = 8 * -(-n // 128)  # Config<false>::kPackedCols
+    blocks = 8 * -(-n // 256)  # Config<false>::kPackedCols
     ts = torch.zeros((blocks, 10, 2), dtype=torch.int64, device=x.device)
     err = lib.breakdown_launch(5, x.data_ptr(), ws[1].data_ptr(), lam.data_ptr(),
                                out.data_ptr(), m, k, n, stream, ts.data_ptr())
@@ -342,6 +355,9 @@ def main() -> int:
                     row[f"{name}_us"] = chip_smoke._time(torch, call, 200) * 1e3
                 if design == "mma":
                     row["marks"] = marks(torch, lib, x, ws, lam, out, m, k, n, stream)
+                    held = ctypes.c_int(0)
+                    if lib.max_active_clusters(m, k, n, ctypes.byref(held)) == 0:
+                        row["marks"]["max_active_clusters"] = held.value
                 torch.cuda.synchronize()
                 rows.append(row)
                 print(f"M {m} K {k} N {n}: " + ", ".join(
