@@ -117,8 +117,8 @@ __host__ __device__ inline Tile int8_tile(int cols) { return {cols, kMaxCols / c
 //         stride ld; or int8, per step 32 rows of cols bytes, 16-byte
 //         chunks swizzled; after the MMAs, where two warps share a column
 //         group, the second warp's sums for the first to add;
-//   sums  the int32 sums that the 8 blocks send this block: of rows
-//         rank + 8 i, one slot (NT rows of cols + 4 words) per sender;
+//   sums  the int32 (or int16) sums that the 8 blocks send this block:
+//         of rows rank + 8 i, one slot (NT rows of cols + 8) per sender;
 //   xq    the int8 codes (mpad rows at xq_ld = 32 mod 128 bytes);
 //   amax_all  the row maxima the 8 blocks send (8 x 32 floats);
 //   amax, gamma: one float per row; two mbarriers (maxima, sums).
@@ -148,8 +148,8 @@ __host__ __device__ inline Plan make_plan(int m, int k) {
   const int max_cols = max_of(C::kPackedCols, C::kInt8Cols);
   p.xq_ld = (int)round_up((size_t)p.steps * 32 - 32, 128) + 32;
   p.sums_off = round_up(w_bytes, 128);
-  // NT rows from each of the 8 blocks
-  p.xq_off = p.sums_off + round_up((size_t)(p.mpad / 8) * kCluster * (max_cols + 4) * 4, 128);
+  // NT rows of int32 from each of the 8 blocks
+  p.xq_off = p.sums_off + round_up((size_t)(p.mpad / 8) * kCluster * (max_cols + 8) * 4, 128);
   p.amax_all_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
   p.amax_off = p.amax_all_off + kCluster * kMaxRows * sizeof(float);
   p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
@@ -192,6 +192,13 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
       "r"(__float_as_uint(v)), "r"(bar)
       : "memory");
 }
+__device__ __forceinline__ void st_async(uint32_t addr, uint2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "r"(v.x), "r"(v.y), "r"(bar)
+      : "memory");
+}
 __device__ __forceinline__ void st_async(uint32_t addr, int4 v, uint32_t bar) {
   asm volatile(
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 [%0], {%1, %2, %3, %4}, "
@@ -200,12 +207,19 @@ __device__ __forceinline__ void st_async(uint32_t addr, int4 v, uint32_t bar) {
       : "memory");
 }
 
+// The blocks' int32 sums travel as int16 where they must fit: a packed
+// (+-1) weight over a K slice of at most 256 values gives |sum| <= 256 x
+// 127 < 2^15 (K <= 2048, the attention projections and the FFN gate/up).
+__host__ __device__ inline bool narrow_sums(const Plan& p, bool int8_branch) {
+  return !int8_branch && p.steps * 32 * 127 <= 32767;
+}
+
 // Thread 0 at the start: the two mbarriers, each expecting its bytes (the
 // 8 blocks' maxima of m rows; the 8 blocks' sums of this block's rows
-// rank + 8 i < m, `cols` each), and amax zeroed; then every thread arrives
-// on the cluster barrier.
+// rank + 8 i < m, `cols` each of `sum_bytes`), and amax zeroed; then every
+// thread arrives on the cluster barrier.
 __device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int m, int rank,
-                                              int cols) {
+                                              int cols, int sum_bytes) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.bar_off);
   if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
   if (threadIdx.x == 0) {
@@ -213,7 +227,7 @@ __device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int 
     sm90::mbar_init(&bars[1], 1);
     const int rows = rank < m ? (m - rank + kCluster - 1) / kCluster : 0;
     sm90::mbar_expect_tx(&bars[0], kCluster * m * (int)sizeof(float));
-    sm90::mbar_expect_tx(&bars[1], rows * kCluster * cols * (int)sizeof(int));
+    sm90::mbar_expect_tx(&bars[1], rows * kCluster * cols * sum_bytes);
     sm90::mbar_fence_init();
   }
   cluster_arrive();
@@ -326,11 +340,12 @@ __device__ __forceinline__ void load_x(XSlice<In, kBatch>& s, const In* __restri
   s.j = threadIdx.x % s.tpr;
   s.items = len * (int)sizeof(In) / 16;
   s.xr = reinterpret_cast<const uint4*>(x + (size_t)s.row * k + k0);
+  if (s.row < m)
 #pragma unroll
-  for (int b = 0; b < kBatch; ++b) {
-    const int i = s.j + b * s.tpr;
-    s.v[b] = s.row < m && i < s.items ? __ldg(s.xr + i) : make_uint4(0u, 0u, 0u, 0u);
-  }
+    for (int b = 0; b < kBatch; ++b) {  // a break, not a guard: no predicated dead loads
+      if (s.j + b * s.tpr >= s.items) break;
+      s.v[b] = __ldg(s.xr + s.j + b * s.tpr);
+    }
 }
 
 // x loads a thread keeps in flight past its first kBatch
@@ -363,7 +378,10 @@ __device__ __forceinline__ void quantize_slice(XSlice<In, kBatch>& s, const Plan
       for (int b = 0; b < kMore; ++b) amax = fmaxf(amax, item_abs_max(u[b], s.x));
     }
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b) amax = fmaxf(amax, item_abs_max(s.v[b], s.x));
+    for (int b = 0; b < kBatch; ++b) {
+      if (j + b * tpr >= items) break;
+      amax = fmaxf(amax, item_abs_max(s.v[b], s.x));
+    }
   }
   const int width = tpr < 32 ? tpr : 32;  // a row's threads inside one warp
   for (int o = 1; o < width; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
@@ -391,8 +409,10 @@ __device__ __forceinline__ void quantize_slice(XSlice<In, kBatch>& s, const Plan
   uint32_t* qr = xq + (size_t)row * (p.xq_ld / 4);
   if (row < m) {
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b)
-      if (j + b * tpr < items) item_quantize(s.v[b], g, qr + (j + b * tpr) * kWords, s.x);
+    for (int b = 0; b < kBatch; ++b) {
+      if (j + b * tpr >= items) break;
+      item_quantize(s.v[b], g, qr + (j + b * tpr) * kWords, s.x);
+    }
     for (int i0 = j + tpr * kBatch; i0 < items; i0 += stride) {
       uint4 u[kMore];
 #pragma unroll
@@ -562,25 +582,33 @@ __device__ __forceinline__ bool combine(const Tile& tile, uint8_t* w, Acc<NT>& a
 
 // Step 4, first half: a warp holding its group's sums sends those of token
 // row r = 8 i + 2 t + e (r < m) to the block of rank r % 8 = 2 t + e, slot
-// `rank` (rows of cols + 4 words), as one 16-byte st.async of the warp's
-// columns 4 g .. 4 g + 3.
+// `rank`, as one st.async of the warp's columns 4 g .. 4 g + 3: 16 bytes
+// of int32, or (`narrow`) 8 of int16.  A slot row holds cols + 8 values.
 template <int NT>
 __device__ __forceinline__ void send_sums(const Tile& tile, const Acc<NT>& acc, const Plan& p,
-                                          uint8_t* smem, int m, int rank) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = tile.cols + 4;
+                                          uint8_t* smem, int m, int rank, bool narrow) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = tile.cols + 8;
   int group, first;
   warp_role(tile, group, first);
   const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
+  const int16_t* sums16 = reinterpret_cast<const int16_t*>(sums);
   const uint64_t* bar = reinterpret_cast<const uint64_t*>(smem + p.bar_off) + 1;
+  const auto pack = [](int lo, int hi) { return (uint32_t)(uint16_t)lo | ((uint32_t)hi << 16); };
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int owner = 2 * t + e;
 #pragma unroll
-    for (int i = 0; i < NT; ++i)
-      if (8 * i + owner < m)
-        st_async(remote(sums + (rank * NT + i) * ld + 32 * group + 4 * g, owner),
-                 make_int4(acc.c[0][i][e], acc.c[0][i][2 + e], acc.c[1][i][e], acc.c[1][i][2 + e]),
+    for (int i = 0; i < NT; ++i) {
+      if (8 * i + owner >= m) continue;
+      const int at = (rank * NT + i) * ld + 32 * group + 4 * g;
+      const int c0 = acc.c[0][i][e], c1 = acc.c[0][i][2 + e], c2 = acc.c[1][i][e],
+                c3 = acc.c[1][i][2 + e];
+      if (narrow)
+        st_async(remote(sums16 + at, owner), make_uint2(pack(c0, c1), pack(c2, c3)),
                  remote(bar, owner));
+      else
+        st_async(remote(sums + at, owner), make_int4(c0, c1, c2, c3), remote(bar, owner));
+    }
   }
 }
 
@@ -590,11 +618,12 @@ __device__ __forceinline__ void send_sums(const Tile& tile, const Acc<NT>& acc, 
 // columns < ncols (out has row stride ncols).
 template <int NT, class Out, class Scale, class Mark = NoMark>
 __device__ __forceinline__ void reduce_store(const Tile& tile, const Plan& p, uint8_t* smem,
-                                             int m, int rank, int col0, int ncols,
+                                             int m, int rank, int col0, int ncols, bool narrow,
                                              Out* __restrict__ out, Scale scale,
                                              Mark mark = {}) {
   const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
-  const int ld = tile.cols + 4;
+  const int16_t* sums16 = reinterpret_cast<const int16_t*>(sums);
+  const int ld = tile.cols + 8;
   sm90::mbar_wait(reinterpret_cast<uint64_t*>(smem + p.bar_off) + 1, 0);
   mark(0);
   if ((int)threadIdx.x >= tile.cols) return;
@@ -605,7 +634,10 @@ __device__ __forceinline__ void reduce_store(const Tile& tile, const Plan& p, ui
     if (row < m && col < ncols) {
       int sum = 0;
 #pragma unroll
-      for (int q = 0; q < kCluster; ++q) sum += sums[(q * NT + i) * ld + threadIdx.x];
+      for (int q = 0; q < kCluster; ++q) {
+        const int at = (q * NT + i) * ld + threadIdx.x;
+        sum += narrow ? (int)sums16[at] : sums[at];
+      }
       rt::store_out(out + (size_t)row * ncols + col, (float)sum * scale(row));
     }
   }

@@ -75,7 +75,8 @@ __device__ __forceinline__ void gemv_block(const Args& a) {
   int lo, hi;
   step_slice(k, p.steps, rank, lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
-  exchange_init(p, smem, m, rank, tile.cols);
+  const bool narrow = narrow_sums(p, int8_branch);
+  exchange_init(p, smem, m, rank, tile.cols, narrow ? 2 : 4);
 
   // 1. the first x loads, then the weight slice's staging
   XSlice<In, C::kBatch> xs;
@@ -103,19 +104,19 @@ __device__ __forceinline__ void gemv_block(const Args& a) {
     packed_steps<NT>(tile, smem, smem + p.xq_off, p.xq_ld, steps, acc);
 
   // 4. the sums over the cluster, and the epilogue
-  if (combine<NT>(tile, smem, acc)) send_sums<NT>(tile, acc, p, smem, m, rank);
+  if (combine<NT>(tile, smem, acc)) send_sums<NT>(tile, acc, p, smem, m, rank, narrow);
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
   if (!kDecoupled) {
     const float lam = *a.lam;
-    reduce_store<NT>(tile, p, smem, m, rank, col0, n, static_cast<Out*>(a.y1),
+    reduce_store<NT>(tile, p, smem, m, rank, col0, n, narrow, static_cast<Out*>(a.y1),
                      [&](int row) { return lam / gamma[row]; });
   } else if (!int8_branch) {
     const float bl = *a.beta * *a.lam;
-    reduce_store<NT>(tile, p, smem, m, rank, col0, n, static_cast<Out*>(a.y1),
+    reduce_store<NT>(tile, p, smem, m, rank, col0, n, narrow, static_cast<Out*>(a.y1),
                      [&](int row) { return bl / gamma[row]; });
   } else {
     const float alpha = *a.alpha, w8s = *a.w8scale;
-    reduce_store<NT>(tile, p, smem, m, rank, col0, a.r, static_cast<Out*>(a.y8),
+    reduce_store<NT>(tile, p, smem, m, rank, col0, a.r, narrow, static_cast<Out*>(a.y8),
                      [&](int row) { return alpha / (gamma[row] * w8s); });
   }
 }

@@ -168,7 +168,8 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     if (threadIdx.x == 0) out[blockIdx.x] = (float)steps;
     return;
   }
-  exchange_init(p, smem, m, rank, tile.cols);
+  const bool narrow = narrow_sums(p, false);
+  exchange_init(p, smem, m, rank, tile.cols, narrow ? 2 : 4);
   XSlice<float, C::kBatch> xs;
   load_x(xs, x, m, k, 32 * lo, len);
   stage(smem, tile.ld, wp + (size_t)4 * lo * n + col0, n, 4 * steps, tile.cols,
@@ -196,10 +197,10 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     if (acc.c[0][0][0] == 0x7fffffff) out[threadIdx.x] = 1.0f;
     return;
   }
-  if (combine<NT>(tile, smem, acc)) send_sums<NT>(tile, acc, p, smem, m, rank);
+  if (combine<NT>(tile, smem, acc)) send_sums<NT>(tile, acc, p, smem, m, rank, narrow);
   const float lam = *lam_p;
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
-  reduce_store<NT>(tile, p, smem, m, rank, col0, n, out,
+  reduce_store<NT>(tile, p, smem, m, rank, col0, n, narrow, out,
                    [&](int row) { return lam / gamma[row]; }, [&](int) { mark(ts, 4); });
   mark(ts, 5);
 }
