@@ -33,10 +33,10 @@
 //      weight: a packed sign nibble is one word of A (sign_word), an int8
 //      column's four K values one word after a 4 x 4 byte transpose (two
 //      warps sharing a column group then add their sums);
-//   4. each warp sends its int32 sums of row r to the block of rank r % 8
-//      (st.async again), which waits on its mbarrier for the 8 blocks'
-//      sums of its rows, adds them (int32: exact in any order) and applies
-//      the epilogue.
+//   4. each warp sends its sums of row r to the block of rank r % 8
+//      (st.async again; int16 where a sum must fit, see narrow_sums),
+//      which waits on its mbarrier for the 8 blocks' sums of its rows,
+//      adds them in int32 (exact in any order) and applies the epilogue.
 // The only cluster barrier is split: every block arrives as it starts and
 // waits just before its first DSMEM store, so that no block writes into
 // one that has not started.
