@@ -9,13 +9,12 @@
 // codes of 8 token rows, and M <= 32 rows take NT = ceil(M / 8) MMAs per
 // 16 columns per step, all from one read of the weight.
 //
-// Work split.  A cluster owns 128 or 256 output columns (Config) and all
-// of K; its block of rank q owns the q-th eighth of the k32 steps (the
-// last steps may hold none).  A block has 8 warps, each on 32 columns over
-// the block's K slice: at 256 columns one warp a column group; at 128 two,
-// each taking every other k32 step, the second handing its sums to the
-// first in shared memory.  w1a8_gemv at N 2048 runs 8 clusters (64
-// blocks); decoupled_gemv at N 5024 + r 384 runs 20 packed and 3 int8.
+// Work split.  A cluster owns 256 output columns and all of K; its block
+// of rank q owns the q-th eighth of the k32 steps (the last steps may hold
+// none).  A block has 8 warps, warp w owning columns 32 w .. 32 w + 31 of
+// the cluster's 256 over the block's whole K slice, so a warp's sums need
+// no reduction inside the block.  w1a8_gemv at N 2048 runs 8 clusters (64
+// blocks); decoupled_gemv at N 5024 + r 384 runs 20 packed and 2 int8.
 //
 // Per block, in order:
 //   1. the first 16-byte loads of the block's x slice (f32 or bf16 as
@@ -31,8 +30,7 @@
 //      to +-127; pad rows and the K tail past K get zero codes;
 //   3. the MMAs over the slice, A built in registers from the staged
 //      weight: a packed sign nibble is one word of A (sign_word), an int8
-//      column's four K values one word after a 4 x 4 byte transpose (two
-//      warps sharing a column group then add their sums);
+//      column's four K values one word after a 4 x 4 byte transpose;
 //   4. each warp sends its sums of row r to the block of rank r % 8
 //      (st.async again; int16 where a sum must fit, see narrow_sums),
 //      which waits on its mbarrier for the 8 blocks' sums of its rows,
@@ -74,51 +72,36 @@ namespace sm90 = repro_sm90;
 constexpr int kCluster = 8;            // blocks of a cluster, one K slice each
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kCols = 32 * kWarps;     // output columns of a cluster (32 a warp)
 constexpr int kMaxRows = 32;           // token rows a launch takes
-constexpr int kMaxCols = 32 * kWarps;  // output columns of a cluster, at most (32 a warp)
+constexpr int kPackedLd = kCols + 32;  // packed stage row stride: rows 4 s + t on 8-bank offsets
+constexpr int kSumsLd = kCols + 8;     // a sums slot's row stride, in sums (int32 or int16)
 constexpr size_t kMaxSmem = 232448;    // dynamic shared memory a block may use on sm_90
 
-// Each kernel's clusters: the output columns of a packed (1-bit) and of an
-// int8 cluster (256, one warp on each 32 columns, or 128, two warps on
-// each 32 columns taking alternate k32 steps), the blocks an SM must hold
-// (so registers are capped at 65536 / (256 x that)) and the x loads a
-// thread keeps in registers.  Eight blocks of a cluster must find room in
-// one GPC at once, and an H100 does not hold 16 clusters of 8 one-block-
-// an-SM blocks in one wave.  So w1a8_gemv at N 2048 runs 8 clusters of
-// 256 columns, one block an SM, with room to keep a K 5024 slice of 32
-// rows in registers; decoupled_gemv at pquant-1.3b's widths (N 5024 + r
-// 384) runs 20 + 3 clusters, two blocks an SM.
+// Each kernel's blocks an SM must hold (so registers are capped at 65536 /
+// (256 x that)) and the x loads a thread keeps in registers.  Eight blocks
+// of a cluster must find room in one GPC at once: an H100 holds 15
+// clusters of 8 blocks that fill an SM each.  w1a8_gemv at N 2048 runs 8
+// clusters, one block an SM, with room to keep a K 5024 slice of 32 rows
+// in registers; decoupled_gemv at pquant-1.3b's widths (N 5024 + r 384)
+// runs 22 clusters, two blocks an SM.
 template <bool kDecoupled>
 struct Config {
-  static constexpr int kPackedCols = 256, kInt8Cols = 0, kMinBlocks = 1, kBatch = 24;
+  static constexpr int kMinBlocks = 1, kBatch = 24;
 };
 template <>
 struct Config<true> {
-  static constexpr int kPackedCols = 256, kInt8Cols = 128, kMinBlocks = 2, kBatch = 8;
+  static constexpr int kMinBlocks = 2, kBatch = 8;
 };
 
 __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m - 1) / m * m; }
-__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
-
-// A block's branch: its cluster's `cols` output columns (a warp's 32
-// columns are column group w % (cols / 32)), the `split` warps sharing a
-// column group (warp w taking k32 steps w / groups, + split, ...), and the
-// weight stage's row stride `ld` in bytes.
-struct Tile {
-  int cols, split, ld;
-};
-// packed rows 4 s + t land on 8-bank offsets (ld = 32 mod 128); int8 rows
-// are swizzled instead (Int8Swizzle)
-__host__ __device__ inline Tile packed_tile(int cols) { return {cols, kMaxCols / cols, cols + 32}; }
-__host__ __device__ inline Tile int8_tile(int cols) { return {cols, kMaxCols / cols, cols}; }
 
 // The shared memory of one block, the same for every block of a launch:
-//   w     the weight slice: packed, per k32 step 4 rows of cols bytes at
-//         stride ld; or int8, per step 32 rows of cols bytes, 16-byte
-//         chunks swizzled; after the MMAs, where two warps share a column
-//         group, the second warp's sums for the first to add;
+//   w     the weight slice: packed, per k32 step 4 rows of kCols bytes at
+//         kPackedLd; or (decoupled_gemv's int8 clusters) int8, per step 32
+//         rows of kCols bytes, 16-byte chunks swizzled;
 //   sums  the int32 (or int16) sums that the 8 blocks send this block:
-//         of rows rank + 8 i, one slot (NT rows of cols + 8) per sender;
+//         of rows rank + 8 i, one slot (NT rows at kSumsLd) per sender;
 //   xq    the int8 codes (mpad rows at xq_ld = 32 mod 128 bytes);
 //   amax_all  the row maxima the 8 blocks send (8 x 32 floats);
 //   amax, gamma: one float per row; two mbarriers (maxima, sums).
@@ -132,24 +115,15 @@ struct Plan {
 
 template <bool kDecoupled>
 __host__ __device__ inline Plan make_plan(int m, int k) {
-  using C = Config<kDecoupled>;
   Plan p;
   const int total_steps = (k + 31) / 32;
   p.steps = (total_steps + kCluster - 1) / kCluster;
   p.mpad = (int)round_up((size_t)m, 8);
-  size_t w_bytes = (size_t)p.steps * 4 * packed_tile(C::kPackedCols).ld;
-  if constexpr (C::kInt8Cols > 0) {
-    const size_t int8_bytes = (size_t)p.steps * 32 * C::kInt8Cols;
-    w_bytes = int8_bytes > w_bytes ? int8_bytes : w_bytes;
-  }
-  // two warps' halves combined: 2 NT int4 for each lane of 4 warps
-  const size_t combine_bytes = (size_t)(p.mpad / 8) * 2 * 128 * 16;
-  w_bytes = combine_bytes > w_bytes ? combine_bytes : w_bytes;
-  const int max_cols = max_of(C::kPackedCols, C::kInt8Cols);
+  const size_t w_bytes = (size_t)p.steps * (kDecoupled ? 32 * kCols : 4 * kPackedLd);
   p.xq_ld = (int)round_up((size_t)p.steps * 32 - 32, 128) + 32;
   p.sums_off = round_up(w_bytes, 128);
   // NT rows of int32 from each of the 8 blocks
-  p.xq_off = p.sums_off + round_up((size_t)(p.mpad / 8) * kCluster * (max_cols + 8) * 4, 128);
+  p.xq_off = p.sums_off + round_up((size_t)(p.mpad / 8) * kCluster * kSumsLd * 4, 128);
   p.amax_all_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
   p.amax_off = p.amax_all_off + kCluster * kMaxRows * sizeof(float);
   p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
@@ -216,10 +190,10 @@ __host__ __device__ inline bool narrow_sums(const Plan& p, bool int8_branch) {
 
 // Thread 0 at the start: the two mbarriers, each expecting its bytes (the
 // 8 blocks' maxima of m rows; the 8 blocks' sums of this block's rows
-// rank + 8 i < m, `cols` each of `sum_bytes`), and amax zeroed; then every
+// rank + 8 i < m, kCols of `sum_bytes` each), and amax zeroed; then every
 // thread arrives on the cluster barrier.
 __device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int m, int rank,
-                                              int cols, int sum_bytes) {
+                                              int sum_bytes) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.bar_off);
   if (threadIdx.x < kMaxRows) reinterpret_cast<float*>(smem + p.amax_off)[threadIdx.x] = 0.0f;
   if (threadIdx.x == 0) {
@@ -227,7 +201,7 @@ __device__ __forceinline__ void exchange_init(const Plan& p, uint8_t* smem, int 
     sm90::mbar_init(&bars[1], 1);
     const int rows = rank < m ? (m - rank + kCluster - 1) / kCluster : 0;
     sm90::mbar_expect_tx(&bars[0], kCluster * m * (int)sizeof(float));
-    sm90::mbar_expect_tx(&bars[1], rows * kCluster * cols * sum_bytes);
+    sm90::mbar_expect_tx(&bars[1], rows * kCluster * kCols * sum_bytes);
     sm90::mbar_fence_init();
   }
   cluster_arrive();
@@ -460,37 +434,25 @@ __device__ __forceinline__ void mma_step(const uint32_t (&a)[2][4], const uint32
     for (int i = 0; i < NT; ++i) rt::mma_s8(acc.c[tau][i], a[tau], b[i]);
 }
 
-// A warp's column group and first k32 step in the block's tile.
-__device__ __forceinline__ void warp_role(const Tile& tile, int& group, int& first) {
-  const int warp = threadIdx.x >> 5, groups = tile.cols / 32;
-  group = warp % groups;
-  first = warp / groups;
-}
-
 // Step 3, 1-bit weight: A of step s from the word of packed row 4 s + t at
 // the warp's columns 4 g .. 4 g + 3 (byte 2 tau: A row g of tile tau;
 // byte 2 tau + 1: A row g + 8; low nibble quad t, high nibble quad t + 4).
 template <int NT>
-__device__ __forceinline__ void packed_steps(const Tile& tile, const uint8_t* w,
-                                             const uint8_t* xq, int xq_ld, int steps,
-                                             Acc<NT>& acc) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  int group, first;
-  warp_role(tile, group, first);
-  const uint8_t* wl = w + t * tile.ld + 32 * group + 4 * g;
-  for (int s0 = first; s0 < steps; s0 += kUnroll * tile.split) {  // kUnroll steps' loads first
+__device__ __forceinline__ void packed_steps(const uint8_t* w, const uint8_t* xq, int xq_ld,
+                                             int steps, Acc<NT>& acc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint8_t* wl = w + t * kPackedLd + 32 * warp + 4 * g;
+  for (int s0 = 0; s0 < steps; s0 += kUnroll) {  // kUnroll steps' loads, then their MMAs
     uint32_t word[kUnroll], b[kUnroll][NT][2];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u * tile.split;
-      if (s < steps) {
-        word[u] = *reinterpret_cast<const uint32_t*>(wl + (size_t)s * 4 * tile.ld);
-        b_frags<NT>(xq, xq_ld, s, g, t, b[u]);
+    for (int u = 0; u < kUnroll; ++u)
+      if (s0 + u < steps) {
+        word[u] = *reinterpret_cast<const uint32_t*>(wl + (size_t)(s0 + u) * 4 * kPackedLd);
+        b_frags<NT>(xq, xq_ld, s0 + u, g, t, b[u]);
       }
-    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (s0 + u * tile.split < steps) {
+      if (s0 + u < steps) {
         uint32_t a[2][4];
 #pragma unroll
         for (int tau = 0; tau < 2; ++tau) {
@@ -509,33 +471,28 @@ __device__ __forceinline__ void packed_steps(const Tile& tile, const uint8_t* w,
 // int8 stage at the warp's columns 4 g .. 4 g + 3, transposed 4 x 4 so
 // that each word is one column's four K values.
 template <int NT>
-__device__ __forceinline__ void int8_steps(const Tile& tile, const uint8_t* w,
-                                           const uint8_t* xq, int xq_ld, int steps,
-                                           Acc<NT>& acc) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  int group, first;
-  warp_role(tile, group, first);
-  // chunk 2 group + g / 4 of the row, swizzled by 2 t (Int8Swizzle of rows 32 s + 8 t + j)
-  const uint8_t* wl = w + (size_t)(8 * t) * tile.ld + 16 * ((2 * group + (g >> 2)) ^ (2 * t)) +
+__device__ __forceinline__ void int8_steps(const uint8_t* w, const uint8_t* xq, int xq_ld,
+                                           int steps, Acc<NT>& acc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // chunk 2 warp + g / 4 of the row, swizzled by 2 t (Int8Swizzle of rows 32 s + 8 t + j)
+  const uint8_t* wl = w + (size_t)(8 * t) * kCols + 16 * ((2 * warp + (g >> 2)) ^ (2 * t)) +
                       4 * (g & 3);
-  for (int s0 = first; s0 < steps; s0 += kUnroll * tile.split) {  // kUnroll steps' loads first
+  for (int s0 = 0; s0 < steps; s0 += kUnroll) {  // kUnroll steps' loads, then their MMAs
     uint32_t v0[kUnroll][4], v1[kUnroll][4], b[kUnroll][NT][2];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u * tile.split;
-      if (s < steps) {
-        const uint8_t* ws = wl + (size_t)s * 32 * tile.ld;
+    for (int u = 0; u < kUnroll; ++u)
+      if (s0 + u < steps) {
+        const uint8_t* ws = wl + (size_t)(s0 + u) * 32 * kCols;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          v0[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + j * tile.ld));
-          v1[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + (4 + j) * tile.ld));
+          v0[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + j * kCols));
+          v1[u][j] = rt::lds32(reinterpret_cast<const int8_t*>(ws + (4 + j) * kCols));
         }
-        b_frags<NT>(xq, xq_ld, s, g, t, b[u]);
+        b_frags<NT>(xq, xq_ld, s0 + u, g, t, b[u]);
       }
-    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (s0 + u * tile.split < steps) {
+      if (s0 + u < steps) {
         uint32_t q0[4], q1[4], a[2][4];
         rt::transpose4x4(v0[u], q0);
         rt::transpose4x4(v1[u], q1);
@@ -551,45 +508,14 @@ __device__ __forceinline__ void int8_steps(const Tile& tile, const uint8_t* w,
   }
 }
 
-// Where two warps share a column group, the second hands its sums to the
-// first through the (now free) weight stage; returns whether this warp
-// holds its group's sums.  A barrier for the block in either case.
-template <int NT>
-__device__ __forceinline__ bool combine(const Tile& tile, uint8_t* w, Acc<NT>& acc) {
-  int group, first;
-  warp_role(tile, group, first);
-  __syncthreads();  // every warp is done with the weight stage
-  if (tile.split == 1) return true;
-  int4* buf = reinterpret_cast<int4*>(w) + (size_t)(group * 32 + (threadIdx.x & 31)) * 2 * NT;
-  if (first == 1)
-#pragma unroll
-    for (int q = 0; q < 2 * NT; ++q)
-      buf[q] = make_int4(acc.c[q / NT][q % NT][0], acc.c[q / NT][q % NT][1],
-                         acc.c[q / NT][q % NT][2], acc.c[q / NT][q % NT][3]);
-  __syncthreads();
-  if (first == 1) return false;
-#pragma unroll
-  for (int q = 0; q < 2 * NT; ++q) {
-    const int4 o = buf[q];
-    int* c = acc.c[q / NT][q % NT];
-    c[0] += o.x;
-    c[1] += o.y;
-    c[2] += o.z;
-    c[3] += o.w;
-  }
-  return true;
-}
-
-// Step 4, first half: a warp holding its group's sums sends those of token
-// row r = 8 i + 2 t + e (r < m) to the block of rank r % 8 = 2 t + e, slot
+// Step 4, first half: a warp sends its sums of token row r = 8 i + 2 t + e
+// (r < m) to the block of rank r % 8 = 2 t + e, slot
 // `rank`, as one st.async of the warp's columns 4 g .. 4 g + 3: 16 bytes
-// of int32, or (`narrow`) 8 of int16.  A slot row holds cols + 8 values.
+// of int32, or (`narrow`) 8 of int16.
 template <int NT>
-__device__ __forceinline__ void send_sums(const Tile& tile, const Acc<NT>& acc, const Plan& p,
-                                          uint8_t* smem, int m, int rank, bool narrow) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = tile.cols + 8;
-  int group, first;
-  warp_role(tile, group, first);
+__device__ __forceinline__ void send_sums(const Acc<NT>& acc, const Plan& p, uint8_t* smem,
+                                          int m, int rank, bool narrow) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
   const int16_t* sums16 = reinterpret_cast<const int16_t*>(sums);
   const uint64_t* bar = reinterpret_cast<const uint64_t*>(smem + p.bar_off) + 1;
@@ -600,7 +526,7 @@ __device__ __forceinline__ void send_sums(const Tile& tile, const Acc<NT>& acc, 
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
       if (8 * i + owner >= m) continue;
-      const int at = (rank * NT + i) * ld + 32 * group + 4 * g;
+      const int at = (rank * NT + i) * kSumsLd + 32 * warp + 4 * g;
       const int c0 = acc.c[0][i][e], c1 = acc.c[0][i][2 + e], c2 = acc.c[1][i][e],
                 c3 = acc.c[1][i][2 + e];
       if (narrow)
@@ -617,16 +543,14 @@ __device__ __forceinline__ void send_sums(const Tile& tile, const Acc<NT>& acc, 
 // thread, and writes out[row, col0 + column] = float(sum) * scale(row) for
 // columns < ncols (out has row stride ncols).
 template <int NT, class Out, class Scale, class Mark = NoMark>
-__device__ __forceinline__ void reduce_store(const Tile& tile, const Plan& p, uint8_t* smem,
-                                             int m, int rank, int col0, int ncols, bool narrow,
+__device__ __forceinline__ void reduce_store(const Plan& p, uint8_t* smem, int m, int rank,
+                                             int col0, int ncols, bool narrow,
                                              Out* __restrict__ out, Scale scale,
                                              Mark mark = {}) {
   const int* sums = reinterpret_cast<const int*>(smem + p.sums_off);
   const int16_t* sums16 = reinterpret_cast<const int16_t*>(sums);
-  const int ld = tile.cols + 8;
   sm90::mbar_wait(reinterpret_cast<uint64_t*>(smem + p.bar_off) + 1, 0);
   mark(0);
-  if ((int)threadIdx.x >= tile.cols) return;
   const int col = col0 + (int)threadIdx.x;
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
@@ -635,7 +559,7 @@ __device__ __forceinline__ void reduce_store(const Tile& tile, const Plan& p, ui
       int sum = 0;
 #pragma unroll
       for (int q = 0; q < kCluster; ++q) {
-        const int at = (q * NT + i) * ld + threadIdx.x;
+        const int at = (q * NT + i) * kSumsLd + threadIdx.x;
         sum += narrow ? (int)sums16[at] : sums[at];
       }
       rt::store_out(out + (size_t)row * ncols + col, (float)sum * scale(row));

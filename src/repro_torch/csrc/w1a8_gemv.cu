@@ -16,8 +16,7 @@
 // Design (the pieces are in gemv_mma.cuh).  The TPU kernel quantizes the
 // activations once, at grid step (0, 0), and keeps the int8 rows in VMEM
 // for its sequential grid.  Here a thread-block cluster of 8 blocks owns
-// 128 or 256 output columns and all of K, each block one eighth of the k32
-// steps:
+// 256 output columns and all of K, each block one eighth of the k32 steps:
 // every block loads its own slice of x into registers and stages its
 // weight slice into shared memory with cp.async; the blocks agree on each
 // row's abs-max over DSMEM and quantize only their own slice (so x is
@@ -58,37 +57,32 @@ struct Args {
   int packed_aligned, int8_aligned;  // 16-byte copies of the weight rows are possible
 };
 
-// One block of the cluster grid: clusters [0, ceil(n / packed cols)) own
-// packed columns, the rest (decoupled_gemv only) the int8 branch's columns.
+// One block of the cluster grid: clusters [0, ceil(n / 256)) own packed
+// columns, the rest (decoupled_gemv only) the int8 branch's columns.
 template <class In, class Out, int NT, bool kDecoupled>
 __device__ __forceinline__ void gemv_block(const Args& a) {
-  using C = Config<kDecoupled>;
   extern __shared__ __align__(128) uint8_t smem[];
   const int m = a.m, k = a.k, n = a.n, rank = (int)cg::this_cluster().block_rank();
   const Plan p = make_plan<kDecoupled>(m, k);
-  const int clu = blockIdx.x / kCluster, groups1 = (n + C::kPackedCols - 1) / C::kPackedCols;
+  const int clu = blockIdx.x / kCluster, groups1 = (n + kCols - 1) / kCols;
   const bool int8_branch = kDecoupled && clu >= groups1;
-  Tile tile = packed_tile(C::kPackedCols);
-  if constexpr (kDecoupled)
-    if (int8_branch) tile = int8_tile(C::kInt8Cols);
-  const int col0 = (int8_branch ? clu - groups1 : clu) * tile.cols;
+  const int col0 = (int8_branch ? clu - groups1 : clu) * kCols;
   int lo, hi;
   step_slice(k, p.steps, rank, lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
   const bool narrow = narrow_sums(p, int8_branch);
-  exchange_init(p, smem, m, rank, tile.cols, narrow ? 2 : 4);
+  exchange_init(p, smem, m, rank, narrow ? 2 : 4);
 
   // 1. the first x loads, then the weight slice's staging
-  XSlice<In, C::kBatch> xs;
+  XSlice<In, Config<kDecoupled>::kBatch> xs;
   load_x(xs, static_cast<const In*>(a.x), m, k, 32 * lo, len);
   if (int8_branch) {
     const uint8_t* w8 = reinterpret_cast<const uint8_t*>(a.w8) + (size_t)32 * lo * a.r + col0;
-    stage(smem, tile.ld, w8, a.r, 32 * steps, tile.cols, min(32 * steps, k - 32 * lo),
-          min(tile.cols, a.r - col0), a.int8_aligned, Int8Swizzle{});
+    stage(smem, kCols, w8, a.r, 32 * steps, kCols, min(32 * steps, k - 32 * lo),
+          min(kCols, a.r - col0), a.int8_aligned, Int8Swizzle{});
   } else {
-    stage(smem, tile.ld, a.wp + (size_t)4 * lo * n + col0, n, 4 * steps, tile.cols,
-          min(4 * steps, k / 8 - 4 * lo), min(tile.cols, n - col0), a.packed_aligned,
-          NoSwizzle{});
+    stage(smem, kPackedLd, a.wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
+          min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), a.packed_aligned, NoSwizzle{});
   }
 
   // 2. act-quant of this block's slice, the row maxima shared over the cluster
@@ -99,24 +93,24 @@ __device__ __forceinline__ void gemv_block(const Args& a) {
   // 3. the MMAs over the slice
   Acc<NT> acc = {};
   if (int8_branch)
-    int8_steps<NT>(tile, smem, smem + p.xq_off, p.xq_ld, steps, acc);
+    int8_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
   else
-    packed_steps<NT>(tile, smem, smem + p.xq_off, p.xq_ld, steps, acc);
+    packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
 
   // 4. the sums over the cluster, and the epilogue
-  if (combine<NT>(tile, smem, acc)) send_sums<NT>(tile, acc, p, smem, m, rank, narrow);
+  send_sums<NT>(acc, p, smem, m, rank, narrow);
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
   if (!kDecoupled) {
     const float lam = *a.lam;
-    reduce_store<NT>(tile, p, smem, m, rank, col0, n, narrow, static_cast<Out*>(a.y1),
+    reduce_store<NT>(p, smem, m, rank, col0, n, narrow, static_cast<Out*>(a.y1),
                      [&](int row) { return lam / gamma[row]; });
   } else if (!int8_branch) {
     const float bl = *a.beta * *a.lam;
-    reduce_store<NT>(tile, p, smem, m, rank, col0, n, narrow, static_cast<Out*>(a.y1),
+    reduce_store<NT>(p, smem, m, rank, col0, n, narrow, static_cast<Out*>(a.y1),
                      [&](int row) { return bl / gamma[row]; });
   } else {
     const float alpha = *a.alpha, w8s = *a.w8scale;
-    reduce_store<NT>(tile, p, smem, m, rank, col0, a.r, narrow, static_cast<Out*>(a.y8),
+    reduce_store<NT>(p, smem, m, rank, col0, a.r, narrow, static_cast<Out*>(a.y8),
                      [&](int row) { return alpha / (gamma[row] * w8s); });
   }
 }
@@ -135,13 +129,12 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 
 template <class In, class Out, int NT, bool kDecoupled>
 cudaError_t launch(const Args& a, int device, cudaStream_t s) {
-  using C = Config<kDecoupled>;
-  const auto kernel = kDecoupled ? decoupled_gemv_kernel<In, Out, NT> : w1a8_gemv_kernel<In, Out, NT>;
+  const auto kernel =
+      kDecoupled ? decoupled_gemv_kernel<In, Out, NT> : w1a8_gemv_kernel<In, Out, NT>;
   static std::atomic<bool> smem_allowed[repro_sm90::kMaxDevices];
   cudaError_t e = repro_sm90::allow_smem(kernel, (int)kMaxSmem, device, smem_allowed);
   if (e != cudaSuccess) return e;
-  int clusters = (a.n + C::kPackedCols - 1) / C::kPackedCols;
-  if constexpr (kDecoupled) clusters += (a.r + C::kInt8Cols - 1) / C::kInt8Cols;
+  const int clusters = (a.n + kCols - 1) / kCols + (kDecoupled ? (a.r + kCols - 1) / kCols : 0);
   kernel<<<dim3(kCluster * clusters), kThreads, make_plan<kDecoupled>(a.m, a.k).total, s>>>(a);
   return cudaGetLastError();
 }

@@ -154,13 +154,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
         const float* __restrict__ lam_p, float* __restrict__ out, int m, int k, int n,
         unsigned long long* ts) {
-  using C = Config<false>;
   extern __shared__ __align__(128) uint8_t smem[];
   mark(ts, 0);
   const int rank = (int)cg::this_cluster().block_rank();
   const Plan p = make_plan<false>(m, k);
-  const Tile tile = packed_tile(C::kPackedCols);
-  const int col0 = blockIdx.x / kCluster * tile.cols;
+  const int col0 = blockIdx.x / kCluster * kCols;
   int lo, hi;
   step_slice(k, p.steps, rank, lo, hi);
   const int steps = hi - lo, len = max(0, min(k, 32 * hi) - 32 * lo);
@@ -169,11 +167,11 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     return;
   }
   const bool narrow = narrow_sums(p, false);
-  exchange_init(p, smem, m, rank, tile.cols, narrow ? 2 : 4);
-  XSlice<float, C::kBatch> xs;
+  exchange_init(p, smem, m, rank, narrow ? 2 : 4);
+  XSlice<float, Config<false>::kBatch> xs;
   load_x(xs, x, m, k, 32 * lo, len);
-  stage(smem, tile.ld, wp + (size_t)4 * lo * n + col0, n, 4 * steps, tile.cols,
-        min(4 * steps, k / 8 - 4 * lo), min(tile.cols, n - col0), true, NoSwizzle{});
+  stage(smem, kPackedLd, wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
+        min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), true, NoSwizzle{});
   if (kStop == 1) {
     cluster_wait();
     rt::cp_async_wait_all();
@@ -191,16 +189,16 @@ variant(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     return;
   }
   Acc<NT> acc = {};
-  packed_steps<NT>(tile, smem, smem + p.xq_off, p.xq_ld, steps, acc);
+  packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
   mark(ts, 3);
   if (kStop == 3) {
     if (acc.c[0][0][0] == 0x7fffffff) out[threadIdx.x] = 1.0f;
     return;
   }
-  if (combine<NT>(tile, smem, acc)) send_sums<NT>(tile, acc, p, smem, m, rank, narrow);
+  send_sums<NT>(acc, p, smem, m, rank, narrow);
   const float lam = *lam_p;
   const float* gamma = reinterpret_cast<const float*>(smem + p.gamma_off);
-  reduce_store<NT>(tile, p, smem, m, rank, col0, n, narrow, out,
+  reduce_store<NT>(p, smem, m, rank, col0, n, narrow, out,
                    [&](int row) { return lam / gamma[row]; }, [&](int) { mark(ts, 4); });
   mark(ts, 5);
 }
@@ -212,8 +210,7 @@ cudaError_t launch(const float* x, const uint8_t* wp, const float* lam, float* o
   cudaError_t e = cudaFuncSetAttribute(variant<NT, kStop>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (e != cudaSuccess) return e;
-  const int cols = Config<false>::kPackedCols;
-  variant<NT, kStop><<<dim3(kCluster * ((n + cols - 1) / cols)), kThreads, p.total, s>>>(
+  variant<NT, kStop><<<dim3(kCluster * ((n + kCols - 1) / kCols)), kThreads, p.total, s>>>(
       x, wp, lam, out, m, k, n, ts);
   return cudaGetLastError();
 }
@@ -234,9 +231,8 @@ extern "C" int max_active_clusters(int m, int k, int n, int* clusters) {
   cudaError_t e = cudaFuncSetAttribute(variant<4, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kMaxSmem);
   if (e != cudaSuccess) return (int)e;
-  const int cols = Config<false>::kPackedCols;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * ((n + cols - 1) / cols));
+  cfg.gridDim = dim3(kCluster * ((n + kCols - 1) / kCols));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = make_plan<false>(m, k).total;
   return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)variant<4, 4>, &cfg);
@@ -296,7 +292,7 @@ def marks(torch, lib, x, ws, lam, out, m, k, n, stream) -> dict:
     entries and the kernel's span from the first entry to the last end."""
     import statistics
 
-    blocks = 8 * -(-n // 256)  # Config<false>::kPackedCols
+    blocks = 8 * -(-n // 256)  # kCols
     ts = torch.zeros((blocks, 10, 2), dtype=torch.int64, device=x.device)
     err = lib.breakdown_launch(5, x.data_ptr(), ws[1].data_ptr(), lam.data_ptr(),
                                out.data_ptr(), m, k, n, stream, ts.data_ptr())
