@@ -64,10 +64,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paged with a third of the blocks (forces preemption).  Prints TTFT p50
    and p99, tokens/s, ms per engine step, the device busy share and the
    decode GEMVs' device time (engine steps 4-5 profiled on a second run),
-   preemptions and launches per kernel; fails unless (c) equals (d) and (e) equals (a) stream for
-   stream, (e) preempted, every pool drained, ``paged_attention`` launched
-   layers x (decode steps + chunked slices) times on (a), (b), (e) and
-   never on (c), (d), and every request finished once by length;
+   preemptions and launches per kernel; fails unless (c) equals (d) and
+   (e) equals (a) stream for stream, (e) preempted, every pool drained,
+   ``paged_attention`` launched layers x (decode steps + chunked slices)
+   times on (a), (b), (e) and never on (c), (d), and every request
+   finished once by length;
 9. the kernel route against the gather route on a 2-layer cut of the same
    model and load: every paged attention call of (a) and (b) held to the
    gather on the same inputs (``PA_ATOL``); (a) against (c) with their
