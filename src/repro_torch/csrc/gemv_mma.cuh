@@ -327,9 +327,9 @@ constexpr int kMore = 8;
 
 // Step 2: the act-quant of the slice into xq, `words` code words a row.
 // Items past the first kBatch are read, kMore at a time, once for the max
-// and again (from L1 or L2) for the codes.  The block's row maxima (atomicMax on the
-// float's bits, which orders non-negative floats, into amax, zeroed by
-// exchange_init) go to every block of the cluster.
+// and again (from L1 or L2) for the codes.  The block's row maxima
+// (atomicMax on the float's bits, which orders non-negative floats, into
+// amax, zeroed by exchange_init) go to every block of the cluster.
 template <class In, int kBatch, class Mark = NoMark>
 __device__ __forceinline__ void quantize_slice(XSlice<In, kBatch>& s, const Plan& p,
                                                uint8_t* smem, int m, int rank, int words,
