@@ -30,7 +30,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    holds), the host's time to issue one call, the plain version's time,
    the bound (bytes over the card's memory rate, or operations over its
    int8 rate) and, where one PyTorch call computes the same product
-   (``torch._int_mm`` on the unpacked signs), its time;
+   (``torch._int_mm`` on the unpacked signs: the prefill GEMMs at every M,
+   the decode GEMVs at 32 rows, the first M it takes), its time;
+   ``decoupled_matmul`` also at the row counts of phase 8 (a)'s admission
+   prefills (its prompts bucketed to 64-512 rows);
 4. the slice at full width: pquant-1.3b from a fixed seed, exported packed,
    served by ``DecodeEngine`` to 4 requests of 8-token prompts (prefill M =
    32 rows) with 32 greedy new tokens.  Checks finite logits, one host
@@ -138,6 +141,10 @@ INT8_SHAPE = (384, 2048)  # w8_down: K, N
 INT8_RAGGED = ((16, 64), (400, 72), (20, 66))  # general (K, N) of int8_matmul
 ROWS = (1, 4, 5, 8, 16, 32)
 PREFILL_ROWS = (33, 64, 512, 8192)
+# phase 8 (a)'s admission prefills above the decode tier: prompts of 16-384
+# tokens bucketed to a power of two (scheduler _bucket_len), batch 1
+CB_ADMISSION_ROWS = (64, 128, 256, 512)
+DECOUPLED_MATMUL_ROWS = tuple(sorted(set(PREFILL_ROWS + CB_ADMISSION_ROWS)))
 CHUNK_ROWS = 1024  # a chunked-prefill slice of phase 8 (b): 16 requests x 64 tokens
 INT8_ROWS = ROWS + PREFILL_ROWS + (CHUNK_ROWS,)
 W1A8_MATMUL_ROWS = (33, 64, 512, CHUNK_ROWS, 8192)
@@ -145,6 +152,7 @@ W1A8_RAGGED = ((400, 72), (16, 64))  # general (K, N) of w1a8_matmul (N 72: the 
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
 SLOT_ROWS = 16  # decode rows of the continuous-batching path (16 slots)
 BF16_GEMV_ROWS = (MAIN_ROWS, SLOT_ROWS, 32)  # the GEMV rows also timed in bf16
+LIB_GEMV_ROWS = 32  # the GEMV rows timed beside torch._int_mm (it takes M > 16)
 PREFILL_MAIN_ROWS = 8192  # prefill rows of the prefill-tier path (64 x 128 tokens)
 RTOL = 1e-6  # kernel vs plain version (built to agree exactly)
 # rmsnorm_quant vs its plain version: the kernel sums the squares in
@@ -384,8 +392,10 @@ def phase_kernels(torch, peaks, only=None):
         lam = scalar(0.031)
         for k, n in W1A8_SHAPES:
             ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])  # the library call's unpacked +-1 weight
             for m in ROWS:
                 x = torch.randn((m, k), generator=gen, **f32)
+                x_lib = int8(m, k) if m == LIB_GEMV_ROWS else None
                 for xt, dt in type_pairs:
                     xd = x.to(xt)
                     err = _close(wg.w1a8_gemv(xd, ws[0], lam, dt).float(),
@@ -398,15 +408,18 @@ def phase_kernels(torch, peaks, only=None):
                     record("w1a8_gemv", m, (k, n), err,
                            lambda i: wg.w1a8_gemv(xd, ws[i % len(ws)], lam, dt),
                            lambda i: wg.w1a8_gemv_plain(xd, ws[0], lam, dt), b,
-                           tag="" if dt == torch.float32 else "bf16")
+                           (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS
+                           else None, tag="" if dt == torch.float32 else "bf16")
 
     def rows_decoupled_gemv():
         k, n, r = DECOUPLED_SHAPE
         w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
         w8s = [int8(k, r) for _ in w1s]
         sc = [scalar(0.027), scalar(1 / 0.0021), scalar(1.0), scalar(1.0)]
+        w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)  # both products in one call
         for m in ROWS:
             x = torch.randn((m, k), generator=gen, **f32)
+            x_lib = int8(m, k) if m == LIB_GEMV_ROWS else None
             for xt, dt in type_pairs:
                 xd = x.to(xt)
                 got = wg.decoupled_gemv(xd, w1s[0], w8s[0], *sc, dt)
@@ -422,6 +435,7 @@ def phase_kernels(torch, peaks, only=None):
                        lambda i: wg.decoupled_gemv(xd, w1s[i % len(w1s)], w8s[i % len(w8s)],
                                                    *sc, dt),
                        lambda i: wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, dt), b,
+                       (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
                        tag="" if dt == torch.float32 else "bf16")
 
     def rows_w1a8_matmul():
@@ -463,7 +477,7 @@ def phase_kernels(torch, peaks, only=None):
         w8s = [int8(k, r) for _ in w1s]
         sc = [scalar(0.027), scalar(1 / 0.0021), scalar(1.0), scalar(1.0)]
         w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)  # both products in one call
-        for m in PREFILL_ROWS:
+        for m in DECOUPLED_MATMUL_ROWS:
             x, gamma = int8(m, k), scales(m)
             err = 0.0
             for dt in dtypes:
@@ -507,10 +521,12 @@ def phase_kernels(torch, peaks, only=None):
         if only in (None, name):
             rows()
     if only is None:
-        log("[3] library call: none computes a packed 1-bit product, so w1a8_gemv and "
-            "decoupled_gemv have none; int8_matmul's is torch._int_mm (integer product only, "
-            "M > 16); w1a8_matmul's and decoupled_matmul's are torch._int_mm on the unpacked "
-            "+-1 signs (8x the weight bytes, no epilogue); rmsnorm_quant has none")
+        log("[3] library call: none computes a packed 1-bit product, so every packed kernel's "
+            "is torch._int_mm on the unpacked +-1 signs (8x the weight bytes, pre-quantized "
+            "int8 rows, no epilogue): w1a8_matmul's and decoupled_matmul's at every M, "
+            f"w1a8_gemv's and decoupled_gemv's at {LIB_GEMV_ROWS} rows (_int_mm takes M > 16); "
+            "int8_matmul's is torch._int_mm (integer product only, M > 16); rmsnorm_quant "
+            "has none")
     return results
 
 
