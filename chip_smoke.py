@@ -16,13 +16,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. each kernel against its plain PyTorch version on the card at the
    shapes of pquant-1.3b: the decode tier at M in {1, 4, 5, 8, 16, 32}, the
    prefill tier (``w1a8_matmul``, ``decoupled_matmul``, ``int8_matmul``,
-   ``rmsnorm_quant``) at M in {33, 64, 512, 8192}, ``int8_matmul`` and
-   ``w1a8_matmul`` also at 1024 (a chunked slice), ``int8_matmul`` at both
-   tiers' rows.  The GEMMs and GEMVs must agree within rtol 1e-6 (they are
-   built to agree bit for bit: the decode GEMVs are held with x and the
-   output each in f32 and bf16, the prefill GEMMs and ``int8_matmul`` with
-   the output in f32 and bf16, ``w1a8_matmul`` and ``int8_matmul`` also at
-   ragged (K, N)); the bf16 GEMVs are timed at 4, 16 and 32 rows, the bf16
+   ``rmsnorm_quant``) at M in {33, 64, 512, 8192}, ``int8_matmul``,
+   ``w1a8_matmul`` and ``decoupled_matmul`` also at 1024 (a chunked
+   slice), ``int8_matmul`` at both tiers' rows.  The GEMMs and GEMVs must
+   agree within rtol 1e-6 (they are built to agree bit for bit: the decode
+   GEMVs are held with x and the output each in f32 and bf16, the prefill
+   GEMMs and ``int8_matmul`` with the output in f32 and bf16,
+   ``w1a8_matmul`` and ``int8_matmul`` also at ragged (K, N),
+   ``decoupled_matmul`` at ragged (K, N, r); the prefill GEMMs log the
+   route each shape takes); the bf16 GEMVs are timed at 4, 16 and 32 rows, the bf16
    ``int8_matmul`` above 32 rows, the bf16 ``w1a8_matmul`` at 8192, with
    the int8 TOP/s of each prefill GEMM; ``rmsnorm_quant`` within its stated
    tolerance (RMSNORM_*).  Prints the kernel's median time
@@ -103,8 +105,8 @@ one JSON line of those rows and exits non-zero on any mismatch; it
 never prints the ``{"ok": ...}`` line.  Two trees are timed in one call
 by running it once for each, by turns.  The tree under ``--src`` must
 have the wrappers this file calls (the GEMVs' ``out_dtype``,
-``w1a8_matmul_route``); an older tree is timed with its own
-``chip_smoke.py``.
+``w1a8_matmul_route``, ``decoupled_matmul_route``); an older tree is
+timed with its own ``chip_smoke.py``.
 
     python3 chip_smoke.py --serving [--src OTHER/src]
 
@@ -144,8 +146,10 @@ PREFILL_ROWS = (33, 64, 512, 8192)
 # phase 8 (a)'s admission prefills above the decode tier: prompts of 16-384
 # tokens bucketed to a power of two (scheduler _bucket_len), batch 1
 CB_ADMISSION_ROWS = (64, 128, 256, 512)
-DECOUPLED_MATMUL_ROWS = tuple(sorted(set(PREFILL_ROWS + CB_ADMISSION_ROWS)))
 CHUNK_ROWS = 1024  # a chunked-prefill slice of phase 8 (b): 16 requests x 64 tokens
+DECOUPLED_MATMUL_ROWS = tuple(sorted(set(PREFILL_ROWS + CB_ADMISSION_ROWS + (CHUNK_ROWS,))))
+# general (K, N, r) of decoupled_matmul: N or r off 16, so the mma route
+DECOUPLED_RAGGED = ((400, 72, 36), (2048, 5024, 100))
 INT8_ROWS = ROWS + PREFILL_ROWS + (CHUNK_ROWS,)
 W1A8_MATMUL_ROWS = (33, 64, 512, CHUNK_ROWS, 8192)
 W1A8_RAGGED = ((400, 72), (16, 64))  # general (K, N) of w1a8_matmul (N 72: the mma route)
@@ -301,6 +305,7 @@ def phase_kernels(torch, peaks, only=None):
     """Phase 3's GEMM and GEMV rows (``only``: one kernel's rows alone)."""
     from repro_torch.kernels import w1a8_gemv as wg
     from repro_torch.kernels import w1a8_matmul as wm
+    from repro_torch.kernels import decoupled_matmul as dmm
     from repro_torch.kernels.decoupled_matmul import decoupled_matmul, decoupled_matmul_plain
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
     from repro_torch.kernels.ref import unpack_ref
@@ -472,6 +477,10 @@ def phase_kernels(torch, peaks, only=None):
                 for m in W1A8_MATMUL_ROWS))
 
     def rows_decoupled_matmul():
+        # held exactly in f32 and bf16 and timed in f32 at every M (the
+        # prefill, (a)'s admission buckets and (b)'s slices), and held at
+        # ragged (K, N, r); the route each shape takes
+        route = dmm.decoupled_matmul_route
         k, n, r = DECOUPLED_SHAPE
         w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
         w8s = [int8(k, r) for _ in w1s]
@@ -492,6 +501,17 @@ def phase_kernels(torch, peaks, only=None):
                                               *sc),
                    lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
                    lambda i: torch._int_mm(x, w_lib), nops=2 * m * k * (n + r))
+        for (k, n, r), m, dt in itertools.product(DECOUPLED_RAGGED, (33, 129, 1000), dtypes):
+            x, gamma = int8(m, k), scales(m)
+            w1, w8 = packed(k, n), int8(k, r)
+            got = decoupled_matmul(x, w1, w8, gamma, *sc, out_dtype=dt)
+            want = decoupled_matmul_plain(x, w1, w8, gamma, *sc, out_dtype=dt)
+            held("decoupled_matmul", max(_close(got[0].float(), want[0].float()),
+                                         _close(got[1].float(), want[1].float())))
+        log(f"[3] decoupled_matmul held exactly at (K, N, r) {DECOUPLED_RAGGED} x M (33, 129, "
+            f"1000) x f32, bf16; routes (M, K, N, r): " + ", ".join(
+                f"{(m,) + s} {route(m, *s)}" for s in (DECOUPLED_SHAPE,) + DECOUPLED_RAGGED
+                for m in DECOUPLED_MATMUL_ROWS))
 
     def rows_rmsnorm_quant():
         # on bf16 and f32 rows of d_model; no PyTorch call computes the

@@ -2,8 +2,9 @@
 // packed weights: a ring of shared-memory stages filled by TMA behind
 // mbarriers, int8 warpgroup MMAs (wgmma) with the weight operand expanded
 // from its packed sign bits straight into registers, and the host-side
-// tensor maps.  w1a8_matmul.cu builds its kernel from these; the fused
-// 1-bit + 8-bit GEMM (decoupled_matmul) can take the same pieces.
+// tensor maps.  w1a8_matmul.cu and decoupled_matmul.cu (the fused 1-bit +
+// 8-bit GEMM, whose 8-bit tiles build A from an int8 box with
+// int8_fragment) build their kernels from these.
 //
 // The operand roles.  int8 wgmma reads both operands K-major, B always
 // from shared memory (through a 64-bit matrix descriptor) and A from
@@ -38,6 +39,7 @@
 #include <atomic>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro_sm90 {
@@ -196,6 +198,36 @@ __device__ __forceinline__ void sign_fragment(uint32_t lo, uint32_t hi, int shif
   a[1] = sign_word((lo >> 8) & 0xFu);  // A row g + 8 = column 2 g + 1, K 4t..
   a[2] = sign_word(hi & 0xFu);         // column 2 g,     K 16 + 4t..
   a[3] = sign_word((hi >> 8) & 0xFu);  // column 2 g + 1, K 16 + 4t..
+}
+
+// ---- the 8-bit weight operand ----
+
+// A's register fragment for one k32 step from an int8 weight that lies
+// N-major (K rows of columns) in shared memory: lo[i] and hi[i] are the
+// 16-bit loads of a lane's two adjacent columns (low byte column 2 g, high
+// byte 2 g + 1) from K rows 4 t + i and 16 + 4 t + i of the step, taken in
+// the order that `sel` undoes: 0x5140 for rows i = 0, 1, 2, 3, 0x1504 for
+// rows 1, 0, 3, 2.  Each pair of loads is first interleaved by column
+// (bytes: column 2 g at two K, then column 2 g + 1 at the same two), then
+// two pairs are joined into one column's four K values.
+__device__ __forceinline__ void int8_fragment(const uint32_t (&lo)[4], const uint32_t (&hi)[4],
+                                              uint32_t sel, uint32_t (&a)[4]) {
+  const uint32_t l01 = __byte_perm(lo[0], lo[1], sel), l23 = __byte_perm(lo[2], lo[3], sel);
+  const uint32_t h01 = __byte_perm(hi[0], hi[1], sel), h23 = __byte_perm(hi[2], hi[3], sel);
+  a[0] = __byte_perm(l01, l23, 0x5410);  // A row g     = column 2 g,     K 4t..
+  a[1] = __byte_perm(l01, l23, 0x7632);  // A row g + 8 = column 2 g + 1, K 4t..
+  a[2] = __byte_perm(h01, h23, 0x5410);  // column 2 g,     K 16 + 4t..
+  a[3] = __byte_perm(h01, h23, 0x7632);  // column 2 g + 1, K 16 + 4t..
+}
+
+// ---- epilogue ----
+
+// Two adjacent outputs in one store (8 bytes of f32, 4 of bf16).
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ---- host: tensor maps ----

@@ -6,6 +6,13 @@
 multiple of 16, r a multiple of 4) and runs its plain PyTorch version,
 with the Pallas kernel's two epilogues, for a CPU tensor.  Both write
 ``out_dtype``; the kernel equals the plain version bit for bit.
+
+The launch picks one of two routes by shape, never on failure: "wgmma"
+(K, N and r multiples of 16: the warp-specialised TMA + wgmma kernel,
+both branches in one persistent launch, which needs x, w1_packed and w8
+16-byte aligned) or "mma" (any other N or r: the mma.sync tile of
+``csrc/tile_gemm.cuh``, which needs x 16-byte and w8 4-byte aligned).
+``decoupled_matmul_route`` asks the CUDA source which one a shape takes.
 """
 
 from __future__ import annotations
@@ -25,7 +32,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, wp, w8, gamma, lam, w8scale, alpha, beta, y1, y8, out_dtype, m, k, n, r, device, stream
     "decoupled_matmul_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # m, k, n, r
+    "decoupled_matmul_route": [_I] * 4,
 }
+
+
+def decoupled_matmul_route(m: int, k: int, n: int, r: int) -> str:
+    """The route the kernel takes for an (m, k) x [(k, n) packed, (k, r)
+    int8] product on the card: "wgmma" or "mma" (builds the kernel on first
+    use)."""
+    lib = _cuda.load("decoupled_matmul", _SIGNATURES)
+    return "wgmma" if lib.decoupled_matmul_route(m, k, n, r) else "mma"
 
 
 def decoupled_matmul_plain(x_i8: Tensor, w1_packed: Tensor, w8_i8: Tensor, gamma: Tensor,
@@ -65,6 +82,10 @@ def decoupled_matmul(x_i8: Tensor, w1_packed: Tensor, w8_i8: Tensor, gamma: Tens
     if w8_i8.data_ptr() % 4:
         raise ValueError("w8 must be 4-byte aligned (the kernel reads it a word at a time)")
     r = w8_i8.shape[1]
+    if ((w1_packed.data_ptr() % 16 or w8_i8.data_ptr() % 16)
+            and decoupled_matmul_route(m, k, n, r) == "wgmma"):
+        raise ValueError("the wgmma route needs w1_packed and w8 16-byte aligned (its TMA "
+                         "descriptors copy 16-byte rows)")
     code = _cuda.float_code(out_dtype, "out_dtype")
     scalars = [_cuda.scalar_ptr(t, dev, name) for t, name in
                ((lam, "lam"), (w8scale, "w8scale"), (alpha, "alpha"), (beta, "beta"))]

@@ -5,8 +5,10 @@ runs them), and the plain oracles of ``repro.kernels.ref``; the GEMVs
 with x and the output each in float32 and bfloat16.  The prefill tier
 above ``DECODE_M_MAX`` rows has its own file, ``test_torch_prefill.py``;
 here it is checked only where the two tiers meet (the dispatch on the
-CPU) and on the card (``int8_matmul`` and ``w1a8_matmul`` against their
-plain versions at every route).
+CPU) and on the card (``int8_matmul``, ``w1a8_matmul`` and
+``decoupled_matmul`` against their plain versions at every route;
+``test_torch_decoupled_matmul.py`` emulates the wgmma route of
+``decoupled_matmul`` on the CPU).
 
 On the CPU every wrapper runs its plain PyTorch version.  Integer results
 (int8 codes, int32 accumulators) must be exactly equal.  The f32 outputs
@@ -28,7 +30,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.quantization import fdiv, quantize_act_int8
 from repro_torch.kernels import _cuda, ops, ref
-from repro_torch.kernels.decoupled_matmul import decoupled_matmul_plain
+from repro_torch.kernels.decoupled_matmul import (
+    decoupled_matmul,
+    decoupled_matmul_plain,
+    decoupled_matmul_route,
+)
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain, int8_matmul_route
 from repro_torch.kernels.w1a8_gemv import (
     decoupled_gemv,
@@ -417,6 +423,88 @@ def test_cuda_w1a8_matmul_alignment_by_route(cuda_device, k, n):
         torch.testing.assert_close(w1a8_matmul(x, view, gamma, lam),
                                    w1a8_matmul_plain(x, wp, gamma, lam), rtol=0, atol=0)
         assert _cuda.LAUNCHES["w1a8_matmul"] == before + 1
+
+
+def _decoupled_matmul_inputs(m, k, n, r, dev, seed):
+    rng = np.random.default_rng(seed)
+    x = _t(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
+    wp = _t(rng.integers(0, 256, (k // 8, n)).astype(np.uint8)).to(dev)
+    w8 = _t(rng.integers(-127, 128, (k, r)).astype(np.int8)).to(dev)
+    gamma = _t((rng.random(m) * 50 + 10).astype(np.float32)).to(dev)
+    sc = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (0.027, 1 / 0.0021, 1.3, 0.45)]
+    return x, wp, w8, gamma, sc
+
+
+def _decoupled_matmul_exact(m, k, n, r, out_dtype, dev, route):
+    x, wp, w8, gamma, sc = _decoupled_matmul_inputs(m, k, n, r, dev, m + k + n + r)
+    dt = getattr(torch, out_dtype)
+    assert decoupled_matmul_route(m, k, n, r) == route
+    before = _cuda.LAUNCHES["decoupled_matmul"]
+    y1, y8 = decoupled_matmul(x, wp, w8, gamma, *sc, out_dtype=dt)
+    assert _cuda.LAUNCHES["decoupled_matmul"] == before + 1
+    assert y1.dtype == y8.dtype == dt and y1.shape == (m, n) and y8.shape == (m, r)
+    p1, p8 = decoupled_matmul_plain(x, wp, w8, gamma, *sc, out_dtype=dt)
+    torch.testing.assert_close(y1, p1, rtol=0, atol=0)
+    torch.testing.assert_close(y8, p8, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n,r", [(2048, 5024, 384), (2880, 7168, 512)])
+@pytest.mark.parametrize("m", [33, 64, 136, 512, 1000])
+def test_cuda_decoupled_matmul_wgmma_equals_plain_version(cuda_device, m, k, n, r, out_dtype):
+    """decoupled_matmul's wgmma route, bit for bit against its plain
+    version: pquant-1.3b's FFN (trunk N 5024 ragged against its tiles) and
+    pquant-2.6b's (K 2880 = 22 x 128 + 64: a ragged K tail), M under one
+    128-row block, over it and ragged, at both trunk widths; one launch a
+    call."""
+    _decoupled_matmul_exact(m, k, n, r, out_dtype, cuda_device, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n,r", [(400, 72, 36), (256, 160, 20)])
+@pytest.mark.parametrize("m", [33, 136, 1000])
+def test_cuda_decoupled_matmul_mma_route_equals_plain_version(cuda_device, m, k, n, r,
+                                                              out_dtype):
+    """Shapes off 16 (N 72, r 36 and 20, as reduced configurations have)
+    take the mma route, also bit for bit against the plain version."""
+    _decoupled_matmul_exact(m, k, n, r, out_dtype, cuda_device, "mma")
+
+
+@pytest.mark.cuda
+def test_cuda_decoupled_matmul_route(cuda_device):
+    """wgmma where K, N and r are multiples of 16, at every row count above
+    the decode tier; mma where N or r is not."""
+    for m in (33, 64, 128, 256, 512, 1024, 8192):
+        for k, n, r in ((2048, 5024, 384), (2880, 7168, 512), (16, 16, 16)):
+            assert decoupled_matmul_route(m, k, n, r) == "wgmma", (m, k, n, r)
+        for k, n, r in ((400, 72, 36), (2048, 5024, 100), (2048, 5032, 384)):
+            assert decoupled_matmul_route(m, k, n, r) == "mma", (m, k, n, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,r", [(2048, 5024, 384), (400, 72, 36)])
+def test_cuda_decoupled_matmul_alignment_by_route(cuda_device, k, n, r):
+    """w8 4-byte but not 16-byte aligned: the wgmma route raises ValueError
+    and launches nothing (its TMA descriptor needs 16 bytes); the mma route
+    reads words and takes it, equal to the plain version."""
+    m = 64
+    x, wp, w8, gamma, sc = _decoupled_matmul_inputs(m, k, n, r, cuda_device, k + n + r)
+    buf = torch.zeros(w8.numel() + 16, dtype=torch.int8, device=cuda_device)
+    view = buf[4:4 + w8.numel()].view(w8.shape)
+    view.copy_(w8)
+    assert view.data_ptr() % 16 and not view.data_ptr() % 4
+    before = _cuda.LAUNCHES["decoupled_matmul"]
+    if decoupled_matmul_route(m, k, n, r) == "wgmma":
+        with pytest.raises(ValueError, match="aligned"):
+            decoupled_matmul(x, wp, view, gamma, *sc)
+        assert _cuda.LAUNCHES["decoupled_matmul"] == before
+    else:
+        for a, b in zip(decoupled_matmul(x, wp, view, gamma, *sc),
+                        decoupled_matmul_plain(x, wp, w8, gamma, *sc)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert _cuda.LAUNCHES["decoupled_matmul"] == before + 1
 
 
 # the decode GEMVs on the card: every row count of the decode tier, the
