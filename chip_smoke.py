@@ -27,11 +27,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    route each shape takes); the bf16 GEMVs are timed at 4, 16 and 32 rows, the bf16
    ``int8_matmul`` above 32 rows, the bf16 ``w1a8_matmul`` at 8192, with
    the int8 TOP/s of each prefill GEMM; ``rmsnorm_quant`` within its stated
-   tolerance (RMSNORM_*).  Prints the kernel's median time
-   (CUDA events, weights rotated through more copies than the 50 MB L2
-   holds), the host's time to issue one call, the plain version's time,
-   the bound (bytes over the card's memory rate, or operations over its
-   int8 rate) and, where one PyTorch call computes the same product
+   tolerance (RMSNORM_*), timed in bf16 and f32, also held at d 2880 and
+   100 (its two routes), with the route of each shape.  Prints the
+   kernel's median time (CUDA events, weights, or ``rmsnorm_quant``'s
+   rows, rotated through more copies than the 50 MB L2 holds), the
+   host's time to issue one call, the plain version's time, the bound
+   (bytes over the card's memory rate, or operations over its int8 rate)
+   and, where one PyTorch call computes the same product
    (``torch._int_mm`` on the unpacked signs: the prefill GEMMs at every M,
    the decode GEMVs at 32 rows, the first M it takes), its time;
    ``decoupled_matmul`` also at the row counts of phase 8 (a)'s admission
@@ -301,6 +303,18 @@ def _codes_close(q, q_ref, g, g_ref) -> float:
     return g_err.max().item()
 
 
+def _rmsnorm_route(x) -> str:
+    """The route ``rmsnorm_quant`` takes for the rows x (with the warps a
+    row on the warp route); a tree under ``--src`` from before the routes
+    has one design (the block route's)."""
+    from repro_torch.kernels import rmsnorm_quant as rq
+
+    if not hasattr(rq, "rmsnorm_quant_route"):
+        return "one design"
+    route = rq.rmsnorm_quant_route(*x.shape, x.dtype, x.data_ptr())
+    return f"warp, {rq.row_warps(*x.shape)} a row" if route == "warp" else route
+
+
 def phase_kernels(torch, peaks, only=None):
     """Phase 3's GEMM and GEMV rows (``only``: one kernel's rows alone)."""
     from repro_torch.kernels import w1a8_gemv as wg
@@ -514,20 +528,36 @@ def phase_kernels(torch, peaks, only=None):
                 for m in DECOUPLED_MATMUL_ROWS))
 
     def rows_rmsnorm_quant():
-        # on bf16 and f32 rows of d_model; no PyTorch call computes the
-        # same function
+        # timed on bf16 and f32 rows of d_model at the prefill rows, x
+        # rotated past the L2 as the GEMMs' weights are; held at 2880 (the
+        # widest paper width: the warp route, each row's last chunks
+        # ragged across its threads) and at 100 (not a multiple of 8: the
+        # block route).  No PyTorch call computes the same function.
         d = D_MODEL
         norm_scale = torch.rand((d,), generator=gen, **f32) + 0.5
+        routes = []
         for dt in (torch.bfloat16, torch.float32):
             for m in PREFILL_ROWS:
-                x = (torch.randn((m, d), generator=gen, **f32) * 3).to(dt)
-                q, g = rmsnorm_quant(x, norm_scale)
-                q_ref, g_ref = rmsnorm_quant_plain(x, norm_scale)
+                xs = [(torch.randn((m, d), generator=gen, **f32) * 3).to(dt)
+                      for _ in range(_copies(m * d * dt.itemsize))]
+                q, g = rmsnorm_quant(xs[0], norm_scale)
+                q_ref, g_ref = rmsnorm_quant_plain(xs[0], norm_scale)
                 err = _codes_close(q, q_ref, g, g_ref)
-                b = bound(m * d * x.element_size() + d * 4 + m * d + m * 4, 0)
-                record("rmsnorm_quant", m, (d,), err, lambda i: rmsnorm_quant(x, norm_scale),
-                       lambda i: rmsnorm_quant_plain(x, norm_scale), b,
+                b = bound(m * d * dt.itemsize + d * 4 + m * d + m * 4, 0)
+                record("rmsnorm_quant", m, (d,), err,
+                       lambda i: rmsnorm_quant(xs[i % len(xs)], norm_scale),
+                       lambda i: rmsnorm_quant_plain(xs[0], norm_scale), b,
                        tag="" if dt == torch.bfloat16 else "f32")
+                routes.append(f"{(m, d, str(dt)[6:])} {_rmsnorm_route(xs[0])}")
+        for dd, m, dt in itertools.product((2880, 100), (33, 1000), dtypes):
+            x = (torch.randn((m, dd), generator=gen, **f32) * 3).to(dt)
+            s = torch.rand((dd,), generator=gen, **f32) + 0.5
+            q, g = rmsnorm_quant(x, s)
+            q_ref, g_ref = rmsnorm_quant_plain(x, s)
+            held("rmsnorm_quant", _codes_close(q, q_ref, g, g_ref))
+            routes.append(f"{(m, dd, str(dt)[6:])} {_rmsnorm_route(x)}")
+        log("[3] rmsnorm_quant held within its tolerance at d (2880, 100) x M (33, 1000) x "
+            "f32, bf16; routes (M, d, x): " + ", ".join(routes))
 
     sections = {
         "int8_matmul": rows_int8_matmul,
@@ -1025,8 +1055,9 @@ def phase_prefill(torch, params, cfg):
                              f"{launches['rmsnorm_quant']} times, want 1")
     q_ref, g_ref = rmsnorm_quant_plain(h.reshape(-1, h.shape[-1]), norm_scale)
     err = _codes_close(q.reshape(q_ref.shape), q_ref, g.reshape(-1), g_ref)
-    log(f"[6] ops.fused_rmsnorm_quant on {tuple(h.shape)} {h.dtype}: 1 launch, gamma max|err| "
-        f"{err:.3g}, codes within the stated tolerance")
+    log(f"[6] ops.fused_rmsnorm_quant on {tuple(h.shape)} {h.dtype}: 1 launch "
+        f"({_rmsnorm_route(h.reshape(-1, h.shape[-1]))} route), gamma max|err| {err:.3g}, "
+        "codes within the stated tolerance")
     summary = {"ttft_ms": ttft * 1e3, "ms_per_step": (t_gen - ttft) / (P_NEW_TOKENS - 1) * 1e3,
                "tokens_per_s": P_BATCH * (P_NEW_TOKENS - 1) / (t_gen - ttft),
                "device_busy_share": busy / t_gen, "prefill_busy_share": busy_first / ttft,
