@@ -85,7 +85,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (a) vs (c), (b) vs (a) and (a) vs ``DecodeEngine`` batch-1 (8
    requests), equal or parting (with the top-2 gap of the teacher-forced
    reference at the parting, against ``NEAR_TIE``), and how many phase 8
-   streams matched at full depth.
+   streams matched at full depth;
+10. the QAT training step: ``trainer.make_train_step`` on full-width
+   pquant-1.3b from ``SEED`` (f32 master, bf16 forward, remat on, accum
+   1) at 4 x 2048 tokens a step from a seeded generator (labels the next
+   tokens): 2 warm-up steps, 5 timed (synchronized wall), one profiled.
+   The schedule's warm-up starts at lr 0, so step 0 must move no watched
+   parameter and step 1 (lr > 0) at least one; one more step runs with
+   CUDA's sync debug mode on and must not sync.  Prints the median ms a
+   step, tokens/s, ``max_memory_allocated``, the model FLOPs a step (its
+   formula printed) and TFLOP/s, the device's busy share and time by
+   kernel; fails unless every loss, nll and gradient norm is finite and
+   the first loss is within ln(vocab) +- 1.5.  Then card vs CPU: one
+   ``loss_fn`` with gradients of a 2-layer f32 cut at 2 x 64 tokens, held
+   by the rule of ``tests/test_torch_train.py``: every gradient leaf
+   within ``GRAD_RTOL`` of its largest element with the CPU's act-quant
+   decisions replayed on the card; primary flips (ties decided two ways)
+   at most ``FLIP_RATE`` of the codes; the loss within ``TRAIN_ATOL``
+   plus one flip's reach on the tokens that met a differing code.
+   Training launches none of the seven kernels.
 
 Phase 3 also holds ``paged_attention`` against its plain version at phase
 8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
@@ -117,6 +135,11 @@ runs phases 1-2, 4, 6 and 8 alone, with their checks (of the tree under
 phase 8's records.  It is how a kernel's redesign is timed end to end:
 run it on the parent's tree and on the change's by turns, in one call.
 
+    python3 chip_smoke.py --train
+
+runs phases 1 and 10 alone (no kernel build: training launches none)
+and prints one JSON line of phase 10's summary.
+
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
 times phase 4's decode path of this checkout against another one (say, a
@@ -129,10 +152,12 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -796,27 +821,35 @@ def phase_slice(torch):
 
 
 def _profile(torch, eng, prompts, greedy, wall, tag: str = "4") -> float:
-    """Where a generate's time goes on the device: torch.profiler's device
-    time of every kernel, summed by name, and the device's busy share of an
-    unprofiled generate's wall time ``wall`` (the profiler slows the host,
-    not the kernels)."""
+    """Where a generate's time goes on the device (:func:`_device_time`)."""
+    return _device_time(torch, lambda: eng.generate(prompts, greedy), wall, tag, "generate")
+
+
+def _device_time(torch, fn, wall, tag: str, what: str, top: int = 8) -> float:
+    """torch.profiler's device time of every kernel of one ``fn()``, summed
+    by name, the GEMMs' part of it, and the device's busy share of an
+    unprofiled run's wall time ``wall`` (the profiler slows the host, not
+    the kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompts, greedy)
+        fn()
+        torch.cuda.synchronize()
     rows = {}
     for e in prof.events():
         # device-side kernels only: not CPU ops, not the annotate() spans
-        if e.device_type != DeviceType.CUDA or e.name.startswith(("serve/", "kernels/")):
+        if e.device_type != DeviceType.CUDA or e.name.startswith(("serve/", "kernels/", "train/")):
             continue
         us, n = rows.get(e.name, (0.0, 0))
         rows[e.name] = (us + e.device_time_total, n + 1)
     busy = sum(us for us, _ in rows.values()) / 1e6
-    log(f"[{tag}] device busy {busy * 1e3:.2f} ms in a {wall * 1e3:.1f} ms generate "
-        f"({100 * busy / wall:.1f}%); kernels by device time:")
-    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"[{tag}]   {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
+    gemm = sum(us for k, (us, _) in rows.items()
+               if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass", "xmma"))) / 1e6
+    log(f"[{tag}] device busy {busy * 1e3:.2f} ms in a {wall * 1e3:.1f} ms {what} "
+        f"({100 * busy / wall:.1f}%), GEMMs {gemm * 1e3:.2f} ms; kernels by device time:")
+    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"[{tag}]   {us / 1e3:8.3f} ms  {n:6d}x  {name.replace('void at::native::', '')[:110]}")
     return busy
 
 
@@ -1537,6 +1570,276 @@ def phase_continuous_cut(torch, params, cfg, full_streams):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the QAT training step
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048  # 8192 tokens a step; 2048 is the paper's SEQ
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# total steps of the schedule: a warm-up of 50 steps from lr 0, so step 0
+# moves no parameter and every later step does
+TRAIN_TOTAL_STEPS = 1000
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 64
+# card vs CPU, the CPU tests' rule (tests/test_torch_train.py): every
+# gradient leaf within GRAD_RTOL of its largest element with the CPU's
+# act-quant decisions replayed on the card (and the loss within
+# TRAIN_ATOL); primary flips (a code, or a row's AbsMax elements, decided
+# two ways where both inputs agree within TIE_NOISE) at most FLIP_RATE of
+# the codes; the loss as computed within TRAIN_ATOL + 2 * TRAIN_ATOL_FLIP
+# times the share of tokens that met a differing code
+TRAIN_ATOL, TRAIN_ATOL_FLIP = 1e-5, 5e-2
+GRAD_RTOL = 1e-5
+FLIP_RATE = 1e-4
+TIE_NOISE = 1e-3
+
+
+def _train_batch(torch, vocab: int, b: int, s: int, seed: int, device):
+    """b sequences of s tokens from a seeded generator; labels are the next
+    tokens."""
+    toks = torch.randint(0, vocab, (b, s + 1), generator=torch.Generator().manual_seed(seed))
+    return {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+
+
+def _train_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
+    """(model FLOPs of one step, FLOPs with remat's second forward):
+    6 N T for the weights (forward 2 N T, backward 4 N T; the tied table
+    counted once, for the unembedding) plus 12 L B S^2 d for the attention
+    matmuls (QK^T and AV, 2 B S^2 d each, over all S^2: no causal skip),
+    T = B S tokens; remat runs the layers' forward again."""
+    t = b * s
+    attn = 2 * 2 * b * s * s * cfg.d_model * cfg.n_layers
+    model = 6 * n_params * t + 3 * attn
+    layer_params = n_params - cfg.vocab_size * cfg.d_model
+    return model, model + 2 * layer_params * t + attn
+
+
+def _syncs(torch, fn) -> list:
+    """The host syncs of ``fn()`` that CUDA's sync debug mode reports: torch
+    warns "called a synchronizing CUDA operation" at each (and once that
+    "Synchronization debug mode is a prototype feature")."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in caught if "synchronizing" in str(w.message)]
+
+
+def phase_train(torch, smi: str) -> dict:
+    """[10] make_train_step on full-width pquant-1.3b (bf16 forward, remat
+    on) at TRAIN_BATCH x TRAIN_SEQ tokens: warm-up steps, timed steps, one
+    profiled step; checks the losses and that a step moved the weights."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+
+    cfg = get_config("pquant-1.3b")
+    if cfg.dtype != "bfloat16" or not cfg.remat:
+        raise AssertionError(f"{cfg.name}: dtype {cfg.dtype}, remat {cfg.remat}")
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = trainer.init_train_state(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    log(f"[10] {cfg.name}: {n} parameters (f32 master + AdamW moments "
+        f"{(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"{cfg.dtype} forward, remat {cfg.remat}, accum 1, schedule of {TRAIN_TOTAL_STEPS} "
+        f"steps (lr 0 at step 0, > 0 from step 1)")
+    step = trainer.make_train_step(cfg, TRAIN_TOTAL_STEPS)
+    batches = [_train_batch(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, SEED + i, dev)
+               for i in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
+    watched = {"final_norm/scale": state.params["final_norm"]["scale"],
+               "embed/table": state.params["embed"]["table"],
+               "layer 0 wq": state.params["segments"][0]["b0"]["mixer"]["wq"]["w"][0]}
+    before = {k: v.clone() for k, v in watched.items()}
+    mets, walls = [], []
+    for i, batch in enumerate(batches[:-1]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        mets.append(m)
+        if i == 0:
+            unmoved = [k for k, v in watched.items() if torch.equal(v, before[k])]
+            if len(unmoved) != len(watched):
+                raise AssertionError("a step at lr 0 moved a parameter")
+        if i == 1:
+            moved = [k for k, v in watched.items() if not torch.equal(v, before[k])]
+            if not moved:
+                raise AssertionError("no watched parameter moved after a step at lr > 0")
+    timed = walls[TRAIN_WARMUP:]
+    wall = statistics.median(timed)
+    # one more step with CUDA's sync debug mode on: the step must not wait
+    # for the device (and the mode must catch the sync of an .item())
+    if not _syncs(torch, lambda: torch.ones((), device=dev).item()):
+        raise AssertionError("CUDA's sync debug mode caught no sync in .item()")
+    syncs = _syncs(torch, lambda: step(state, batches[-2]))
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in a step, the first: {syncs[0]}")
+    busy = _device_time(torch, lambda: step(state, batches[-1]), wall, "10", "step", top=14)
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: torch.stack([m[k] for m in mets]).tolist() for k in mets[0]}
+    for k in ("loss", "nll", "grad_norm"):
+        if not all(math.isfinite(v) for v in vals[k]):
+            raise AssertionError(f"non-finite {k}: {vals[k]}")
+    if abs(vals["loss"][0] - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"first loss {vals['loss'][0]} not within ln(V) +- 1.5")
+    if vals["lr"][0] != 0.0 or not all(v > 0 for v in vals["lr"][1:]):
+        raise AssertionError(f"lr {vals['lr']}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops, exec_flops = _train_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"[10] losses {[round(v, 4) for v in vals['loss']]}; nll {[round(v, 4) for v in vals['nll']]}; "
+        f"grad_norm {[round(v, 4) for v in vals['grad_norm']]}; lr {vals['lr']}; moved after "
+        f"step 1: {moved}")
+    log(f"[10] step wall (synchronized, host clock) over {TRAIN_TIMED} steps: median "
+        f"{wall * 1e3:.1f} ms (min {min(timed) * 1e3:.1f}, max {max(timed) * 1e3:.1f}); "
+        f"warm-up steps {[round(w * 1e3, 1) for w in walls[:TRAIN_WARMUP]]} ms; "
+        f"{tokens / wall:.0f} tokens/s; peak memory {(peak - base) / 1e9:.2f} GB over the "
+        f"{base / 1e9:.2f} GB held before the phase (max_memory_allocated {peak / 1e9:.2f} GB)")
+    log(f"[10] model FLOPs a step = 6 x N x tokens + 12 x layers x batch x seq^2 x d_model "
+        f"= 6 x {n} x {tokens} + 12 x {cfg.n_layers} x {TRAIN_BATCH} x {TRAIN_SEQ}^2 x "
+        f"{cfg.d_model} = {model_flops / 1e12:.2f} TFLOP ({exec_flops / 1e12:.2f} with remat's "
+        f"second forward): {model_flops / wall / 1e12:.1f} TFLOP/s, "
+        f"{100 * model_flops / wall / 989e12:.1f}% of the bf16 dense peak 989 TFLOP/s "
+        f"(card: {smi})")
+    return {"ms_per_step": wall * 1e3, "ms_steps": [w * 1e3 for w in timed],
+            "tokens_per_s": tokens / wall, "peak_gb": (peak - base) / 1e9,
+            "model_tflop": model_flops / 1e12,
+            "tflop_per_s": model_flops / wall / 1e12, "device_busy": busy / wall,
+            "losses": vals["loss"], "card": smi}
+
+
+def _act_quant_decisions(torch, record: list, replay=None):
+    """Context: every act-quant site of the port's forward appends (x *
+    gamma, the elements holding max |x|) to ``record``; with ``replay``
+    (another run's record), each site takes its codes and AbsMax elements
+    from it instead and computes the rest as the port does (the STE, the
+    clip, gamma from the mean of the chosen maxima)."""
+    import contextlib
+
+    from repro_torch.core import quantization as q
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = q.quantize_activations_int8
+        it = iter(replay or ())
+
+        def tapped(x):
+            xf = x.detach().float()
+            a = xf.abs()
+            record.append(((xf * q.act_scale_int8(xf)).cpu(), (a == a.amax(-1, keepdim=True)).cpu()))
+            if replay is None:
+                return orig(x)
+            v, ties = next(it)
+            xf = x.float()
+            mask = ties.to(x.device)
+            amax = (torch.where(xf >= 0, xf, -xf) * mask).sum(-1, keepdim=True) / mask.sum(
+                -1, keepdim=True)
+            gamma = q.fdiv(q.INT8_QMAX, amax + q.EPS)
+            qq = q.clip(q.ste(xf * gamma, torch.round(v).to(x.device)), -q.INT8_QMAX, q.INT8_QMAX)
+            return (qq / gamma).to(x.dtype), gamma
+
+        q.quantize_activations_int8 = tapped
+        try:
+            yield
+        finally:
+            q.quantize_activations_int8 = orig
+
+    return ctx()
+
+
+def _flips(rec_a, rec_b) -> dict:
+    """Two runs' records compared site by site (one row a token): primary
+    flips, differing codes, all codes, and the tokens that met a differing
+    code."""
+    primary = differ = codes = 0
+    touched = None
+    for (va, ta), (vb, tb) in zip(rec_a, rec_b, strict=True):
+        near = (va - vb).abs() <= TIE_NOISE
+        code = va.round().clamp(-127, 127) != vb.round().clamp(-127, 127)
+        codes += code.numel()
+        differ += int(code.sum())
+        primary += int((code & near).sum()) + int(((ta != tb).any(-1) & near.all(-1)).sum())
+        rows = code.reshape(-1, code.shape[-1]).any(-1)
+        touched = rows if touched is None else touched | rows
+    return {"primary": primary, "differ": differ, "codes": codes,
+            "tokens": int(touched.sum()), "of": touched.numel()}
+
+
+def _loss_grads(torch, params, batch, cfg, record, replay=None):
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    with _act_quant_decisions(torch, record, replay):
+        leaves = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
+        loss, metrics = api.loss_fn(leaves, batch, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True)
+    return loss.item(), grads
+
+
+def phase_train_cut(torch):
+    """[10] card vs CPU: one loss_fn with gradients of a 2-layer cut of
+    pquant-1.3b in f32 (remat off) at TRAIN_CUT_BATCH x TRAIN_CUT_SEQ
+    tokens, by the CPU tests' rule."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_map, tree_paths
+
+    cfg = dataclasses.replace(get_config("pquant-1.3b"), n_layers=TRAIN_CUT_LAYERS,
+                              dtype="float32", remat=False)
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    params = api.init_model(SEED, cfg, device=cpu)
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, SEED, cpu)
+    t0 = time.perf_counter()
+    rec_cpu, rec_card, rec_replay = [], [], []
+    loss_cpu, g_cpu = _loss_grads(torch, params, batch, cfg, rec_cpu)
+    t_cpu = time.perf_counter() - t0
+    card = tree_map(lambda t: t.to(dev), params)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    loss_card, g_card = _loss_grads(torch, card, card_batch, cfg, rec_card)
+    loss_rep, g_rep = _loss_grads(torch, card, card_batch, cfg, rec_replay, replay=rec_cpu)
+    f = _flips(rec_cpu, rec_card)
+    tol = TRAIN_ATOL + 2 * TRAIN_ATOL_FLIP * f["tokens"] / f["of"]
+    if (f["primary"] > FLIP_RATE * f["codes"] or abs(loss_card - loss_cpu) > tol
+            or abs(loss_rep - loss_cpu) > TRAIN_ATOL):
+        raise AssertionError(f"card vs CPU: loss {loss_card} / {loss_cpu} (replayed {loss_rep}), "
+                             f"flips {f}")
+    worst = (0.0, "")
+    for runs, grads in (("replayed", g_rep),) + ((("as computed", g_card),) if f["primary"] == 0
+                                                 else ()):
+        for (path, _), a, b in zip(tree_paths(params), grads, g_cpu, strict=True):
+            scale = b.abs().max().item()
+            err = (a.cpu() - b).abs().max().item()
+            if err > GRAD_RTOL * scale + 1e-12:
+                raise AssertionError(f"card vs CPU ({runs}): {'/'.join(map(str, path))} off by "
+                                     f"{err} (largest {scale})")
+            worst = max(worst, (err / max(scale, 1e-30), "/".join(map(str, path))))
+    log(f"[10] card vs CPU, {cfg.n_layers} layers in f32, {TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ} "
+        f"tokens: loss {loss_card:.7f} / {loss_cpu:.7f} (replayed {loss_rep:.7f}; CPU "
+        f"{t_cpu:.1f} s); {f['primary']} primary act-quant flips, {f['differ']} codes differ of "
+        f"{f['codes']}, {f['tokens']} of {f['of']} tokens met one; gradients within "
+        f"{worst[0]:.2e} of each leaf's largest (worst {worst[1]}; rule {GRAD_RTOL})")
+
+
+def train(torch) -> int:
+    """Phases 1 and 10 alone: prints one JSON line of phase 10's summary."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    smi, _, _ = phase_card(torch)
+    summary = phase_train(torch, smi)
+    phase_train_cut(torch)
+    print(json.dumps(summary))
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Decode timing of two checkouts, side by side
 # ---------------------------------------------------------------------------
 
@@ -1677,6 +1980,10 @@ def main(torch) -> int:
     lap("[8]")
     phase_continuous_cut(torch, params, cfg, cb_streams)
     lap("[9]")
+    t_summary = phase_train(torch, smi)
+    phase_train_cut(torch)
+    log(f"[10] summary: {json.dumps(t_summary)}")
+    lap("[10]")
     c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
@@ -1732,6 +2039,8 @@ if __name__ == "__main__":
                     "by turns to time a kernel's redesign against its parent)")
     ap.add_argument("--src", metavar="SRC", help="with --kernel or --serving: the src/ tree "
                     "to import repro_torch from (default: this checkout's)")
+    ap.add_argument("--train", action="store_true",
+                    help="phases 1 and 10 only (the training step; no kernel build)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -1741,6 +2050,8 @@ if __name__ == "__main__":
         sys.exit(2)
     if args.time_slice:
         sys.exit(time_slice(torch, Path(args.time_slice)))
+    if args.train:
+        sys.exit(train(torch))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
         sys.exit(one_kernel(torch, args.kernel, src))

@@ -2,10 +2,13 @@
 pQuant (paper §3.1, Eq. 3-10).
 
 The fake-quant quantizers return values in the input's float dtype,
-restricted to the quantization grid.  Their straight-through gradients
-come with the training slice of the port; this slice serves inference
-only.  The runtime integer path lives in ``repro_torch.core.packing`` and
-``repro_torch.kernels``.
+restricted to the quantization grid, and carry a straight-through
+estimator (:func:`ste`) so that gradients reach the latent weights: the
+training forward of ``repro_torch.train.trainer``.  Their clips go through
+:func:`clip`, whose gradient at a rail is JAX's (half of it passes), and
+their scales take |x| with JAX's gradient at 0 (:func:`_abs`).  The
+runtime integer path (:func:`quantize_act_int8`, ``repro_torch.core.packing``
+and ``repro_torch.kernels``) takes no gradient.
 
 Rounding is half to even everywhere (``torch.round`` shares it with
 ``jnp.round``), and every activation scale is computed in float32, so the
@@ -42,22 +45,83 @@ def fdiv(a, b) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Weight quantizers
+# Straight-through estimator
 # ---------------------------------------------------------------------------
 
 
-def _sign(x: Tensor) -> Tensor:
-    """sign() on {-1, +1}: 0 maps to +1 (upstream ``ste_sign``)."""
+class _STE(torch.autograd.Function):
+    """Forward: ``x_quant`` itself.  Backward: the gradient goes to ``x``
+    unchanged and none to ``x_quant`` (upstream's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, x_quant):
+        return x_quant
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ste(x: Tensor, x_quant: Tensor) -> Tensor:
+    """``x_quant`` in the forward pass, d/dx = identity in the backward
+    (paper Appendix B.1).  The forward value is ``x_quant`` bit for bit,
+    which ``x + (x_quant - x).detach()`` is not."""
+    return _STE.apply(x, x_quant)
+
+
+def ste_round(x: Tensor) -> Tensor:
+    """round() (half to even) with identity gradient."""
+    return ste(x, torch.round(x))
+
+
+def ste_sign(x: Tensor) -> Tensor:
+    """sign() on {-1, +1} with identity gradient: 0 maps to +1 (the paper's
+    Eq. 4 defines only +-1)."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
-    return torch.where(x >= 0, one, -one)
+    return ste(x, torch.where(x >= 0, one, -one))
+
+
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs(x: Tensor) -> Tensor:
+    """``torch.abs`` with ``jnp.abs``'s gradient, +1 at 0 (``torch.abs``
+    gives 0 there, which drops a zero weight's share of an AbsMean scale
+    and a zero row's share of its AbsMax)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Abs.apply(x)
+    return torch.abs(x)
+
+
+def clip(x: Tensor, lo: float, hi: float) -> Tensor:
+    """``jnp.clip(x, lo, hi)`` with its gradient: where x equals a bound,
+    half the gradient passes (``torch.clamp`` passes all of it, which moves
+    every +-1 code of a ternary weight)."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+# ---------------------------------------------------------------------------
+# Weight quantizers
+# ---------------------------------------------------------------------------
 
 
 def binarize_weights(w: Tensor) -> tuple[Tensor, Tensor]:
     """1-bit weight fake-quant (paper Eq. 3-6): ``(sign(W - mean W) * lam,
     lam)`` with the per-tensor AbsMean ``lam = mean|W| + eps``."""
     mu = torch.mean(w)
-    lam = torch.mean(torch.abs(w)) + EPS
-    return _sign(w - mu) * lam, lam
+    lam = torch.mean(_abs(w)) + EPS
+    return ste_sign(w - mu) * lam, lam
 
 
 def binarize_weights_grouped(w: Tensor, group_size: int) -> tuple[Tensor, Tensor]:
@@ -67,32 +131,32 @@ def binarize_weights_grouped(w: Tensor, group_size: int) -> tuple[Tensor, Tensor
         raise ValueError(f"{k=} not divisible by {group_size=}")
     wg = w.reshape(*lead, k // group_size, group_size)
     mu = torch.mean(wg, dim=-1, keepdim=True)
-    lam = torch.mean(torch.abs(wg), dim=-1, keepdim=True) + EPS
-    return (_sign(wg - mu) * lam).reshape(w.shape), lam.squeeze(-1)
+    lam = torch.mean(_abs(wg), dim=-1, keepdim=True) + EPS
+    return (ste_sign(wg - mu) * lam).reshape(w.shape), lam.squeeze(-1)
 
 
 def binarize_weights_channelwise(w: Tensor) -> tuple[Tensor, Tensor]:
     """Channel-wise (per output column) 1-bit quantization (paper §4.6)."""
     mu = torch.mean(w, dim=0, keepdim=True)
-    lam = torch.mean(torch.abs(w), dim=0, keepdim=True) + EPS
-    return _sign(w - mu) * lam, lam.squeeze(0)
+    lam = torch.mean(_abs(w), dim=0, keepdim=True) + EPS
+    return ste_sign(w - mu) * lam, lam.squeeze(0)
 
 
 def ternarize_weights(w: Tensor) -> tuple[Tensor, Tensor]:
     """BitNet-1.58 ternary AbsMean quantization (baseline)."""
-    lam = torch.mean(torch.abs(w)) + EPS
-    q = torch.clamp(torch.round(w / lam), -1.0, 1.0)
+    lam = torch.mean(_abs(w)) + EPS
+    q = clip(ste_round(w / lam), -1.0, 1.0)
     return q * lam, lam
 
 
 def quantize_weights_int8(w: Tensor, axis: Optional[int] = None) -> tuple[Tensor, Tensor]:
     """INT8 AbsMax weight fake-quant (per tensor, or per ``axis``)."""
     if axis is None:
-        amax = torch.amax(torch.abs(w))
+        amax = torch.amax(_abs(w))
     else:
-        amax = torch.amax(torch.abs(w), dim=axis, keepdim=True)
+        amax = torch.amax(_abs(w), dim=axis, keepdim=True)
     scale = fdiv(INT8_QMAX, amax + EPS)
-    q = torch.clamp(torch.round(w * scale), -INT8_QMAX, INT8_QMAX)
+    q = clip(ste_round(w * scale), -INT8_QMAX, INT8_QMAX)
     return q / scale, scale
 
 
@@ -102,9 +166,9 @@ def quantize_weights_int8_stacked(w, n_batch_axes: int = 1) -> tuple[Tensor, Ten
     if isinstance(w, dict):
         return _dequant_stored(w), w["scale"]
     red = tuple(range(n_batch_axes, w.ndim))
-    amax = torch.amax(torch.abs(w), dim=red, keepdim=True)
+    amax = torch.amax(_abs(w), dim=red, keepdim=True)
     scale = fdiv(INT8_QMAX, amax + EPS)
-    q = torch.clamp(torch.round(w * scale), -INT8_QMAX, INT8_QMAX)
+    q = clip(ste_round(w * scale), -INT8_QMAX, INT8_QMAX)
     return q / scale, scale
 
 
@@ -117,7 +181,7 @@ def act_scale_int8(x: Tensor) -> Tensor:
     """Per-token AbsMax INT8 scale ``127 / (max|x| + eps)`` along the last
     axis, in float32 — the one formula shared by the fake-quant path, the
     runtime integer path and the kernels' prologues."""
-    amax = torch.amax(torch.abs(x.float()), dim=-1, keepdim=True)
+    amax = torch.amax(_abs(x.float()), dim=-1, keepdim=True)
     return fdiv(INT8_QMAX, amax + EPS)
 
 
@@ -125,13 +189,14 @@ def quantize_activations_int8(x: Tensor) -> tuple[Tensor, Tensor]:
     """Per-token AbsMax INT8 activation fake-quant (paper Eq. 7-9):
     ``(RoundClip(x * gamma) / gamma, gamma)`` in the input dtype."""
     gamma = act_scale_int8(x)
-    q = torch.clamp(torch.round(x.float() * gamma), -INT8_QMAX, INT8_QMAX)
+    q = clip(ste_round(x.float() * gamma), -INT8_QMAX, INT8_QMAX)
     return (q / gamma).to(x.dtype), gamma
 
 
 def quantize_act_int8(x: Tensor) -> tuple[Tensor, Tensor]:
     """Per-token AbsMax INT8 on the runtime integer path: the int8 tensor
-    and a flat per-row gamma for the kernel epilogues."""
+    and a flat per-row gamma for the kernel epilogues (no gradient: the
+    kernels' plain versions call it)."""
     gamma = act_scale_int8(x)
     q = torch.clamp(torch.round(x.float() * gamma), -INT8_QMAX, INT8_QMAX)
     return q.to(torch.int8), gamma[..., 0]

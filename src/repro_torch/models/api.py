@@ -2,6 +2,7 @@
 the server calls.  Other families raise ``NotImplementedError``.
 
     init_model(seed, cfg, device)                 -> params
+    loss_fn(params, batch, cfg)                   -> (loss, {"nll", "aux"})
     forward(params, batch, cfg)                   -> (logits, aux)
     forward_chunk(params, toks, caches, pos, cfg, logits_at=None)
                                                   -> (logits (B,T,V) or (B,V), caches)
@@ -26,6 +27,11 @@ def _mod(cfg: ModelConfig):
 
 def init_model(seed, cfg: ModelConfig, device=None):
     return _mod(cfg).init_model(seed, cfg, device)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """The training loss (upstream's, without the probes branch)."""
+    return _mod(cfg).lm_loss(params, batch, cfg)
 
 
 def forward(params, batch, cfg: ModelConfig):

@@ -1,5 +1,5 @@
-"""Port of ``repro.models.layers``: embeddings, rotary tables and the FFN
-block dispatch (the loss comes with the training slice)."""
+"""Port of ``repro.models.layers``: embeddings, rotary tables, the FFN
+block dispatch and the training loss."""
 
 from __future__ import annotations
 
@@ -81,3 +81,28 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=No
 def apply_ffn(params, x: Tensor, cfg: ModelConfig):
     """Returns (y, aux_loss)."""
     return decoupled_ffn(params, x, cfg.quant, glu=cfg.glu, activation=cfg.activation)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor, mask: Tensor | None = None,
+                       z_weight: float = 1e-4):
+    """Token-level CE with z-loss, in f32 whatever the logits' dtype.
+
+    logits (B, S, V), labels (B, S) integer; mask (B, S) in {0, 1}.
+    Returns (loss, nll): the (masked) means of nll + z_weight * lse**2 and
+    of nll, over max(sum(mask), 1) tokens under a mask."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - true_logit
+    z = z_weight * torch.square(lse)
+    per_tok = nll + z
+    if mask is None:
+        return torch.mean(per_tok), torch.mean(nll)
+    mask = mask.float()
+    denom = torch.maximum(torch.sum(mask), torch.ones((), device=mask.device))
+    return torch.sum(per_tok * mask) / denom, torch.sum(nll * mask) / denom

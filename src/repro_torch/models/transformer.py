@@ -3,6 +3,7 @@
 API (as upstream, with a generator or seed where upstream takes a key):
   init_model(seed, cfg, device)                    -> params
   forward(params, batch, cfg)                      -> (logits, aux_loss)
+  lm_loss(params, batch, cfg)                      -> (loss, {"nll", "aux"})
   init_cache(cfg, batch, max_len, dtype, device, layout=, block_size=, num_blocks=)
                                                    -> caches (dense or paged)
   forward_chunk(params, toks, caches, pos, cfg, logits_at=None)
@@ -13,7 +14,9 @@ API (as upstream, with a generator or seed where upstream takes a key):
 Layer stacks keep upstream's layout: a segment of R > 1 repeated blocks
 stores every leaf with a leading (R,) axis, so params convert leaf for
 leaf.  Upstream's ``lax.scan`` over the stack becomes a Python loop over
-per-layer views of the same stacked tensors.  Serving runs one forward:
+per-layer views of the same stacked tensors; with ``cfg.remat`` and grad
+enabled, each layer runs under ``torch.utils.checkpoint`` (upstream's
+``jax.checkpoint`` with ``nothing_saveable``).  Serving runs one forward:
 ``prefill`` is ``forward_chunk`` from an empty cache and ``decode_step``
 is ``forward_chunk`` with T=1; caches are updated in place.
 
@@ -27,12 +30,14 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (
     apply_ffn,
+    cross_entropy_loss,
     embed,
     init_embedding,
     init_ffn,
@@ -144,20 +149,44 @@ def _apply_block(bparams, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor)
     return x + y, aux
 
 
+def _apply_layer(layer, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor, n_blocks: int):
+    aux_layer = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bi in range(n_blocks):
+        x, aux = _apply_block(layer[f"b{bi}"], x, cfg, sin, cos)
+        aux_layer = aux_layer + aux
+    return x, aux_layer
+
+
 def forward(params, batch: dict, cfg: ModelConfig):
-    """batch: {"tokens": (B, S)}.  Returns (logits (B, S, V), aux_loss)."""
+    """batch: {"tokens": (B, S)}.  Returns (logits (B, S, V), aux_loss).
+
+    Under grad with ``cfg.remat``, a layer keeps only its input for the
+    backward pass and runs again there; the values are the same."""
     x = embed(params["embed"], batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for si, seg in enumerate(build_segments(cfg)):
+        n = len(seg.blocks)
         for layer in _seg_layers(seg, params["segments"][si]):
-            for bi in range(len(seg.blocks)):
-                x, aux = _apply_block(layer[f"b{bi}"], x, cfg, sin, cos)
-                aux_total = aux_total + aux
+            if remat:  # the layer draws no random numbers: no RNG state to keep
+                x, aux = checkpoint(_apply_layer, layer, x, cfg, sin, cos, n,
+                                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux = _apply_layer(layer, x, cfg, sin, cos, n)
+            aux_total = aux_total + aux
     x = rmsnorm(params["final_norm"], x)
     head = params.get("lm_head", params["embed"])
     return unembed(head, x, cfg), aux_total
+
+
+def lm_loss(params, batch: dict, cfg: ModelConfig):
+    """Next-token CE.  batch needs "tokens" and "labels" (both (B, S)) and
+    may hold a "mask".  Returns (loss + aux, {"nll", "aux"})."""
+    logits, aux = forward(params, batch, cfg)
+    loss, nll = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return loss + aux.to(loss.dtype), {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
