@@ -104,6 +104,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at most ``FLIP_RATE`` of the codes; the loss within ``TRAIN_ATOL``
    plus one flip's reach on the tokens that met a differing code.
    Training launches none of the seven kernels.
+11. the training loop around the step: ``Trainer`` on the same model and
+   tokens a step, data from the port's ``PrefetchIterator`` over
+   ``SyntheticSource``.  First with probes off, then on (each a fresh
+   Trainer: 2 warm-up steps, 5 timed by the Trainer's own ``step_time_s``,
+   one more profiled): exactly one host sync a step (CUDA's sync debug
+   mode), the median ms a step, the probes' share of it and the busy share.
+   Then the lifecycle run: 8 steps with probes, the democratization
+   snapshot and a checkpoint every 4 (``keep=1``, into a temporary
+   directory that the phase removes), history, trace and heartbeat files;
+   step 6 writes NaN into a master leaf and reports a NaN loss, so the
+   Trainer restores the checkpoint of step 4 (``from_step`` 5); checks one
+   sync in each step without a checkpoint, snapshot or recovery, finite
+   losses and probes, the history, the trace's events and the heartbeat.
+   Then a second Trainer (another init seed) resumes from the last
+   checkpoint: every leaf (params, moments, step) must equal the first
+   Trainer's final state bit for bit; it takes the 2 remaining steps and
+   saves nothing.
+   Prints the seconds and bytes of each save (host snapshot, then the
+   write, waited for at once) and restore, the peak memory, and fails if
+   any of the seven kernels was launched.
 
 Phase 3 also holds ``paged_attention`` against its plain version at phase
 8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
@@ -137,8 +157,8 @@ run it on the parent's tree and on the change's by turns, in one call.
 
     python3 chip_smoke.py --train
 
-runs phases 1 and 10 alone (no kernel build: training launches none)
-and prints one JSON line of phase 10's summary.
+runs phases 1, 10 and 11 alone (no kernel build: training launches none)
+and prints one JSON line of the summaries of phases 10 and 11.
 
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
@@ -149,7 +169,9 @@ alternating pairs of fresh processes, and prints the comparison as JSON.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -1612,18 +1634,30 @@ def _train_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
     return model, model + 2 * layer_params * t + attn
 
 
-def _syncs(torch, fn) -> list:
-    """The host syncs of ``fn()`` that CUDA's sync debug mode reports: torch
-    warns "called a synchronizing CUDA operation" at each (and once that
+@contextlib.contextmanager
+def _sync_log(torch):
+    """While open, CUDA's sync debug mode warns at each host sync; yields the
+    list of caught warnings as it grows.  torch warns "called a
+    synchronizing CUDA operation" at each sync (and once that
     "Synchronization debug mode is a prototype feature")."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            yield caught
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+def _sync_msgs(caught) -> list:
     return [str(w.message) for w in caught if "synchronizing" in str(w.message)]
+
+
+def _syncs(torch, fn) -> list:
+    """The host syncs of ``fn()`` that CUDA's sync debug mode reports."""
+    with _sync_log(torch) as caught:
+        fn()
+    return _sync_msgs(caught)
 
 
 def phase_train(torch, smi: str) -> dict:
@@ -1827,15 +1861,284 @@ def phase_train_cut(torch):
         f"{worst[0]:.2e} of each leaf's largest (worst {worst[1]}; rule {GRAD_RTOL})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the training loop around the step
+# ---------------------------------------------------------------------------
+
+# probes off / on: warm-up steps, then timed steps (the Trainer's own
+# step_time_s: the step and its one metrics transfer), then one profiled
+LOOP_WARMUP, LOOP_TIMED = 2, 5
+# the lifecycle run: LOOP_STEPS steps, a checkpoint and a snapshot every
+# LOOP_EVERY, a non-finite loss at step LOOP_POISON (after the checkpoint
+# of step LOOP_EVERY: the recovery restores optimizer step LOOP_EVERY + 1),
+# then a second Trainer resumes from the last checkpoint for the rest
+LOOP_STEPS, LOOP_EVERY, LOOP_POISON = 8, 4, 6
+
+
+def _host_memory() -> str:
+    info = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    return (f"MemAvailable {int(info['MemAvailable'].split()[0]) / 1e6:.1f} GB of "
+            f"{int(info['MemTotal'].split()[0]) / 1e6:.1f} GB")
+
+
+class _CheckpointIO:
+    """While active, times every ``Checkpointer.save`` (the host snapshot,
+    then the write, waited for at once) and ``restore``, in ``records``."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.records = []
+
+    def __enter__(self):
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+
+        self._cls, self._save, self._restore = Checkpointer, Checkpointer.save, Checkpointer.restore
+        io = self
+
+        def save(ck, step, tree, blocking=False):
+            t0 = time.perf_counter()
+            io._save(ck, step, tree, blocking)
+            t1 = time.perf_counter()
+            ck.wait()
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in _leaves([tree["params"], tree["opt"]._asdict()]))
+            io.records.append({"op": "save", "step": step, "snapshot_s": t1 - t0,
+                               "write_s": time.perf_counter() - t1, "bytes": nbytes})
+
+        def restore(ck, tree, step=None):
+            ck.wait()
+            t0 = time.perf_counter()
+            out = io._restore(ck, tree, step)
+            io.torch.cuda.synchronize()
+            io.records.append({"op": "restore", "step": step if step is not None else
+                               ck.latest_step(), "s": time.perf_counter() - t0})
+            return out
+
+        Checkpointer.save, Checkpointer.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save, self._cls.restore = self._save, self._restore
+
+
+def _state_leaves(state) -> list:
+    return list(_leaves(state.params)) + list(_leaves(state.opt.mu)) + \
+        list(_leaves(state.opt.nu)) + [state.opt.step]
+
+
+def _finite_record(rec: dict) -> bool:
+    return all(math.isfinite(v) for k, v in rec.items()
+               if k in ("loss", "nll", "grad_norm") or k.startswith(("qat_", "demo_")))
+
+
+def phase_trainer(torch, smi: str) -> dict:
+    """[11] the Trainer at full width (pquant-1.3b, bf16 forward, remat on)
+    on TRAIN_BATCH x TRAIN_SEQ tokens a step from the port's data pipeline:
+    step time with probes off and on, a lifecycle run (checkpoints, the
+    snapshot, a forced recovery, history, trace, heartbeat), then a resume;
+    every check raises."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, PrefetchIterator, SyntheticSource
+    from repro_torch.kernels import _cuda
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("pquant-1.3b")
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    iters = []
+
+    def data(n):
+        it = PrefetchIterator(SyntheticSource(cfg.vocab_size, seed=SEED),
+                              DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED))
+        iters.append(it)
+        return itertools.islice(it, n)
+
+    def tcfg(**kw):
+        base = dict(total_steps=TRAIN_TOTAL_STEPS, log_every=10**9, seed=SEED,
+                    heartbeat_path=None)
+        return TrainerConfig(**dict(base, **kw))
+
+    try:
+        du = shutil.disk_usage(tmp)
+        log(f"[11] {tmp}: disk free {du.free / 1e9:.1f} GB of {du.total / 1e9:.1f} GB; host "
+            f"{_host_memory()}; device memory held {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        _cuda.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        summary = {"card": smi}
+
+        # (a) probes off, then on: step time, one sync a step, busy share
+        for on in (False, True):
+            tag = "on" if on else "off"
+            tr = Trainer(cfg, tcfg(probes=on), data(LOOP_WARMUP + LOOP_TIMED), device=dev)
+            syncs = _syncs(torch, tr.run)
+            if len(syncs) != len(tr.history) or len(tr.history) != LOOP_WARMUP + LOOP_TIMED:
+                raise AssertionError(f"probes {tag}: {len(syncs)} host syncs in "
+                                     f"{len(tr.history)} steps: {sorted(set(syncs))}")
+            if not all(_finite_record(r) for r in tr.history):
+                raise AssertionError(f"probes {tag}: a non-finite value: {tr.history}")
+            walls = [r["step_time_s"] for r in tr.history]
+            wall = statistics.median(walls[LOOP_WARMUP:])
+            tr.data = data(LOOP_WARMUP + LOOP_TIMED + 1)
+            tr.start_step = LOOP_WARMUP + LOOP_TIMED  # one more step, profiled
+            busy = _device_time(torch, tr.run, wall, "11", f"Trainer step, probes {tag}",
+                                top=8 if not on else 16)
+            last = tr.history[-2]
+            log(f"[11] probes {tag}: step (Trainer's step_time_s, ended by its one metrics "
+                f"transfer) median {wall * 1e3:.1f} ms over {LOOP_TIMED} steps (min "
+                f"{min(walls[LOOP_WARMUP:]) * 1e3:.1f}, max {max(walls[LOOP_WARMUP:]) * 1e3:.1f}; "
+                f"warm-up {[round(w * 1e3, 1) for w in walls[:LOOP_WARMUP]]}); one host sync a "
+                f"step; losses {[round(r['loss'], 4) for r in tr.history[:-1]]}"
+                + (f"; probes at step {last['step']}: " + json.dumps(
+                    {k: round(v, 6) for k, v in last.items() if k.startswith("qat_")})
+                   if on else ""))
+            summary[f"ms_per_step_probes_{tag}"] = wall * 1e3
+            summary[f"ms_steps_probes_{tag}"] = [w * 1e3 for w in walls[LOOP_WARMUP:]]
+            summary[f"device_busy_probes_{tag}"] = busy / wall
+            del tr
+            gc.collect()
+        on, off = summary["ms_per_step_probes_on"], summary["ms_per_step_probes_off"]
+        summary["probes_share"] = (on - off) / on
+        log(f"[11] probes' share of a step: ({on:.1f} - {off:.1f}) / {on:.1f} = "
+            f"{100 * summary['probes_share']:.2f}% (card: {smi})")
+
+        # (b) the lifecycle run: checkpoints, snapshots, history, trace,
+        # heartbeat, a forced recovery; one sync a step that is neither a
+        # checkpoint's, a snapshot's nor the recovery's
+        paths = {k: os.path.join(tmp, k) for k in ("history.jsonl", "trace.jsonl", "heartbeat")}
+        ck_dir = os.path.join(tmp, "ckpt")
+        with _CheckpointIO(torch) as io:
+            a = Trainer(cfg, tcfg(probes=True, log_every=1, ckpt_every=LOOP_EVERY, ckpt_dir=ck_dir,
+                                  sensitivity_every=LOOP_EVERY,
+                                  history_path=paths["history.jsonl"],
+                                  trace_path=paths["trace.jsonl"],
+                                  heartbeat_path=paths["heartbeat"]),
+                        data(LOOP_STEPS), device=dev)
+            a.ckpt.keep = 1
+            orig, marks = a.step_fn, []
+
+            def poisoned(state, batch):
+                marks.append(len(caught))
+                state, m = orig(state, batch)
+                if len(marks) == LOOP_POISON + 1:  # a step that wrote non-finite values
+                    state.params["final_norm"]["scale"].fill_(float("nan"))
+                    m = dict(m, loss=torch.full((), float("nan"), device=dev))
+                return state, m
+
+            a.step_fn = poisoned
+            t0 = time.perf_counter()
+            with _sync_log(torch) as caught:
+                a.run()
+            t_run = time.perf_counter() - t0
+            marks.append(len(caught))
+            per_step = [len(_sync_msgs(caught[i:j])) for i, j in zip(marks, marks[1:])]
+            plain = [s for s in range(LOOP_STEPS)
+                     if s % LOOP_EVERY and s not in (LOOP_POISON, LOOP_STEPS - 1)]
+            if any(per_step[s] != 1 for s in plain):
+                raise AssertionError(f"host syncs by step {per_step}; steps {plain} must have one")
+            recs = [json.loads(line) for line in Path(paths["history.jsonl"]).read_text().splitlines()]
+            steps = [r["step"] for r in recs if "event" not in r]
+            recovery = [r for r in recs if r.get("event") == "recovery"]
+            want_steps = [s for s in range(LOOP_STEPS) if s != LOOP_POISON]
+            if steps != want_steps or len(recovery) != 1:
+                raise AssertionError(f"history steps {steps}, recoveries {recovery}")
+            if recovery[0]["from_step"] != LOOP_EVERY + 1 or a.recoveries != 1:
+                raise AssertionError(f"recovery {recovery[0]}: from_step must be {LOOP_EVERY + 1}")
+            bad = [r["step"] for r in recs if "event" not in r and not _finite_record(r)]
+            demo = [r["step"] for r in recs if "demo_score_ffn1" in r]
+            if bad or demo != [0, LOOP_EVERY]:
+                raise AssertionError(f"non-finite records at steps {bad}; snapshots at {demo}")
+            if not all(torch.isfinite(t).all() for t in _leaves(a.state.params)):
+                raise AssertionError("the recovery left a non-finite master weight")
+            events = [json.loads(line) for line in Path(paths["trace.jsonl"]).read_text().splitlines()]
+            kinds = [e["event"] for e in events]
+            final = LOOP_EVERY + 1 + (LOOP_STEPS - 1 - LOOP_POISON)
+            for kind, n in (("run_start", 1), ("step", len(want_steps)), ("checkpoint", 2),
+                            ("restore", 1), ("recovery", 1), ("run_end", 1)):
+                if kinds.count(kind) != n:
+                    raise AssertionError(f"trace: {kinds.count(kind)} {kind} events, want {n}")
+            heartbeat = Path(paths["heartbeat"]).read_text()
+            if heartbeat != str(LOOP_STEPS - 1) or a.ckpt.all_steps() != [final]:
+                raise AssertionError(f"heartbeat {heartbeat!r}, checkpoints {a.ckpt.all_steps()}")
+            snap = next(r for r in recs if r.get("step") == LOOP_EVERY and "event" not in r)
+            log(f"[11] lifecycle: {LOOP_STEPS} steps in {t_run:.1f} s (saves waited for); "
+                f"history steps {steps}, recovery at step {recovery[0]['step']} from step "
+                f"{recovery[0]['from_step']}; snapshots at steps {demo}, step {LOOP_EVERY}'s: "
+                + json.dumps({k: round(v, 4) for k, v in snap.items() if k.startswith("demo_")})
+                + f"; trace {len(events)} events ({', '.join(sorted(set(kinds)))}); host syncs "
+                f"by step {per_step}; heartbeat {heartbeat!r}; checkpoints {a.ckpt.all_steps()}")
+            saved = [t.detach().cpu() for t in _state_leaves(a.state)]
+            del a, orig, poisoned
+            gc.collect()
+
+            # (c) resume: a second Trainer (another init seed) from the last
+            # checkpoint; every leaf as saved, bit for bit; then the rest
+            b = Trainer(cfg, tcfg(probes=True, ckpt_every=LOOP_EVERY, ckpt_dir=ck_dir,
+                                  seed=SEED + 1), data(LOOP_STEPS), device=dev)
+            b.ckpt = None  # restored; no more saves (the first Trainer's were timed)
+            leaves = _state_leaves(b.state)
+            differ = [i for i, (x, y) in enumerate(zip(leaves, saved))
+                      if x.dtype != y.dtype or not torch.equal(x.cpu(), y)]
+            if len(leaves) != len(saved) or differ or b.start_step != final:
+                raise AssertionError(f"resume: start_step {b.start_step} (want {final}); "
+                                     f"{len(differ)} leaves differ from the saved state")
+            del saved, leaves
+            hist = b.run()
+            if [r["step"] for r in hist] != list(range(final, LOOP_STEPS)) or \
+                    not all(_finite_record(r) for r in hist):
+                raise AssertionError(f"resumed run: {hist}")
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        if launched:
+            raise AssertionError(f"the training loop launched kernels: {launched}")
+        saves = [r for r in io.records if r["op"] == "save"]
+        restores = [r for r in io.records if r["op"] == "restore"]
+        log(f"[11] resume: start_step {final}, every one of {len(_state_leaves(b.state))} "
+            f"leaves (params, mu, nu, step) equal to the saved state, bit for bit; then steps "
+            f"{[r['step'] for r in hist]}, losses {[round(r['loss'], 4) for r in hist]}")
+        for r in saves:
+            log(f"[11] save of step {r['step']}: {r['bytes'] / 1e9:.2f} GB, host snapshot "
+                f"{r['snapshot_s']:.2f} s ({r['bytes'] / r['snapshot_s'] / 1e9:.2f} GB/s), then "
+                f"write {r['write_s']:.2f} s ({r['bytes'] / r['write_s'] / 1e9:.2f} GB/s)")
+        for r in restores:
+            log(f"[11] restore of step {r['step']}: {r['s']:.2f} s "
+                f"({saves[0]['bytes'] / r['s'] / 1e9:.2f} GB/s)")
+        log(f"[11] peak memory {(peak - base) / 1e9:.2f} GB over the {base / 1e9:.2f} GB held "
+            f"before the phase (max_memory_allocated {peak / 1e9:.2f} GB); no kernel launched "
+            f"(card: {smi})")
+        del b
+        summary.update({
+            "save_snapshot_s": [r["snapshot_s"] for r in saves],
+            "save_write_s": [r["write_s"] for r in saves], "save_bytes": saves[0]["bytes"],
+            "restore_s": [r["s"] for r in restores], "peak_gb": (peak - base) / 1e9,
+            "recovery_from_step": LOOP_EVERY + 1, "host_syncs_by_step": per_step,
+        })
+        return summary
+    finally:
+        for it in iters:
+            it.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def train(torch) -> int:
-    """Phases 1 and 10 alone: prints one JSON line of phase 10's summary."""
+    """Phases 1, 10 and 11 alone: prints one JSON line of the summaries of
+    phases 10 and 11."""
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     smi, _, _ = phase_card(torch)
     summary = phase_train(torch, smi)
     phase_train_cut(torch)
-    print(json.dumps(summary))
+    loop = phase_trainer(torch, smi)
+    print(json.dumps({"step": summary, "trainer": loop}))
     return 0
 
 
@@ -1980,10 +2283,16 @@ def main(torch) -> int:
     lap("[8]")
     phase_continuous_cut(torch, params, cfg, cb_streams)
     lap("[9]")
+    del params, prompts, cb_streams  # the serving phases' device memory, before training
+    gc.collect()
+    torch.cuda.empty_cache()
     t_summary = phase_train(torch, smi)
     phase_train_cut(torch)
     log(f"[10] summary: {json.dumps(t_summary)}")
     lap("[10]")
+    l_summary = phase_trainer(torch, smi)
+    log(f"[11] summary: {json.dumps(l_summary)}")
+    lap("[11]")
     c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
@@ -2040,7 +2349,7 @@ if __name__ == "__main__":
     ap.add_argument("--src", metavar="SRC", help="with --kernel or --serving: the src/ tree "
                     "to import repro_torch from (default: this checkout's)")
     ap.add_argument("--train", action="store_true",
-                    help="phases 1 and 10 only (the training step; no kernel build)")
+                    help="phases 1, 10 and 11 only (training; no kernel build)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch

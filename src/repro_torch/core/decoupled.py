@@ -23,6 +23,7 @@ from repro_torch.core.quantization import (
     maybe_quant_acts,
     quantize_weights_int8_stacked,
 )
+from repro_torch.telemetry import probes
 
 Tensor = torch.Tensor
 
@@ -224,13 +225,15 @@ def decoupled_ffn(params, x: Tensor, qcfg: QuantConfig, glu: bool = True,
     has_1bit = "w1_up" in params
     has_8bit = "w8_up" in params
 
+    y1s = None
     if has_1bit:
         y1 = _branch1_apply(params, xf, glu, act_fn, qcfg)
         if has_8bit:
             beta = params["beta"].to(x.dtype)
         else:
             beta = torch.ones((), dtype=x.dtype, device=x.device)
-        y = y + beta * y1
+        y1s = beta * y1
+        y = y + y1s
 
     if has_8bit:
         w8 = params["w8_up"]
@@ -238,6 +241,16 @@ def decoupled_ffn(params, x: Tensor, qcfg: QuantConfig, glu: bool = True,
         if n != 1:
             raise NotImplementedError("routed 8-bit branches (N > 1) are not yet ported")
         y8 = _branch8_apply(params, xf[None], glu, act_fn, qcfg)[0]
-        y = y + params["alpha"].to(x.dtype) * y8
+        y8s = params["alpha"].to(x.dtype) * y8
+        y = y + y8s
+        if probes.active() and has_1bit:
+            _tap_branch_norms(y1s, y8s)
 
     return y.reshape(*lead, d), aux
+
+
+def _tap_branch_norms(y1_scaled: Tensor, y8_scaled: Tensor) -> None:
+    """QAT probe: both decoupled branches' squared output norms
+    (``qat_branch_share8``, paper §3.2's allocation claim, live)."""
+    probes.add("branch1_sq", torch.sum(torch.square(y1_scaled.detach().float())))
+    probes.add("branch8_sq", torch.sum(torch.square(y8_scaled.detach().float())))

@@ -22,6 +22,8 @@ from typing import Literal, Optional
 
 import torch
 
+from repro_torch.telemetry import probes
+
 Tensor = torch.Tensor
 
 # folded into the scale denominators, as upstream
@@ -190,7 +192,18 @@ def quantize_activations_int8(x: Tensor) -> tuple[Tensor, Tensor]:
     ``(RoundClip(x * gamma) / gamma, gamma)`` in the input dtype."""
     gamma = act_scale_int8(x)
     q = clip(ste_round(x.float() * gamma), -INT8_QMAX, INT8_QMAX)
+    if probes.active():
+        tap_clip_act(q)
     return (q / gamma).to(x.dtype), gamma
+
+
+def tap_clip_act(q: Tensor) -> None:
+    """QAT probe: the share of the codes ``q`` on the INT8 rails, weighted
+    by their count so that ``probes.summaries`` gives the rate over every
+    act-quant site (``qat_clip_act``)."""
+    q = q.detach()
+    probes.add_mean("clip_act", torch.mean((torch.abs(q) >= INT8_QMAX).float()),
+                    float(q.numel()))
 
 
 def quantize_act_int8(x: Tensor) -> tuple[Tensor, Tensor]:

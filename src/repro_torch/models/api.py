@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.telemetry import probes
 
 
 def _mod(cfg: ModelConfig):
@@ -30,8 +31,14 @@ def init_model(seed, cfg: ModelConfig, device=None):
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """The training loss (upstream's, without the probes branch)."""
-    return _mod(cfg).lm_loss(params, batch, cfg)
+    """The training loss.  Inside a ``probes.collect()`` scope the QAT
+    probes recorded during the forward (clip rates, branch norms) join the
+    metrics."""
+    loss, metrics = _mod(cfg).lm_loss(params, batch, cfg)
+    if probes.active():
+        metrics = dict(metrics)
+        metrics.update(probes.summaries())
+    return loss, metrics
 
 
 def forward(params, batch, cfg: ModelConfig):

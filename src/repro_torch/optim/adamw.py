@@ -113,9 +113,14 @@ def _decay_mask(params, cfg: AdamWConfig):
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, lr: Tensor, wd: Tensor,
-                 cfg: AdamWConfig = AdamWConfig()):
+                 cfg: AdamWConfig = AdamWConfig(), watch=None):
     """One AdamW step.  Returns (params, state, metrics) with metrics
     ``grad_norm``, ``lr`` and ``wd`` (device tensors).
+
+    ``watch(path, param, grad)``, when given, is called for each leaf just
+    before its update; what it returns, unless None, is called with the
+    leaf just after it (the QAT probes compare each leaf's old and new
+    values that way, without a copy of the master).
 
     In place: the new parameters are written into ``params``' tensors and
     the new moments into ``state.mu`` / ``state.nu`` (the returned trees
@@ -131,9 +136,10 @@ def adamw_update(grads, state: AdamWState, params, lr: Tensor, wd: Tensor,
     bc1 = 1.0 - torch.pow(b1, step_f)
     bc2 = 1.0 - torch.pow(b2, step_f)
     mask = tree_leaves(_decay_mask(params, cfg))
-    flat = zip(tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu),
-               tree_leaves(params), mask)
-    for g, m, v, p, do_decay in flat:
+    flat = zip(tree_paths(params), tree_leaves(grads), tree_leaves(state.mu),
+               tree_leaves(state.nu), mask)
+    for (path, p), g, m, v, do_decay in flat:
+        after = watch(path, p, g) if watch is not None else None
         g = g.float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
@@ -142,5 +148,7 @@ def adamw_update(grads, state: AdamWState, params, lr: Tensor, wd: Tensor,
         if do_decay:
             delta = delta + wd * pf
         p.copy_(pf - lr * delta)
+        if after is not None:
+            after(p)
     metrics = {"grad_norm": gnorm, "lr": lr, "wd": wd}
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu), metrics
