@@ -125,6 +125,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
    write, waited for at once) and restore, the peak memory, and fails if
    any of the seven kernels was launched.
 
+12. pQuant's routed 8-bit experts (paper §3.3): pquant-1.3b with 8
+   experts (``EXPERTS``; top-1 router, the 1-bit trunk the shared expert)
+   at full width and depth from ``SEED``, exported packed (experts int8,
+   one scale a (layer, expert) slice; router float).  (a) ``DecodeEngine``
+   on [4]'s load: finite logits, one transfer a call, a repeatable
+   stream, ``w1a8_gemv`` launched layers x 7 x forwards (q/k/v/o and the
+   trunk's three linears; the experts run dequantized in float, as
+   upstream) and no other kernel; TTFT, ms/step, tokens/s (medians of
+   5), busy share and kernel time by name, the export's bytes.  (b) [6]'s
+   load (8192 prefill rows, capacity 1280 an expert): ``w1a8_matmul``
+   layers x 7 x forwards, no other kernel; TTFT and the tokens dropped by
+   capacity in the prefill, summed over the layers.  (c)
+   ``ContinuousBatchingEngine`` on [8] (a)'s load, paged on the kernel
+   route and dense (admission prefill at exact length: chunking and
+   bucketing are declined for routed configs): every request finished
+   once by length, the pool drained, ``paged_attention`` launched layers
+   x decode steps on the kernel route and never dense, the streams
+   compared as phase 9 compares its full-depth ones (equal, or the top-2
+   gap where one parts: one act-quant tie spreads); wall, TTFT p50 / p99.  (d)
+   phase 5's checks on a 2-layer cut of the routed export, with the
+   router choices that differ between card and CPU counted.  (e)
+   ``make_train_step`` at [10]'s shape (bf16, remat; 2 warm-up and 5
+   timed steps): finite losses, the first within ln V +- 1.5, ``aux``
+   finite and above 0, step 0 (lr 0) leaves the router, step 1 moves it
+   and every expert of layer 0 that took a token, no host sync in a step,
+   ``qat_router_entropy`` of a probes step in [0, 1]; ms a step,
+   tokens/s, peak memory, busy share, model TFLOP/s over the active
+   parameters (one expert of eight; formula printed).  (f) [10]'s card
+   vs CPU gradient check on a 2-layer f32 cut with 8 experts, the CPU's
+   act-quant and routing decisions replayed on the card.
+
 Phase 3 also holds ``paged_attention`` against its plain version at phase
 8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
 a 64-token chunked slice) within ``PA_ATOL``, beside its bound and the
@@ -159,6 +190,11 @@ run it on the parent's tree and on the change's by turns, in one call.
 
 runs phases 1, 10 and 11 alone (no kernel build: training launches none)
 and prints one JSON line of the summaries of phases 10 and 11.
+
+    python3 chip_smoke.py --experts
+
+runs phases 1, 2 and 12 alone and prints one JSON line of phase 12's
+launch counts and summary.
 
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
@@ -865,6 +901,13 @@ def _device_time(torch, fn, wall, tag: str, what: str, top: int = 8) -> float:
             continue
         us, n = rows.get(e.name, (0.0, 0))
         rows[e.name] = (us + e.device_time_total, n + 1)
+    return _log_device_rows(rows, wall, tag, what, top)
+
+
+def _log_device_rows(rows: dict, wall, tag: str, what: str, top: int) -> float:
+    """Logs the device time of ``rows`` (kernel name -> (us, launches)):
+    the busy share of ``wall``, the GEMMs' part, the ``top`` kernels.
+    Returns the busy seconds."""
     busy = sum(us for us, _ in rows.values()) / 1e6
     gemm = sum(us for k, (us, _) in rows.items()
                if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass", "xmma"))) / 1e6
@@ -873,6 +916,38 @@ def _device_time(torch, fn, wall, tag: str, what: str, top: int = 8) -> float:
     for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"[{tag}]   {us / 1e3:8.3f} ms  {n:6d}x  {name.replace('void at::native::', '')[:110]}")
     return busy
+
+
+def _trace_rows(prof) -> dict:
+    """Device time by kernel name, (us, launches), of a finished profile,
+    read from its exported trace: kernels, copies and sets."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    rows: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            us, n = rows.get(e["name"], (0.0, 0))
+            rows[e["name"]] = (us + e.get("dur", 0), n + 1)
+    if not rows:
+        raise AssertionError("the profiler recorded no device activity")
+    return rows
+
+
+def _device_trace_time(torch, fn, wall, tag: str, what: str, top: int = 8) -> float:
+    """:func:`_device_time` from a device-only profile read through its
+    exported trace (as ``_cb_busy``): phase 12's routed generate and step
+    hold tens of thousands of host ops, which the host-event profile takes
+    a minute to record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _log_device_rows(_trace_rows(prof), wall, tag, what, top)
 
 
 def _leaves(tree):
@@ -887,28 +962,117 @@ def _leaves(tree):
 
 
 class _ActQuantTrace:
-    """Records every prefill-tier act-quant pass (``ops.quantize_act_int8``:
-    its float input, codes and scales, on the host) while active, so two
-    runs of one forward can be compared pass by pass."""
+    """Records every act-quant pass while active (its float input, codes
+    and scales, on the host), so two runs of one forward can be compared
+    pass by pass: the prefill tier's ``ops.quantize_act_int8``; the rows
+    the decode GEMVs quantize in their prologue (``ops``'s
+    ``_bit_linear_decode`` / ``_decoupled_decode`` wrapped, codes from the
+    plain quantizer, which the kernels equal bit for bit); and every
+    fake-quant pass (``quantization.quantize_activations_int8``, which on a
+    packed export only the routed experts' float branch runs), as rows."""
 
     def __init__(self):
         self.passes = []
 
     def __enter__(self):
+        from repro_torch.core import quantization
         from repro_torch.kernels import ops
 
         self._ops, self._orig = ops, ops.quantize_act_int8
+        self._qz, self._qorig = quantization, quantization.quantize_activations_int8
 
         def traced(x):
             q, g = self._orig(x)
             self.passes.append((x.float().cpu(), q.cpu(), g.cpu()))
             return q, g
 
+        def traced_fake(x):
+            out, g = self._qorig(x)
+            xf, gf = x.float().reshape(-1, x.shape[-1]), g.reshape(-1)
+            codes = (xf * gf[:, None]).round().clamp(-127, 127).char()
+            self.passes.append((xf.cpu(), codes.cpu(), gf.cpu()))
+            return out, g
+
+        def wrap_decode(fn):
+            def traced_decode(xf, *args):
+                x = xf.float()
+                q, g = quantization.quantize_act_int8(x)
+                self.passes.append((x.cpu(), q.cpu(), g.cpu()))
+                return fn(xf, *args)
+            return traced_decode
+
+        self._decode = {n: getattr(ops, n) for n in ("_bit_linear_decode", "_decoupled_decode")}
+        for n, fn in self._decode.items():
+            setattr(ops, n, wrap_decode(fn))
         ops.quantize_act_int8 = traced
+        quantization.quantize_activations_int8 = traced_fake
         return self
 
     def __exit__(self, *exc):
         self._ops.quantize_act_int8 = self._orig
+        self._qz.quantize_activations_int8 = self._qorig
+        for n, fn in self._decode.items():
+            setattr(self._ops, n, fn)
+
+
+class _ExpertChoices:
+    """While active, every router of the port's forward (``routing._top_k``)
+    appends its choice, a device tensor (no host sync), to ``choices``;
+    with ``replay`` (another run's choices, in order), each router takes
+    its choice from it instead, the gate prob read at that expert.  A model
+    without routers records nothing."""
+
+    def __init__(self, replay=None):
+        self.choices, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.core import routing
+
+        self._mod, self._orig = routing, routing._top_k
+        it = iter(self.replay or ())
+
+        def top_k(probs, k):
+            vals, idx = self._orig(probs, k)
+            self.choices.append(idx.detach())
+            if self.replay is None:
+                return vals, idx
+            idx = next(it).to(probs.device)
+            return probs.gather(-1, idx), idx
+
+        routing._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._top_k = self._orig
+
+    def host(self) -> list:
+        return [c.cpu() for c in self.choices]
+
+
+class _Drops:
+    """While active, sums the (token, slot) pairs that every router's
+    dispatch drops past its expert's capacity, on the device."""
+
+    def __init__(self, torch):
+        self.total = torch.zeros((), dtype=torch.long, device="cuda")
+        self.routers = 0
+
+    def __enter__(self):
+        from repro_torch.core import routing
+
+        self._mod, self._orig = routing, routing.topk_dispatch
+
+        def dispatch(probs, cfg):
+            d = self._orig(probs, cfg)
+            self.total += (d["buffer_slot"] == d["capacity"]).sum()
+            self.routers += 1
+            return d
+
+        routing.topk_dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.topk_dispatch = self._orig
 
 
 class _PlainKernels:
@@ -971,7 +1135,7 @@ def _compare_act_quant(torch, card, cpu, names=("card", "cpu")) -> dict:
     return {"flips": flips, "first_code": first_q, "noise": noise, "line": line}
 
 
-def phase_cut(torch, params, cfg, prompts):
+def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool = False):
     """The first CUT_LAYERS layers at the decode-tier prompts (PR 11's
     check) and at CUT_PREFILL_BATCH x PROMPT tokens (the prefill tier in
     every forward), each run three ways: on the card, on the card with
@@ -990,7 +1154,15 @@ def phase_cut(torch, params, cfg, prompts):
       devices within BOUNDARY_TOL of each other, the float inputs up to
       it within FLOAT_NOISE), and the two devices may part from there: one
       code step moves the next layers' inputs by far more than an ulp and
-      the difference spreads."""
+      the difference spreads.
+
+    With routed experts (N > 1) each run also records every router's
+    choice in the prefill, and the choices that differ between the card
+    and the CPU are counted and printed.  ``decode_may_part`` holds the
+    decode-tier prompts to the prefill tier's rule as well (a first
+    differing code that is a rounding tie may part the runs; the trace
+    covers the decode GEMVs' act-quant too): phase 12 sets it.  ``tag``
+    labels the lines."""
     import contextlib
 
     from repro_torch.kernels import _cuda
@@ -1006,8 +1178,8 @@ def phase_cut(torch, params, cfg, prompts):
     wide = torch.randint(0, cfg.vocab_size, (CUT_PREFILL_BATCH, PROMPT),
                          generator=torch.Generator().manual_seed(SEED + 1))
     cuda = torch.device("cuda")
-    # PR 11's check at the decode-tier prompts stays as it was: no parting
-    for batch_prompts, may_part in ((prompts, False), (wide, True)):
+    # the decode-tier prompts may part only with decode_may_part (phase 12)
+    for batch_prompts, may_part in ((prompts, decode_may_part), (wide, True)):
         rows = batch_prompts.numel()
         out = {}
         for name, tree, dev, plain in (("card", gpu, cuda, False),
@@ -1017,27 +1189,32 @@ def phase_cut(torch, params, cfg, prompts):
             _cuda.reset_launches()
             kernels = _PlainKernels() if plain else contextlib.nullcontext()
             with _ActQuantTrace() as trace, kernels:
-                logits, _ = api.prefill(tree, {"tokens": batch_prompts.to(dev)}, cut, max_len)
+                with _ExpertChoices() as routed:
+                    logits, _ = api.prefill(tree, {"tokens": batch_prompts.to(dev)}, cut, max_len)
                 stream = DecodeEngine(tree, cut, max_len=max_len, device=dev).generate(
                     batch_prompts, greedy)
             launched = sum(_cuda.LAUNCHES.values())
             if launched == 0 if name == "card" else launched:
                 raise AssertionError(f"{name}: {launched} kernel launches")
-            out[name] = (logits.cpu(), stream, trace.passes)
-            log(f"[5] {CUT_LAYERS}-layer cut, {rows} prefill rows, on the {name}: "
+            out[name] = (logits.cpu(), stream, trace.passes, routed.host())
+            log(f"[{tag}] {CUT_LAYERS}-layer cut, {rows} prefill rows, on the {name}: "
                 f"{time.perf_counter() - t0:.1f} s, {launched} kernel launches")
-        (lg, sg, tg), (lc, sc, tc) = out["card"], out["cpu"]
-        lp, sp, _ = out["card, plain versions"]
+        (lg, sg, tg, eg), (lc, sc, tc, ec) = out["card"], out["cpu"]
+        lp, sp, _, _ = out["card, plain versions"]
+        if eg:
+            differ = sum(int((a != b).sum()) for a, b in zip(eg, ec, strict=True))
+            log(f"[{tag}] {rows} prefill rows: router choices that differ between the card and "
+                f"the CPU: {differ} of {sum(a.numel() for a in eg)} ({len(eg)} routers)")
         same = torch.equal(lg, lp) and bool((sg == sp).all())
-        log(f"[5] {rows} prefill rows: kernels vs plain versions on the card: logits max|diff| "
+        log(f"[{tag}] {rows} prefill rows: kernels vs plain versions on the card: logits max|diff| "
             f"{(lg - lp).abs().max().item():.3g}, streams equal: {bool((sg == sp).all())}")
         if not same:
             raise AssertionError("the kernels and their plain versions part on the card")
         cmp = _compare_act_quant(torch, tg, tc)
         diff = (lg - lc).abs().max().item()
         scale = lc.abs().max().item()
-        log(f"[5] {rows} prefill rows, card vs cpu: {cmp['line']}")
-        log(f"[5] {rows} prefill rows: logits max|card - cpu| {diff:.3g} (|logits| <= "
+        log(f"[{tag}] {rows} prefill rows, card vs cpu: {cmp['line']}")
+        log(f"[{tag}] {rows} prefill rows: logits max|card - cpu| {diff:.3g} (|logits| <= "
             f"{scale:.3g}, tolerance {LOGIT_TOL} x that); streams equal: {bool((sg == sc).all())}")
         if cmp["flips"] == 0 or not may_part:
             if diff > LOGIT_TOL * scale:
@@ -1048,7 +1225,7 @@ def phase_cut(torch, params, cfg, prompts):
         s_card, s_cpu = cmp["first_code"][3:]
         if abs(s_card - s_cpu) > BOUNDARY_TOL or cmp["noise"] > FLOAT_NOISE:
             raise AssertionError("card and CPU act-quant codes part beyond float noise")
-        log(f"[5] {rows} prefill rows: the first differing code is a rounding tie (scaled "
+        log(f"[{tag}] {rows} prefill rows: the first differing code is a rounding tie (scaled "
             f"values {abs(s_card - s_cpu):.3g} apart, tolerance {BOUNDARY_TOL}); card and CPU "
             f"part from there")
 
@@ -1260,8 +1437,6 @@ def _cb_busy(torch, params, cfg, layout, prefill_chunk, pool_div, env, step_wall
     kernels).  Returns (busy share, the six kernels with the most device
     time: [(name, (us, launches))], the device ms of each decode GEMV's
     kernels, every instantiation summed)."""
-    import tempfile
-
     from torch.profiler import ProfilerActivity, profile
 
     lo, hi = CB_PROFILE_STEPS
@@ -1274,18 +1449,8 @@ def _cb_busy(torch, params, cfg, layout, prefill_chunk, pool_div, env, step_wall
             for _ in range(hi - lo):
                 eng.step()
                 torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    by_name: dict = {}
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            us, n = by_name.get(e["name"], (0.0, 0))
-            by_name[e["name"]] = (us + e.get("dur", 0), n + 1)
+    by_name = _trace_rows(prof)
     busy_us = sum(us for us, _ in by_name.values())
-    if busy_us == 0:
-        raise AssertionError("the profiler recorded no device activity")
     del eng
     torch.cuda.empty_cache()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
@@ -1350,7 +1515,7 @@ def _near_tie(torch, params, cfg, prompt, ref, k) -> float:
     return (top[0] - top[1]).item()
 
 
-def _compare_streams(torch, params, cfg, load, x, y, label) -> int:
+def _compare_streams(torch, params, cfg, load, x, y, label, tag: str = "9") -> int:
     """Streams x (the reference) vs y, uid -> tokens: prints how many are
     equal and, for each that parts, the top-2 gap of the teacher-forced
     reference at the first parted token against NEAR_TIE.  Returns how
@@ -1364,9 +1529,9 @@ def _compare_streams(torch, params, cfg, load, x, y, label) -> int:
             continue
         gap = _near_tie(torch, params, cfg, prompts[uid], x[uid], k)
         ties += gap < NEAR_TIE
-        log(f"[9] {label}: request {uid} parts at token {k} ({x[uid][k]} vs {y[uid][k]}), "
+        log(f"[{tag}] {label}: request {uid} parts at token {k} ({x[uid][k]} vs {y[uid][k]}), "
             f"top-2 gap {gap:.3g}{' (a near-tie)' if gap < NEAR_TIE else ''}")
-    log(f"[9] {label}: {equal} of {len(y)} streams equal; of the {len(y) - equal} that part, "
+    log(f"[{tag}] {label}: {equal} of {len(y)} streams equal; of the {len(y) - equal} that part, "
         f"{ties} part at a near-tie (gap < {NEAR_TIE})")
     return equal
 
@@ -1610,6 +1775,12 @@ TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 64
 # times the share of tokens that met a differing code
 TRAIN_ATOL, TRAIN_ATOL_FLIP = 1e-5, 5e-2
 GRAD_RTOL = 1e-5
+# with routed experts, the AbsMax element of each 8-bit slice: its
+# gradient sums the whole (K, M) slice in f32, each device in its own
+# order, while the slice's largest other element takes only the tokens
+# its expert saw (about 1/N of them); held as tests/test_torch_train.py
+# holds an AbsMax element's gradient (AMAX_TOL of the largest)
+AMAX_TOL = 1e-4
 FLIP_RATE = 1e-4
 TIE_NOISE = 1e-3
 
@@ -1789,10 +1960,12 @@ def _act_quant_decisions(torch, record: list, replay=None):
 
 
 def _flips(rec_a, rec_b) -> dict:
-    """Two runs' records compared site by site (one row a token): primary
-    flips, differing codes, all codes, and the tokens that met a differing
-    code."""
-    primary = differ = codes = 0
+    """Two runs' records compared site by site: primary flips, differing
+    codes, all codes, and the tokens that met a differing code.  A site
+    has one row a token, or (routed experts) is an (N, C, D) expert buffer
+    with more rows than tokens, each row one token or a sentinel of
+    zeros."""
+    primary = differ = codes = buffer_rows = 0
     touched = None
     for (va, ta), (vb, tb) in zip(rec_a, rec_b, strict=True):
         near = (va - vb).abs() <= TIE_NOISE
@@ -1801,64 +1974,94 @@ def _flips(rec_a, rec_b) -> dict:
         differ += int(code.sum())
         primary += int((code & near).sum()) + int(((ta != tb).any(-1) & near.all(-1)).sum())
         rows = code.reshape(-1, code.shape[-1]).any(-1)
+        if touched is not None and rows.numel() != touched.numel():
+            buffer_rows += int(rows.sum())
+            continue
         touched = rows if touched is None else touched | rows
     return {"primary": primary, "differ": differ, "codes": codes,
-            "tokens": int(touched.sum()), "of": touched.numel()}
+            "tokens": min(touched.numel(), int(touched.sum()) + buffer_rows),
+            "of": touched.numel()}
 
 
-def _loss_grads(torch, params, batch, cfg, record, replay=None):
+def _loss_grads(torch, params, batch, cfg, record, replay=None, choice_replay=None):
+    """(loss, gradients, the routers' choices on the host); ``replay`` and
+    ``choice_replay`` impose another run's act-quant and routing
+    decisions."""
     from repro_torch.models import api
     from repro_torch.optim.adamw import tree_leaves, tree_map
 
-    with _act_quant_decisions(torch, record, replay):
+    with _act_quant_decisions(torch, record, replay), _ExpertChoices(choice_replay) as routed:
         leaves = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
         loss, metrics = api.loss_fn(leaves, batch, cfg)
         grads = torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True)
-    return loss.item(), grads
+    return loss.item(), grads, routed.host()
 
 
-def phase_train_cut(torch):
+def phase_train_cut(torch, n_experts: int = 1, tag: str = "10"):
     """[10] card vs CPU: one loss_fn with gradients of a 2-layer cut of
-    pquant-1.3b in f32 (remat off) at TRAIN_CUT_BATCH x TRAIN_CUT_SEQ
-    tokens, by the CPU tests' rule."""
+    pquant-1.3b (with ``n_experts`` experts) in f32 (remat off) at
+    TRAIN_CUT_BATCH x TRAIN_CUT_SEQ tokens, by the CPU tests' rule.  With
+    routed experts the CPU's router choices are replayed on the card with
+    its act-quant decisions; the choices that differ as computed are
+    counted, their tokens join the loss's flip allowance, and the
+    gradients as computed are held only where none differs; the AbsMax
+    element of each expert's 8-bit slice is held to AMAX_TOL (its comment
+    says why), every other element to GRAD_RTOL."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import api
     from repro_torch.optim.adamw import tree_map, tree_paths
 
-    cfg = dataclasses.replace(get_config("pquant-1.3b"), n_layers=TRAIN_CUT_LAYERS,
-                              dtype="float32", remat=False)
+    cfg = dataclasses.replace(get_config("pquant-1.3b", n_experts=n_experts),
+                              n_layers=TRAIN_CUT_LAYERS, dtype="float32", remat=False)
     cpu, dev = torch.device("cpu"), torch.device("cuda")
     params = api.init_model(SEED, cfg, device=cpu)
     batch = _train_batch(torch, cfg.vocab_size, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, SEED, cpu)
     t0 = time.perf_counter()
     rec_cpu, rec_card, rec_replay = [], [], []
-    loss_cpu, g_cpu = _loss_grads(torch, params, batch, cfg, rec_cpu)
+    loss_cpu, g_cpu, ch_cpu = _loss_grads(torch, params, batch, cfg, rec_cpu)
     t_cpu = time.perf_counter() - t0
     card = tree_map(lambda t: t.to(dev), params)
     card_batch = {k: v.to(dev) for k, v in batch.items()}
-    loss_card, g_card = _loss_grads(torch, card, card_batch, cfg, rec_card)
-    loss_rep, g_rep = _loss_grads(torch, card, card_batch, cfg, rec_replay, replay=rec_cpu)
+    loss_card, g_card, ch_card = _loss_grads(torch, card, card_batch, cfg, rec_card)
+    loss_rep, g_rep, _ = _loss_grads(torch, card, card_batch, cfg, rec_replay, replay=rec_cpu,
+                                     choice_replay=ch_cpu)
     f = _flips(rec_cpu, rec_card)
-    tol = TRAIN_ATOL + 2 * TRAIN_ATOL_FLIP * f["tokens"] / f["of"]
+    moved = sum(int((a != b).sum()) for a, b in zip(ch_card, ch_cpu, strict=True))
+    tol = TRAIN_ATOL + 2 * TRAIN_ATOL_FLIP * min(f["of"], f["tokens"] + moved) / f["of"]
     if (f["primary"] > FLIP_RATE * f["codes"] or abs(loss_card - loss_cpu) > tol
             or abs(loss_rep - loss_cpu) > TRAIN_ATOL):
         raise AssertionError(f"card vs CPU: loss {loss_card} / {loss_cpu} (replayed {loss_rep}), "
-                             f"flips {f}")
-    worst = (0.0, "")
-    for runs, grads in (("replayed", g_rep),) + ((("as computed", g_card),) if f["primary"] == 0
-                                                 else ()):
-        for (path, _), a, b in zip(tree_paths(params), grads, g_cpu, strict=True):
+                             f"flips {f}, router choices moved {moved}")
+    worst, worst_amax = (0.0, ""), 0.0
+    exact = f["primary"] == 0 and moved == 0
+    for runs, grads in (("replayed", g_rep),) + ((("as computed", g_card),) if exact else ()):
+        for (path, w), a, b in zip(tree_paths(params), grads, g_cpu, strict=True):
             scale = b.abs().max().item()
-            err = (a.cpu() - b).abs().max().item()
+            diff = (a.cpu() - b).abs()
+            if n_experts > 1 and str(path[-1]).startswith("w8"):
+                red = (w.ndim - 2, w.ndim - 1)
+                amax = w.abs() == w.abs().amax(dim=red, keepdim=True)
+                worst_amax = max(worst_amax, diff[amax].max().item() / max(scale, 1e-30))
+                if diff[amax].max().item() > AMAX_TOL * scale + 1e-12:
+                    raise AssertionError(f"card vs CPU ({runs}): an AbsMax element of "
+                                         f"{'/'.join(map(str, path))} off by "
+                                         f"{diff[amax].max().item()} (largest {scale})")
+                diff = diff[~amax]
+            err = diff.max().item()
             if err > GRAD_RTOL * scale + 1e-12:
                 raise AssertionError(f"card vs CPU ({runs}): {'/'.join(map(str, path))} off by "
                                      f"{err} (largest {scale})")
             worst = max(worst, (err / max(scale, 1e-30), "/".join(map(str, path))))
-    log(f"[10] card vs CPU, {cfg.n_layers} layers in f32, {TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ} "
+    routed = (f"; router choices differing card vs CPU: {moved} of "
+              f"{sum(c.numel() for c in ch_cpu)}; the experts' AbsMax elements within "
+              f"{worst_amax:.2e} (rule {AMAX_TOL})" if ch_cpu else "")
+    log(f"[{tag}] card vs CPU, {cfg.n_layers} layers in f32, {TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ} "
         f"tokens: loss {loss_card:.7f} / {loss_cpu:.7f} (replayed {loss_rep:.7f}; CPU "
         f"{t_cpu:.1f} s); {f['primary']} primary act-quant flips, {f['differ']} codes differ of "
-        f"{f['codes']}, {f['tokens']} of {f['of']} tokens met one; gradients within "
+        f"{f['codes']}, {f['tokens']} of {f['of']} tokens met one{routed}; gradients within "
         f"{worst[0]:.2e} of each leaf's largest (worst {worst[1]}; rule {GRAD_RTOL})")
+    return {"primary_flips": f["primary"], "router_choices_differing": moved,
+            "grad_worst_rel": worst[0], "grad_worst_rel_absmax": worst_amax}
 
 
 # ---------------------------------------------------------------------------
@@ -2128,6 +2331,261 @@ def phase_trainer(torch, smi: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: pQuant's routed 8-bit experts (N > 1, paper §3.3)
+# ---------------------------------------------------------------------------
+
+EXPERTS = 8  # pquant-1.3b with N = 8, benchmarks/bench_memory.py's routed model
+# (c): [8] (a)'s load, paged on the kernel route and dense: (name, layout,
+# REPRO_PAGED_ATTN)
+E_CB_CONFIGS = (("kernel", "paged", "auto"), ("dense", "dense", "auto"))
+
+
+def _experts_model(torch):
+    """pquant-1.3b with EXPERTS routed experts, from ``SEED``, exported
+    packed: (cfg, params, export bytes)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.train.quantized_serving import quantize_params_for_serving
+
+    cfg = get_config("pquant-1.3b", n_experts=EXPERTS)
+    t0 = time.perf_counter()
+    latent = api.init_model(SEED, cfg, device=torch.device("cuda"))
+    params = quantize_params_for_serving(latent, cfg, packed=True)
+    del latent
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[12] {cfg.name} with {EXPERTS} experts: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, r {cfg.quant.r}; init + packed export "
+        f"{time.perf_counter() - t0:.1f} s; serving params {nbytes / 1e6:.1f} MB")
+    return cfg, params, nbytes
+
+
+def phase_experts_serving(torch, cfg, params) -> tuple[dict, dict]:
+    """[12] (a)-(c): the routed export served at the decode tier, at the
+    prefill tier and by the continuous batcher.  Returns ({kernel:
+    launches summed over the three counted runs}, summary)."""
+    from repro_torch.core import routing
+    from repro_torch.models import api
+    from repro_torch.serve.engine import DecodeEngine, SamplerConfig
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    none = {"w1a8_gemv": 0, "decoupled_gemv": 0, "int8_matmul": 0, "w1a8_matmul": 0,
+            "decoupled_matmul": 0}
+    summary, total = {}, {}
+    # (a) the decode tier: [4]'s load
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(SEED))
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=NEW_TOKENS)
+    logits, caches = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, PROMPT + NEW_TOKENS)
+    step_logits, _ = api.decode_step(params, logits.argmax(-1)[:, None], caches, PROMPT, cfg)
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
+        raise AssertionError("non-finite logits")
+    del logits, caches, step_logits
+    eng = DecodeEngine(params, cfg, max_len=PROMPT + NEW_TOKENS, device=dev)
+    # the counted run warms the engine for the timed ones
+    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg,
+                                            dict(none, w1a8_gemv=7), "12")
+    ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream)
+    log(f"[12] (a) decode tier, {BATCH} x {PROMPT} tokens, {NEW_TOKENS} new: {line}")
+    busy = _device_trace_time(torch, lambda: eng.generate(prompts, greedy), t_gen, "12",
+                              "generate")
+    summary["decode"] = {"ttft_ms": ttft * 1e3,
+                         "ms_per_step": (t_gen - ttft) / (NEW_TOKENS - 1) * 1e3,
+                         "tokens_per_s": BATCH * (NEW_TOKENS - 1) / (t_gen - ttft),
+                         "device_busy_share": busy / t_gen}
+    total.update(launches)
+    del eng
+    log(f"[time] [12] (a) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (b) the prefill tier: [6]'s load (8192 prefill rows, capacity 1280)
+    max_len = P_PROMPT + P_NEW_TOKENS
+    prompts = torch.randint(0, cfg.vocab_size, (P_BATCH, P_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 2))
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=P_NEW_TOKENS)
+    with _Drops(torch) as drops:
+        logits, _ = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, max_len)
+    dropped = int(drops.total.item())
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    del logits
+    eng = DecodeEngine(params, cfg, max_len=max_len, device=dev)
+    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg,
+                                            dict(none, w1a8_matmul=7), "12")
+    ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream, P_TIMED_RUNS)
+    log(f"[12] (b) prefill tier, {P_BATCH} x {P_PROMPT} tokens, {P_NEW_TOKENS} new: {line}")
+    cap = routing.expert_capacity(P_BATCH * P_PROMPT, routing.RouterConfig(num_experts=EXPERTS))
+    log(f"[12] (b) tokens dropped by capacity in the prefill: {dropped} over {drops.routers} "
+        f"routers ({P_BATCH * P_PROMPT} tokens each, capacity {cap} an expert)")
+    summary["prefill"] = {"ttft_ms": ttft * 1e3,
+                          "ms_per_step": (t_gen - ttft) / (P_NEW_TOKENS - 1) * 1e3,
+                          "tokens_per_s": P_BATCH * (P_NEW_TOKENS - 1) / (t_gen - ttft),
+                          "dropped_tokens": dropped}
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[time] [12] (b) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (c) continuous batching on [8] (a)'s load
+    streams = {}
+    for name, layout, env in E_CB_CONFIGS:
+        rec, st, reasons, _ = _cb_run(torch, params, cfg, name, layout, None, 1, env)
+        rec.pop("step_walls")
+        streams[name] = st
+        if sorted(st) != list(range(CB_REQUESTS)) or set(reasons) != {"length"}:
+            raise AssertionError(f"({name}): requests did not each finish once by length")
+        if rec["free_blocks"] is not None and rec["free_blocks"] != rec["num_blocks"]:
+            raise AssertionError(f"({name}): blocks left allocated after the run")
+        pa = rec["launches"].get("paged_attention", 0)
+        want = cfg.n_layers * rec["decode_steps"] if env == "auto" and layout == "paged" else 0
+        if pa != want:
+            raise AssertionError(f"({name}): paged_attention launched {pa} times, want {want}")
+        log(f"[12] (c) {name}: wall {rec['wall_s']:.2f} s, {rec['tokens_per_s']:.1f} tokens/s, "
+            f"TTFT p50 {rec['ttft_ms_p50']:.1f} / p99 {rec['ttft_ms_p99']:.1f} ms, "
+            f"{rec['engine_steps']} engine steps, launches {rec['launches']}")
+        summary[f"continuous_{name}"] = {k: rec[k] for k in (
+            "wall_s", "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "engine_steps", "launches")}
+        if name == "kernel":
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+    load = _cb_load(cfg.vocab_size)
+    equal = _compare_streams(torch, params, cfg, load, streams["dense"], streams["kernel"],
+                             "(c) kernel route vs dense", tag="12")
+    summary["continuous_kernel_vs_dense_equal"] = equal
+    log(f"[time] [12] (c) done at {time.perf_counter() - t_start:.1f} s")
+    return total, summary
+
+
+def phase_experts_train(torch, smi: str) -> dict:
+    """[12] (e): ``make_train_step`` on the routed model at [10]'s shape."""
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+
+    cfg = get_config("pquant-1.3b", n_experts=EXPERTS)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = trainer.init_train_state(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    pc = param_count(cfg)
+    n_active = n - pc["n_8bit"] * (EXPERTS - 1) // EXPERTS
+    log(f"[12] (e) {cfg.name} with {EXPERTS} experts: {n} parameters, {n_active} active a token "
+        f"(N_active = N - {EXPERTS - 1}/{EXPERTS} x n_8bit, n_8bit {pc['n_8bit']} from "
+        f"param_count); master + AdamW moments {(torch.cuda.memory_allocated() - base) / 1e9:.2f} "
+        f"GB, init {time.perf_counter() - t0:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"{cfg.dtype} forward, remat {cfg.remat}")
+    step = trainer.make_train_step(cfg, TRAIN_TOTAL_STEPS)
+    batches = [_train_batch(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, SEED + i, dev)
+               for i in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
+    ffn = state.params["segments"][0]["b0"]["ffn"]
+    before = {"router": ffn["router"]["w"][0].clone(), "w8_up": ffn["w8_up"][0].clone(),
+              "w8_down": ffn["w8_down"][0].clone()}
+    mets, walls = [], []
+    for i, batch in enumerate(batches[:-1]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _ExpertChoices() if i == 1 else contextlib.nullcontext() as routed:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        mets.append(m)
+        if i == 0 and not torch.equal(before["router"], ffn["router"]["w"][0]):
+            raise AssertionError("a step at lr 0 moved the router")
+        if i == 1:  # lr > 0: the router and every expert of layer 0 that took a token
+            used = sorted(set(routed.choices[0].flatten().tolist()))
+            still = [e for e in used for k in ("w8_up", "w8_down")
+                     if torch.equal(before[k][e], ffn[k][0][e])]
+            if torch.equal(before["router"], ffn["router"]["w"][0]) or still:
+                raise AssertionError(f"step 1 left the router or experts {still} unmoved")
+            log(f"[12] (e) step 1 moved layer 0's router and its experts {used} (those that "
+                "took tokens in the step's forward)")
+    del before
+    timed = walls[TRAIN_WARMUP:]
+    wall = statistics.median(timed)
+    # as [10]: the mode must catch the sync of an .item() (its first use
+    # also warns once that it is a prototype), then a step must not sync
+    if not _syncs(torch, lambda: torch.ones((), device=dev).item()):
+        raise AssertionError("CUDA's sync debug mode caught no sync in .item()")
+    syncs = _syncs(torch, lambda: step(state, batches[-2]))
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in a step, the first: {syncs[0]}")
+    busy = _device_trace_time(torch, lambda: step(state, batches[-1]), wall, "12", "step",
+                              top=14)
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: torch.stack([m[k] for m in mets]).tolist() for k in mets[0]}
+    for k in ("loss", "nll", "grad_norm"):
+        if not all(math.isfinite(v) for v in vals[k]):
+            raise AssertionError(f"non-finite {k}: {vals[k]}")
+    if abs(vals["loss"][0] - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"first loss {vals['loss'][0]} not within ln(V) +- 1.5")
+    with torch.no_grad():
+        _, lm = api.loss_fn(trainer.cast_for_forward(state.params, torch.bfloat16), batches[0],
+                            cfg)
+    aux = lm["aux"].item()
+    if not (math.isfinite(aux) and aux > 0):
+        raise AssertionError(f"aux {aux}")
+    probe_step = trainer.make_train_step(cfg, TRAIN_TOTAL_STEPS, probes=True)
+    _, pm = probe_step(state, batches[0])
+    entropy = pm["qat_router_entropy"].item()
+    if not (math.isfinite(entropy) and 0.0 <= entropy <= 1.0):
+        raise AssertionError(f"qat_router_entropy {entropy}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops, _ = _train_flops(cfg, n_active, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"[12] (e) losses {[round(v, 4) for v in vals['loss']]}; grad_norm "
+        f"{[round(v, 4) for v in vals['grad_norm']]}; aux (after the steps) {aux:.6f}; "
+        f"qat_router_entropy {entropy:.6f}")
+    log(f"[12] (e) step wall (synchronized, host clock) over {TRAIN_TIMED} steps: median "
+        f"{wall * 1e3:.1f} ms (min {min(timed) * 1e3:.1f}, max {max(timed) * 1e3:.1f}); "
+        f"{tokens / wall:.0f} tokens/s; peak memory {(peak - base) / 1e9:.2f} GB over the "
+        f"{base / 1e9:.2f} GB held before (max_memory_allocated {peak / 1e9:.2f} GB)")
+    log(f"[12] (e) model FLOPs a step = 6 x N_active x tokens + 12 x layers x batch x seq^2 x "
+        f"d_model = 6 x {n_active} x {tokens} + 12 x {cfg.n_layers} x {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}^2 x {cfg.d_model} = {model_flops / 1e12:.2f} TFLOP: "
+        f"{model_flops / wall / 1e12:.1f} TFLOP/s, {100 * model_flops / wall / 989e12:.1f}% of "
+        f"the bf16 dense peak 989 TFLOP/s (card: {smi})")
+    del state, step, probe_step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms_per_step": wall * 1e3, "ms_steps": [w * 1e3 for w in timed],
+            "tokens_per_s": tokens / wall, "peak_gb": (peak - base) / 1e9,
+            "active_params": n_active, "model_tflop": model_flops / 1e12,
+            "tflop_per_s": model_flops / wall / 1e12, "device_busy": busy / wall,
+            "losses": vals["loss"], "aux": aux, "router_entropy": entropy}
+
+
+def phase_experts(torch, smi: str) -> tuple[dict, dict]:
+    """Phase 12: pquant-1.3b with EXPERTS routed 8-bit experts at full width
+    and depth, served ((a)-(c)), cut to 2 layers on the card and the CPU
+    ((d)), trained ((e)) and its gradients held card vs CPU ((f)).
+    Returns ({kernel: launches of the counted runs}, summary)."""
+    t0 = time.perf_counter()
+    cfg, params, nbytes = _experts_model(torch)
+    launches, summary = phase_experts_serving(torch, cfg, params)
+    summary["export_bytes"] = nbytes
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(SEED))
+    phase_cut(torch, params, cfg, prompts, tag="12", decode_may_part=True)  # (d)
+    log(f"[time] [12] (d) done at {time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["train"] = phase_experts_train(torch, smi)
+    log(f"[time] [12] (e) done at {time.perf_counter() - t0:.1f} s")
+    summary["train_cut"] = phase_train_cut(torch, n_experts=EXPERTS, tag="12")  # (f)
+    summary["card"] = smi
+    return launches, summary
+
+
 def train(torch) -> int:
     """Phases 1, 10 and 11 alone: prints one JSON line of the summaries of
     phases 10 and 11."""
@@ -2139,6 +2597,20 @@ def train(torch) -> int:
     phase_train_cut(torch)
     loop = phase_trainer(torch, smi)
     print(json.dumps({"step": summary, "trainer": loop}))
+    return 0
+
+
+def experts(torch) -> int:
+    """Phases 1, 2 and 12 alone: prints one JSON line of phase 12's launch
+    counts and summary."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, _ = phase_card(torch)
+    t0 = phase_build(_cuda)
+    launches, summary = phase_experts(torch, smi)
+    log(f"[time] [12] done at {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches": launches, "experts": summary}, default=str))
     return 0
 
 
@@ -2293,6 +2765,9 @@ def main(torch) -> int:
     l_summary = phase_trainer(torch, smi)
     log(f"[11] summary: {json.dumps(l_summary)}")
     lap("[11]")
+    e_launches, e_summary = phase_experts(torch, smi)
+    log(f"[12] summary: {json.dumps(e_summary, default=str)}")
+    lap("[12]")
     c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
@@ -2306,7 +2781,8 @@ def main(torch) -> int:
     # 8192 prefill rows, against q/k/v/o for w1a8_matmul and on the
     # path's f32 rows for rmsnorm_quant; paged_attention at phase 8's
     # decode shape); launches from each path's counted run: [4] decode,
-    # [6] prefill, [8] continuous batching in configuration (a)
+    # [6] prefill, [8] continuous batching in configuration (a), [12] the
+    # routed experts' (a) decode, (b) prefill and (c) kernel-route runs
     main_key = {
         "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
@@ -2323,7 +2799,7 @@ def main(torch) -> int:
         res = results[n]
         key = main_key[n]
         by_path = {"decode": launches.get(n, 0), "prefill": p_launches.get(n, 0),
-                   "continuous": c_launches.get(n, 0)}
+                   "continuous": c_launches.get(n, 0), "experts": e_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2350,6 +2826,8 @@ if __name__ == "__main__":
                     "to import repro_torch from (default: this checkout's)")
     ap.add_argument("--train", action="store_true",
                     help="phases 1, 10 and 11 only (training; no kernel build)")
+    ap.add_argument("--experts", action="store_true",
+                    help="phases 1, 2 and 12 only (pquant-1.3b with 8 routed experts)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -2361,6 +2839,8 @@ if __name__ == "__main__":
         sys.exit(time_slice(torch, Path(args.time_slice)))
     if args.train:
         sys.exit(train(torch))
+    if args.experts:
+        sys.exit(experts(torch))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
         sys.exit(one_kernel(torch, args.kernel, src))

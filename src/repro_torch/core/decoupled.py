@@ -1,9 +1,13 @@
-"""Port of ``repro.core.decoupled`` for a single 8-bit branch (N = 1): the
-decoupled FFN, pQuant's core contribution (paper §3.2, Eq. 11).
+"""Port of ``repro.core.decoupled``: the decoupled FFN, pQuant's core
+contribution (paper §3.2, Eq. 11).
 
     Y = alpha * FFN^{INT8}_{[:r]}(LN(x)) + beta * FFN^{INT1}_{[r:]}(LN(x))
 
-Routed 8-bit branches (N > 1) and ``decoupled_proj`` are not ported yet.
+§3.3 scaling: the 8-bit branch is replicated ``N`` times and a top-1
+softmax router (``repro_torch.core.routing``) picks one branch per token;
+the 1-bit branch acts as the always-active shared expert.  Active
+parameter count is constant in N.  ``decoupled_proj`` (the SSM family's
+projection) is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import routing
 from repro_torch.core.bitlinear import init_rmsnorm, rmsnorm, truncated_normal
 from repro_torch.core.quantization import (
     QuantConfig,
@@ -23,6 +28,7 @@ from repro_torch.core.quantization import (
     maybe_quant_acts,
     quantize_weights_int8_stacked,
 )
+from repro_torch.core.routing import RouterConfig
 from repro_torch.telemetry import probes
 
 Tensor = torch.Tensor
@@ -47,9 +53,8 @@ def init_decoupled_ffn(
     """Parameters of a decoupled (GLU-)FFN, leaf for leaf upstream's:
     1-bit gate/up (d_model, d_ff_1bit) and down (d_ff_1bit, d_model);
     8-bit gate/up (N, d_model, r) and down (N, r, d_model); alpha, beta;
-    SubLN.  ``lead`` prepends stack axes (layers)."""
-    if num_experts != 1:
-        raise NotImplementedError("routed 8-bit branches (N > 1) are not yet ported")
+    SubLN; with N > 1 the router {"w": (d_model, N)}.  ``lead`` prepends
+    stack axes (layers)."""
     params: dict = {}
 
     def tn(shape, scale):
@@ -70,6 +75,9 @@ def init_decoupled_ffn(
         # feature scaling (paper §3.2): learnable scalars, alpha >> beta
         params["alpha"] = torch.full(lead, alpha_init, device=device)
         params["beta"] = torch.full(lead, beta_init, device=device)
+        if n > 1:
+            params["router"] = routing.init_router(
+                gen, d_model, RouterConfig(num_experts=n, top_k=1), lead, device)
     # SubLN before the down-projection (BitNet placement, Appendix B)
     params["subln"] = init_rmsnorm(
         d_ff_1bit if d_ff_1bit > 0 else r, lead, device
@@ -96,7 +104,10 @@ def _int8_kernel_view(w: dict):
 def _serving_ffn_layout(params, glu: bool) -> bool:
     """True when the FFN has a single-expert INT8 serving branch and (if a
     1-bit trunk exists) a fully packed trunk — what
-    :func:`_ffn_packed_apply` fuses."""
+    :func:`_ffn_packed_apply` fuses.  Routed (N > 1) 8-bit branches take
+    upstream's route instead: the packed trunk through
+    :func:`_branch1_apply`'s kernel arm, the experts dequantized to float
+    in :func:`_branch8_apply`."""
     if "w8_up" not in params:
         return False
     names = ("w8_gate", "w8_up", "w8_down") if glu else ("w8_up", "w8_down")
@@ -209,9 +220,9 @@ def _branch1_apply(params, x: Tensor, glu: bool, act_fn, qcfg: QuantConfig) -> T
 
 
 def decoupled_ffn(params, x: Tensor, qcfg: QuantConfig, glu: bool = True,
-                  activation: str = "silu"):
+                  activation: str = "silu", router_cfg: RouterConfig | None = None):
     """Apply the decoupled FFN.  x: (..., D).  Returns (y, aux_loss); aux is
-    zero (routing, which produces it, is not ported yet)."""
+    zero unless the 8-bit branch is routed (N > 1, ``router_cfg`` given)."""
     act_fn = ACTIVATIONS[activation]
     lead = x.shape[:-1]
     d = x.shape[-1]
@@ -238,9 +249,15 @@ def decoupled_ffn(params, x: Tensor, qcfg: QuantConfig, glu: bool = True,
     if has_8bit:
         w8 = params["w8_up"]
         n = (w8["q"] if isinstance(w8, dict) else w8).shape[0]
-        if n != 1:
-            raise NotImplementedError("routed 8-bit branches (N > 1) are not yet ported")
-        y8 = _branch8_apply(params, xf[None], glu, act_fn, qcfg)[0]
+        if n == 1:
+            y8 = _branch8_apply(params, xf[None], glu, act_fn, qcfg)[0]
+        else:
+            if router_cfg is None or router_cfg.num_experts != n:
+                raise ValueError(f"{n} experts need a RouterConfig with num_experts={n}, "
+                                 f"got {router_cfg}")
+            y8, aux = routing.route_and_apply(
+                params["router"], xf, router_cfg,
+                lambda xe: _branch8_apply(params, xe, glu, act_fn, qcfg))
         y8s = params["alpha"].to(x.dtype) * y8
         y = y + y8s
         if probes.active() and has_1bit:
@@ -254,3 +271,16 @@ def _tap_branch_norms(y1_scaled: Tensor, y8_scaled: Tensor) -> None:
     (``qat_branch_share8``, paper §3.2's allocation claim, live)."""
     probes.add("branch1_sq", torch.sum(torch.square(y1_scaled.detach().float())))
     probes.add("branch8_sq", torch.sum(torch.square(y8_scaled.detach().float())))
+
+
+def decoupled_ffn_flops(d_model: int, d_ff_1bit: int, r: int, glu: bool, tokens: int) -> int:
+    """Active-path MACs * 2 over ``tokens`` tokens (top-1: one 8-bit branch)."""
+    mats = 3 if glu else 2
+    return mats * d_model * (d_ff_1bit + r) * 2 * tokens
+
+
+def decoupled_param_counts(d_model: int, d_ff_1bit: int, r: int, num_experts: int,
+                           glu: bool) -> tuple[int, int]:
+    """(n_1bit_params, n_8bit_params), for effective-bits accounting."""
+    mats = 3 if glu else 2
+    return mats * d_model * d_ff_1bit, mats * d_model * r * num_experts

@@ -9,6 +9,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitlinear import init_rmsnorm, rmsnorm  # noqa: F401  (re-export)
 from repro_torch.core.decoupled import decoupled_ffn, init_decoupled_ffn
 from repro_torch.core.quantization import fdiv
+from repro_torch.core.routing import RouterConfig
 
 Tensor = torch.Tensor
 
@@ -79,8 +80,14 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=No
 
 
 def apply_ffn(params, x: Tensor, cfg: ModelConfig):
-    """Returns (y, aux_loss)."""
-    return decoupled_ffn(params, x, cfg.quant, glu=cfg.glu, activation=cfg.activation)
+    """Returns (y, aux_loss); pquant with N > 1 routes its 8-bit branch
+    top-1."""
+    q = cfg.quant
+    rcfg = None
+    if q.mode == "pquant" and q.num_experts > 1:
+        rcfg = RouterConfig(num_experts=q.num_experts, top_k=1)
+    return decoupled_ffn(params, x, q, glu=cfg.glu, activation=cfg.activation,
+                         router_cfg=rcfg)
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,10 @@ QAT health probes (join the per-step metrics when
                             allocation claim, live
   ``qat_gnorm_ffn8`` / ``qat_gnorm_ffn1`` / ``qat_gnorm_share8``
                             per-branch gradient-norm split
-  ``qat_router_entropy``    routed-expert load entropy; not ported yet
-                            (it comes with routing, N > 1)
+  ``qat_router_entropy``    routed-expert load entropy (N > 1 only):
+                            normalized entropy of the top-1 fractions,
+                            1 balanced, 0 collapsed, averaged over every
+                            router of the forward
 
 Cadenced democratization snapshot (every
 ``TrainerConfig.sensitivity_every`` steps, between steps; reuses

@@ -408,9 +408,12 @@ def _flips(rec_a, rec_b) -> dict:
     rounding tie decided two ways: a code that differs where both inputs x
     * gamma agree within TIE_NOISE, or a row whose AbsMax elements differ
     where its inputs agree so; the other differing codes follow from a
-    primary flip upstream.  Every site has one row a token."""
+    primary flip upstream.  A site has one row a token (the first site
+    sets the token count), or is a routed experts' (N, C, D) buffer with
+    more rows than tokens, each row one token or a sentinel of zeros; a
+    differing buffer row counts as one token met."""
     assert len(rec_a) == len(rec_b)
-    primary = differ = codes = 0
+    primary = differ = codes = buffer_rows = 0
     touched = None
     for (va, ta), (vb, tb) in zip(rec_a, rec_b):
         va, ta = va.reshape(vb.shape), ta.reshape(tb.shape)
@@ -420,11 +423,14 @@ def _flips(rec_a, rec_b) -> dict:
         differ += int(code.sum())
         primary += int((code & near).sum()) + int(((ta != tb).any(-1) & near.all(-1)).sum())
         rows = code.reshape(-1, code.shape[-1]).any(-1)
+        if touched is not None and rows.size != touched.size:
+            buffer_rows += int(rows.sum())
+            continue
         touched = rows if touched is None else touched | rows
     if touched is None:  # no act-quant site (mode "none")
         touched = np.zeros(1, bool)
     return {"primary": primary, "differ": differ, "codes": codes,
-            "tokens": int(touched.sum()), "of": touched.size}
+            "tokens": min(touched.size, int(touched.sum()) + buffer_rows), "of": touched.size}
 
 
 def _loss_tol(f) -> float:
