@@ -110,7 +110,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Trainer: 2 warm-up steps, 5 timed by the Trainer's own ``step_time_s``,
    one more profiled): exactly one host sync a step (CUDA's sync debug
    mode), the median ms a step, the probes' share of it and the busy share.
-   Then the lifecycle run: 8 steps with probes, the democratization
+   Then the lifecycle run (on 8 of the 24 layers, ``LOOP_LIFECYCLE_LAYERS``,
+   so that the whole run keeps room for phase 13): 8 steps with probes, the democratization
    snapshot and a checkpoint every 4 (``keep=1``, into a temporary
    directory that the phase removes), history, trace and heartbeat files;
    step 6 writes NaN into a master leaf and reports a NaN loss, so the
@@ -127,7 +128,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 12. pQuant's routed 8-bit experts (paper §3.3): pquant-1.3b with 8
    experts (``EXPERTS``; top-1 router, the 1-bit trunk the shared expert)
-   at full width and depth from ``SEED``, exported packed (experts int8,
+   at full width from ``SEED``, 12 of its 24 layers (``EXPERTS_LAYERS``:
+   every layer alike, the counts per layer unchanged; the depth gives
+   phase 13 room), exported packed (experts int8,
    one scale a (layer, expert) slice; router float).  (a) ``DecodeEngine``
    on [4]'s load: finite logits, one transfer a call, a repeatable
    stream, ``w1a8_gemv`` launched layers x 7 x forwards (q/k/v/o and the
@@ -156,7 +159,45 @@ Phases, in order; any failure ends the run with a non-zero exit:
    vs CPU gradient check on a 2-layer f32 cut with 8 experts, the CPU's
    act-quant and routing decisions replayed on the card.
 
-Phase 3 also holds ``paged_attention`` against its plain version at phase
+13. DeepSeek-MoE (``models/moe.py``): deepseek-moe-16b at full width and
+   depth (28 layers: one dense of d_ff 10944, then 27 MoE layers of 64
+   routed 1-bit experts top-6 of width 1408 and 2 shared decoupled
+   experts; 16 heads of 128, r 128, vocab 102400 untied) from ``SEED``.
+   (a) the packed export built on the card one layer at a time (16.4e9
+   f32 latents do not fit), held leaf for leaf, bit for bit, to the
+   one-shot export of the same latents on a 3-layer cut; its GB.  (b)
+   ``DecodeEngine``, 4 requests of 8 tokens, 16 new: finite logits, one
+   transfer, exactly 28 x 5 + 27 x 64 x 3 = 5324 ``w1a8_gemv``, 56
+   ``decoupled_gemv`` and 28 ``int8_matmul`` launches a forward and no
+   other kernel; TTFT, ms/step, tokens/s (medians of 3), busy share.
+   (c) 16 requests of 256 tokens (4096 prefill rows, capacity 480 an
+   expert), 8 new: the prefill's launches exactly 5324 ``w1a8_matmul``,
+   56 ``decoupled_matmul`` and 28 ``int8_matmul``, the generate's with
+   7 decode forwards on the GEMVs; TTFT and the routings dropped by
+   capacity.  (d) ``ContinuousBatchingEngine``, 4 slots of 160 positions,
+   8 requests from ``SEED`` (prompts 16-128, 8-16 new), paged on the
+   kernel route and dense: each request finished once by length, the
+   pool drained, ``paged_attention`` (head_dim 128) launched 28 x decode
+   steps on the kernel route and never dense, the streams compared as
+   phase 9 compares them.  (e) phase 5's checks on a 2-layer cut (the
+   dense layer and the first MoE layer) at (b)'s prompts, with the
+   CPU's router choices replayed on the card and the choices the card
+   computes counted.  (f) ``make_train_step`` on a 4-layer cut (1 dense +
+   3 MoE; bf16, remat, 2 x 2048 tokens): finite losses, the first within
+   ln V +- 1.5, step 0 (lr 0) moves nothing watched, step 1 moves the
+   first MoE layer's router, shared FFN and every expert that took a
+   token, no host sync, ``qat_router_entropy`` in [0, 1], aux > 0; ms a
+   step, tokens/s, peak memory, busy share, model TFLOP/s; then [10]'s
+   card vs CPU gradient check on the 2-layer cut in f32 with both kinds
+   of decision replayed.
+
+Phase 3 also holds the kernels at deepseek-moe-16b's shapes (tagged
+"moe"): the W1A8 linears (2048, 1408), (1408, 2048), (10944, 2048) and
+(2816, 2048) at the decode rows (an expert's 8 rows, seven of them zero),
+at an expert's 480 and 960 prefill rows (the last 80 zero) and at 4096;
+the fused pairs (2048, 10944, 128) and (2048, 2816, 128); ``int8_matmul``
+at K 128; ``paged_attention`` at head_dim 128 over 4 slots of 160
+positions ("d128").  Phase 3 also holds ``paged_attention`` against its plain version at phase
 8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
 a 64-token chunked slice) within ``PA_ATOL``, beside its bound and the
 time of ``scaled_dot_product_attention`` on the gathered view.
@@ -196,6 +237,11 @@ and prints one JSON line of the summaries of phases 10 and 11.
 runs phases 1, 2 and 12 alone and prints one JSON line of phase 12's
 launch counts and summary.
 
+    python3 chip_smoke.py --moe
+
+runs phases 1, 2 and 13 alone and prints one JSON line of phase 13's
+launch counts and summary.
+
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
 times phase 4's decode path of this checkout against another one (say, a
@@ -205,6 +251,7 @@ alternating pairs of fresh processes, and prints the comparison as JSON.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -238,6 +285,17 @@ DECOUPLED_RAGGED = ((400, 72, 36), (2048, 5024, 100))
 INT8_ROWS = ROWS + PREFILL_ROWS + (CHUNK_ROWS,)
 W1A8_MATMUL_ROWS = (33, 64, 512, CHUNK_ROWS, 8192)
 W1A8_RAGGED = ((400, 72), (16, 64))  # general (K, N) of w1a8_matmul (N 72: the mma route)
+# deepseek-moe-16b's shapes (phase 13) that no pquant-1.3b path gives:
+# the W1A8 linears' (K, N) with the rows the path gives each (an expert's
+# capacity at decode is 8: 7 or more of its rows are sentinel zeros);
+# the dense and shared up/gate pairs (K, N, r); w8_down at r 128
+MOE_W1A8_SHAPES = ((2048, 1408), (1408, 2048), (10944, 2048), (2816, 2048))
+MOE_W1A8_DECODE_ROWS = (8, 8, 4, 4)  # expert gate/up, expert down, dense and shared w1_down
+MOE_EXPERT_ROWS = (480, 960)  # an expert's capacity at 4096 / 8192 prefill rows
+MOE_PREFILL_ROWS = 4096  # [13] (c): 16 requests x 256 tokens
+MOE_ADMISSION_ROWS = 128  # [13] (d)'s longest admission prefill (batch 1)
+MOE_DECOUPLED_SHAPES = ((2048, 10944, 128), (2048, 2816, 128))
+MOE_INT8_SHAPE = (128, 2048)
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
 SLOT_ROWS = 16  # decode rows of the continuous-batching path (16 slots)
 BF16_GEMV_ROWS = (MAIN_ROWS, SLOT_ROWS, 32)  # the GEMV rows also timed in bf16
@@ -486,6 +544,24 @@ def phase_kernels(torch, peaks, only=None):
                                        int8_matmul_plain(x, w, gamma, wscale, dt).float()))
         log(f"[3] int8_matmul held exactly at (K, N) {INT8_RAGGED} x M (33, 129, 1000) x "
             f"f32, bf16")
+        # deepseek-moe-16b's w8_down (K 128): held at every M of both tiers
+        # and at [13]'s prefill rows, timed in f32 at its decode rows and
+        # prefill rows
+        k, n = MOE_INT8_SHAPE
+        ws = [int8(k, n) for _ in range(_copies(k * n))]
+        for m in INT8_ROWS + (MOE_PREFILL_ROWS,):
+            x, gamma = int8(m, k), scales(m)
+            err = max(_close(int8_matmul(x, ws[0], gamma, wscale, dt).float(),
+                             int8_matmul_plain(x, ws[0], gamma, wscale, dt).float())
+                      for dt in dtypes)
+            held("int8_matmul", err)
+            if m not in (MAIN_ROWS, MOE_PREFILL_ROWS):
+                continue
+            b = bound(m * k + k * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("int8_matmul", m, (k, n), err,
+                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale),
+                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale), b,
+                   (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None, tag="moe")
 
     def rows_w1a8_gemv():
         # decode tier: fused act-quant GEMV (M <= 32); held exactly for x
@@ -512,6 +588,30 @@ def phase_kernels(torch, peaks, only=None):
                            lambda i: wg.w1a8_gemv_plain(xd, ws[0], lam, dt), b,
                            (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS
                            else None, tag="" if dt == torch.float32 else "bf16")
+        # deepseek-moe-16b's shapes: held exactly at every M with x and the
+        # output f32 and bf16 (at M 8, seven rows of zeros: an expert's
+        # sentinel rows, quantized with amax 0); timed in f32 at the rows
+        # the path gives the shape and at 32 beside _int_mm
+        for (k, n), m_path in zip(MOE_W1A8_SHAPES, MOE_W1A8_DECODE_ROWS):
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            for m in ROWS:
+                x = torch.randn((m, k), generator=gen, **f32)
+                if m == 8:
+                    x[1:] = 0.0
+                err = max(_close(wg.w1a8_gemv(x.to(dt), ws[0], lam, dt).float(),
+                                 wg.w1a8_gemv_plain(x.to(dt), ws[0], lam, dt).float())
+                          for dt in dtypes)
+                held("w1a8_gemv", err)
+                if m not in (m_path, LIB_GEMV_ROWS):
+                    continue
+                x_lib = int8(m, k)
+                b = bound(m * k * 4 + k // 8 * n + 4 + m * n * 4, 2 * m * k * n)
+                record("w1a8_gemv", m, (k, n), err,
+                       lambda i: wg.w1a8_gemv(x, ws[i % len(ws)], lam),
+                       lambda i: wg.w1a8_gemv_plain(x, ws[0], lam), b,
+                       (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                       tag="moe")
 
     def rows_decoupled_gemv():
         k, n, r = DECOUPLED_SHAPE
@@ -539,6 +639,32 @@ def phase_kernels(torch, peaks, only=None):
                        lambda i: wg.decoupled_gemv_plain(xd, w1s[0], w8s[0], *sc, dt), b,
                        (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
                        tag="" if dt == torch.float32 else "bf16")
+        # deepseek-moe-16b's dense (N 10944) and shared (N 2816) pairs at r
+        # 128: held at every M in f32 and bf16, timed in f32 at [13]'s decode
+        # rows and at 32 beside _int_mm
+        for k, n, r in MOE_DECOUPLED_SHAPES:
+            w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+            w8s = [int8(k, r) for _ in w1s]
+            w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+            for m in ROWS:
+                x = torch.randn((m, k), generator=gen, **f32)
+                err = 0.0
+                for dt in dtypes:
+                    got = wg.decoupled_gemv(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                    want = wg.decoupled_gemv_plain(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                    err = max(err, _close(got[0].float(), want[0].float()),
+                              _close(got[1].float(), want[1].float()))
+                held("decoupled_gemv", err)
+                if m not in (MAIN_ROWS, LIB_GEMV_ROWS):
+                    continue
+                x_lib = int8(m, k)
+                b = bound(m * k * 4 + k // 8 * n + k * r + 16 + m * (n + r) * 4,
+                          2 * m * k * (n + r))
+                record("decoupled_gemv", m, (k, n, r), err,
+                       lambda i: wg.decoupled_gemv(x, w1s[i % len(w1s)], w8s[i % len(w8s)], *sc),
+                       lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b,
+                       (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                       tag="moe")
 
     def rows_w1a8_matmul():
         # prefill tier on pre-quantized rows (M > 32): held exactly in f32
@@ -572,6 +698,37 @@ def phase_kernels(torch, peaks, only=None):
             f"f32, bf16; routes (M, K, N): " + ", ".join(
                 f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s in W1A8_SHAPES + W1A8_RAGGED
                 for m in W1A8_MATMUL_ROWS))
+        # deepseek-moe-16b's shapes at the rows [13] gives them: an expert's
+        # capacity (480 at 4096 prefill rows, 960 at 8192; the last 80 rows
+        # sentinel zeros, codes 0 at the scale of amax 0), the 4096 prefill
+        # rows for q/k/v/o and the dense and shared w1_down, and [13] (d)'s
+        # admission rows; held exactly in f32 and bf16, timed in f32
+        moe_rows = [(s, m) for s in MOE_W1A8_SHAPES[:2] for m in MOE_EXPERT_ROWS + (16,)]
+        moe_rows += [(s, m) for s in (W1A8_SHAPES[0],) + MOE_W1A8_SHAPES[2:]
+                     for m in (MOE_ADMISSION_ROWS, MOE_PREFILL_ROWS)]
+        for (k, n), m in moe_rows:
+            if m <= 32:  # an expert's rows at a 128-row admission: held, not timed
+                x, gamma, w = int8(m, k), scales(m), packed(k, n)
+                held("w1a8_matmul", max(
+                    _close(wm.w1a8_matmul(x, w, gamma, lam, dt).float(),
+                           wm.w1a8_matmul_plain(x, w, gamma, lam, dt).float()) for dt in dtypes))
+                continue
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            x, gamma = int8(m, k), scales(m)
+            if m in MOE_EXPERT_ROWS:
+                x[-80:] = 0
+                gamma[-80:] = 127.0 / 1e-5
+            err = max(_close(wm.w1a8_matmul(x, ws[0], gamma, lam, dt).float(),
+                             wm.w1a8_matmul_plain(x, ws[0], gamma, lam, dt).float())
+                      for dt in dtypes)
+            b = bound(m * k + k // 8 * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("w1a8_matmul", m, (k, n), err,
+                   lambda i: wm.w1a8_matmul(x, ws[i % len(ws)], gamma, lam),
+                   lambda i: wm.w1a8_matmul_plain(x, ws[0], gamma, lam), b,
+                   lambda i: torch._int_mm(x, w_lib), tag="moe", nops=2 * m * k * n)
+        log("[3] w1a8_matmul deepseek-moe-16b routes (M, K, N): " + ", ".join(
+            f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s, m in moe_rows))
 
     def rows_decoupled_matmul():
         # held exactly in f32 and bf16 and timed in f32 at every M (the
@@ -609,6 +766,31 @@ def phase_kernels(torch, peaks, only=None):
             f"1000) x f32, bf16; routes (M, K, N, r): " + ", ".join(
                 f"{(m,) + s} {route(m, *s)}" for s in (DECOUPLED_SHAPE,) + DECOUPLED_RAGGED
                 for m in DECOUPLED_MATMUL_ROWS))
+        # deepseek-moe-16b's dense and shared pairs at r 128: held exactly in
+        # f32 and bf16 and timed in f32 at [13]'s prefill rows and its
+        # longest admission prefill
+        for k, n, r in MOE_DECOUPLED_SHAPES:
+            w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+            w8s = [int8(k, r) for _ in w1s]
+            w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+            for m in (MOE_ADMISSION_ROWS, MOE_PREFILL_ROWS):
+                x, gamma = int8(m, k), scales(m)
+                err = 0.0
+                for dt in dtypes:
+                    got = decoupled_matmul(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                    want = decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                    err = max(err, _close(got[0].float(), want[0].float()),
+                              _close(got[1].float(), want[1].float()))
+                b = bound(m * k + k // 8 * n + k * r + m * 4 + 16 + m * (n + r) * 4,
+                          2 * m * k * (n + r))
+                record("decoupled_matmul", m, (k, n, r), err,
+                       lambda i: decoupled_matmul(x, w1s[i % len(w1s)], w8s[i % len(w8s)],
+                                                  gamma, *sc),
+                       lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
+                       lambda i: torch._int_mm(x, w_lib), tag="moe", nops=2 * m * k * (n + r))
+        log("[3] decoupled_matmul deepseek-moe-16b routes (M, K, N, r): " + ", ".join(
+            f"{(m,) + s} {route(m, *s)}" for s in MOE_DECOUPLED_SHAPES
+            for m in (MOE_ADMISSION_ROWS, MOE_PREFILL_ROWS)))
 
     def rows_rmsnorm_quant():
         # timed on bf16 and f32 rows of d_model at the prefill rows, x
@@ -668,6 +850,9 @@ def phase_kernels(torch, peaks, only=None):
 PA_SLOTS, PA_MAX_LEN, PA_BLOCK, PA_HEADS, PA_HEAD_DIM = 16, 512, 16, 32, 64
 PA_CHUNK = 64  # the chunked-prefill slice of phase 8 (b)
 PA_GQA_KV_HEADS = 8
+# deepseek-moe-16b at [13] (d)'s shapes: 16 heads of 128 (head_dim 128 is
+# the kernel's kMaxD), 4 slots of 160 positions; the chunk at position 64
+PA_MOE = dict(slots=4, max_len=160, heads=16, head_dim=128, chunk_at=64)
 PA_ATOL = 1e-5  # kernel vs plain version: the softmax reduction is reassociated
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 
@@ -678,24 +863,15 @@ def phase_paged_attention(torch, peaks, results):
     resident lengths up to 512, in f32 and bf16 pools and with GQA (32 query
     heads on 8 KV heads); and a chunked-prefill slice (T = 64 for one slot
     at position 256, the other 15 slots masked, as the engine sends it).
+    Then at deepseek-moe-16b's (``PA_MOE``, head_dim 128): decode in f32 and
+    bf16 pools and a 64-token slice, rows keyed with "d128".
     Holds max |err| <= PA_ATOL; times the kernel (CUDA events, pools
     rotated past the 50 MB L2), the plain version, and the library call
     ``scaled_dot_product_attention`` on the already-gathered dense view
     under the same mask (the gather excluded: it is the work the kernel
     avoids).  Bound: the live K/V bytes plus q and the output over the
     card's memory rate, or the f32 operations over F32_PEAK."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
-
-    bw = peaks[0]
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    b, bs, d = PA_SLOTS, PA_BLOCK, PA_HEAD_DIM
-    mb = PA_MAX_LEN // bs
-    nb = b * mb
-    lens_decode = torch.randint(1, PA_MAX_LEN + 1, (b,), generator=torch.Generator().manual_seed(SEED))
-    lens_decode[0] = PA_MAX_LEN
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = (
         ("decode", 1, PA_HEADS, PA_HEADS, torch.float32),
         ("decode", 1, PA_HEADS, PA_HEADS, torch.bfloat16),
@@ -703,15 +879,38 @@ def phase_paged_attention(torch, peaks, results):
         ("chunk", PA_CHUNK, PA_HEADS, PA_HEADS, torch.float32),
         ("chunk", PA_CHUNK, PA_HEADS, PA_HEADS, torch.bfloat16),
     )
+    _paged_cases(torch, peaks[0], gen, results, cases, PA_SLOTS, PA_MAX_LEN, PA_HEAD_DIM, 256)
+    h = PA_MOE["heads"]
+    cases = (("decode", 1, h, h, torch.float32), ("decode", 1, h, h, torch.bfloat16),
+             ("chunk", PA_CHUNK, h, h, torch.float32))
+    _paged_cases(torch, peaks[0], gen, results, cases, PA_MOE["slots"], PA_MOE["max_len"],
+                 PA_MOE["head_dim"], PA_MOE["chunk_at"], key_tag="d128")
+    return results
+
+
+def _paged_cases(torch, bw, gen, results, cases, b, max_len, d, chunk_at, key_tag=""):
+    """Phase 3's paged_attention rows of one geometry: ``b`` slots of
+    ``max_len`` positions in blocks of PA_BLOCK, head_dim ``d``; each case
+    (kind, T, query heads, KV heads, pool dtype) held and timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+
+    dev = torch.device("cuda")
+    bs = PA_BLOCK
+    mb = max_len // bs
+    nb = b * mb
+    lens_decode = torch.randint(1, max_len + 1, (b,), generator=torch.Generator().manual_seed(SEED))
+    lens_decode[0] = max_len
     for kind, t, hq, hkv, kv_dtype in cases:
         if kind == "decode":
             kv_lens = lens_decode.clone()
             start = kv_lens - 1
         else:  # one admitting slot; the others masked out (start 0, length 0)
             start = torch.zeros((b,), dtype=torch.int64)
-            start[0] = 256
+            start[0] = chunk_at
             kv_lens = torch.ones((b,), dtype=torch.int64)
-            kv_lens[0] = 256 + t
+            kv_lens[0] = chunk_at + t
         start_d = start.to(torch.int32).to(dev)
         lens_d = kv_lens.to(torch.int32).to(dev)
         q = torch.randn((b, t, hq, d), generator=gen, device=dev)
@@ -753,18 +952,18 @@ def phase_paged_attention(torch, peaks, results):
                                                                 lens_d), 3, 3)
         library_ms = _time(torch, lambda i: F.scaled_dot_product_attention(
             qt, kd, vd, attn_mask=mask, enable_gqa=hq != hkv), 50)
-        tag = f"{kind} T={t} Hq={hq} Hkv={hkv} {str(kv_dtype).split('.')[-1]}"
+        tag = f"{kind} T={t} Hq={hq} Hkv={hkv} D={d} B={b} {str(kv_dtype).split('.')[-1]}"
         log(f"[3] paged_attention {tag}: max|err| {err:.3g} (sdpa {lib_err:.3g}), kernel "
             f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bound {bound[0] * 1e3:.3f} us "
             f"({bound[1]}; {nbytes / 1e6:.2f} MB, {nflops / 1e9:.3f} GFLOP), sdpa on the "
             f"gathered view {library_ms * 1e3:.2f} us")
         r = results.setdefault("paged_attention", {"max_abs_err": 0.0, "rows": {}})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["rows"][(kind, t, hq, hkv, str(kv_dtype).split(".")[-1])] = dict(
+        r["rows"][(kind, t, hq, hkv, str(kv_dtype).split(".")[-1])
+                  + ((key_tag,) if key_tag else ())] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
             library_ms=library_ms)
         del pools, kd, vd
-    return results
 
 
 # ---------------------------------------------------------------------------
@@ -829,10 +1028,18 @@ def _time_generate(eng, prompts, greedy, stream, runs: int = TIMED_RUNS):
     return ttft, t_gen, line
 
 
-def _counted_generate(torch, eng, prompts, greedy, cfg, want: dict, tag: str):
+def _layer_launches(cfg, per_layer: dict, forwards: int) -> tuple[dict, str]:
+    """(kernel -> launches of ``forwards`` forwards whose every layer makes
+    ``per_layer`` of them, how that was counted)."""
+    return ({k: cfg.n_layers * v * forwards for k, v in per_layer.items()},
+            f"{cfg.n_layers} layers x {tuple(v for v in per_layer.values() if v)} x {forwards} "
+            "forwards")
+
+
+def _counted_generate(torch, eng, prompts, greedy, want: dict, how: str, tag: str):
     """One ``generate`` between a reset and a read of the launch counters:
-    checks one host transfer and, for each kernel in ``want`` (name ->
-    launches per layer per forward), layers x that x forwards launches.
+    checks one host transfer and, for each kernel in ``want``, exactly
+    ``want[kernel]`` launches (``how`` says how they were counted).
     Returns (stream, launches, wall seconds)."""
     from repro_torch.kernels import _cuda
 
@@ -845,13 +1052,10 @@ def _counted_generate(torch, eng, prompts, greedy, cfg, want: dict, tag: str):
     launches = dict(_cuda.LAUNCHES)
     if eng.host_transfers - before != 1:
         raise AssertionError(f"{eng.host_transfers - before} host transfers in one generate")
-    forwards = greedy.max_new_tokens  # one prefill + max_new_tokens - 1 decode steps
-    for name, per_layer in want.items():
-        if launches.get(name, 0) != cfg.n_layers * per_layer * forwards:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches, want "
-                                 f"{cfg.n_layers} x {per_layer} x {forwards}")
-    log(f"[{tag}] launches in one generate: {launches} (= {cfg.n_layers} layers x "
-        f"{tuple(v for v in want.values() if v)} x {forwards} forwards)")
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches, want {n} ({how})")
+    log(f"[{tag}] launches in one generate: {launches} (= {how})")
     return stream, launches, t_gen
 
 
@@ -869,7 +1073,9 @@ def phase_slice(torch):
     eng.generate(prompts, greedy)  # warm-up (kernel libraries load)
     want = {"w1a8_gemv": 5, "decoupled_gemv": 2, "int8_matmul": 1,
             "w1a8_matmul": 0, "decoupled_matmul": 0}
-    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg, want, "4")
+    # one prefill + max_new_tokens - 1 decode steps
+    stream, launches, _ = _counted_generate(
+        torch, eng, prompts, greedy, *_layer_launches(cfg, want, greedy.max_new_tokens), "4")
 
     _, t_gen, line = _time_generate(eng, prompts, greedy, stream)
     log(f"[4] stream (request 0): {stream[0].tolist()}")
@@ -950,15 +1156,20 @@ def _device_trace_time(torch, fn, wall, tag: str, what: str, top: int = 8) -> fl
     return _log_device_rows(_trace_rows(prof), wall, tag, what, top)
 
 
-def _leaves(tree):
+def _tree_paths(tree, prefix=""):
+    """(path, leaf) of every leaf of a tree of dicts and lists."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _tree_paths(v, f"{prefix}/{k}")
     elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
+        for i, v in enumerate(tree):
+            yield from _tree_paths(v, f"{prefix}/{i}")
     else:
-        yield tree
+        yield prefix, tree
+
+
+def _leaves(tree):
+    return (t for _, t in _tree_paths(tree))
 
 
 class _ActQuantTrace:
@@ -1135,7 +1346,8 @@ def _compare_act_quant(torch, card, cpu, names=("card", "cpu")) -> dict:
     return {"flips": flips, "first_code": first_q, "noise": noise, "line": line}
 
 
-def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool = False):
+def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool = False,
+              cut=None, prefill_tier: bool = True, replay_choices: bool = False):
     """The first CUT_LAYERS layers at the decode-tier prompts (PR 11's
     check) and at CUT_PREFILL_BATCH x PROMPT tokens (the prefill tier in
     every forward), each run three ways: on the card, on the card with
@@ -1162,16 +1374,26 @@ def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool
     decode-tier prompts to the prefill tier's rule as well (a first
     differing code that is a rounding tie may part the runs; the trace
     covers the decode GEMVs' act-quant too): phase 12 sets it.  ``tag``
-    labels the lines."""
+    labels the lines.
+
+    ``cut`` gives the cut's (params, cfg) directly (phase 13: a dense
+    segment and an MoE segment); ``prefill_tier=False`` skips the prefill-tier
+    prompts; ``replay_choices`` runs the CPU first and replays its router
+    choices (prefill and decode) on the card, with the kernels and with
+    their plain versions: a top-6 of 64 near-equal probs can go either way
+    between two devices.  The choices the card computes are still counted
+    against the CPU's."""
     import contextlib
 
     from repro_torch.kernels import _cuda
     from repro_torch.models import api
     from repro_torch.serve.engine import DecodeEngine, SamplerConfig
 
-    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
-    gpu = dict(params)
-    gpu["segments"] = [_tree(lambda t: t[:CUT_LAYERS].contiguous(), params["segments"][0])]
+    if cut is None:
+        gpu = dict(params)
+        gpu["segments"] = [_tree(lambda t: t[:CUT_LAYERS].contiguous(), params["segments"][0])]
+        cut = (gpu, dataclasses.replace(cfg, n_layers=CUT_LAYERS))
+    gpu, cut = cut
     cpu = _tree(lambda t: t.cpu(), gpu)
     max_len = PROMPT + CUT_NEW_TOKENS
     greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=CUT_NEW_TOKENS)
@@ -1179,32 +1401,42 @@ def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool
                          generator=torch.Generator().manual_seed(SEED + 1))
     cuda = torch.device("cuda")
     # the decode-tier prompts may part only with decode_may_part (phase 12)
-    for batch_prompts, may_part in ((prompts, decode_may_part), (wide, True)):
+    sets = ((prompts, decode_may_part),) + (((wide, True),) if prefill_tier else ())
+    for batch_prompts, may_part in sets:
         rows = batch_prompts.numel()
         out = {}
-        for name, tree, dev, plain in (("card", gpu, cuda, False),
-                                       ("card, plain versions", gpu, cuda, True),
-                                       ("cpu", cpu, torch.device("cpu"), False)):
+        runs = (("card", gpu, cuda, False), ("card, plain versions", gpu, cuda, True),
+                ("cpu", cpu, torch.device("cpu"), False))
+        for name, tree, dev, plain in runs[2:] + runs[:2] if replay_choices else runs:
             t0 = time.perf_counter()
             _cuda.reset_launches()
             kernels = _PlainKernels() if plain else contextlib.nullcontext()
-            with _ActQuantTrace() as trace, kernels:
-                with _ExpertChoices() as routed:
-                    logits, _ = api.prefill(tree, {"tokens": batch_prompts.to(dev)}, cut, max_len)
+            replay = out["cpu"][4] if replay_choices and name != "cpu" else None
+            with _ActQuantTrace() as trace, kernels, _ExpertChoices(replay) as routed:
+                logits, _ = api.prefill(tree, {"tokens": batch_prompts.to(dev)}, cut, max_len)
+                n_prefill = len(routed.choices)
                 stream = DecodeEngine(tree, cut, max_len=max_len, device=dev).generate(
                     batch_prompts, greedy)
             launched = sum(_cuda.LAUNCHES.values())
             if launched == 0 if name == "card" else launched:
                 raise AssertionError(f"{name}: {launched} kernel launches")
-            out[name] = (logits.cpu(), stream, trace.passes, routed.host())
-            log(f"[{tag}] {CUT_LAYERS}-layer cut, {rows} prefill rows, on the {name}: "
+            choices = routed.host()
+            out[name] = (logits.cpu(), stream, trace.passes, choices[:n_prefill], choices)
+            log(f"[{tag}] {cut.n_layers}-layer cut, {rows} prefill rows, on the {name}: "
                 f"{time.perf_counter() - t0:.1f} s, {launched} kernel launches")
-        (lg, sg, tg, eg), (lc, sc, tc, ec) = out["card"], out["cpu"]
-        lp, sp, _, _ = out["card, plain versions"]
+        (lg, sg, tg, eg, eg_all), (lc, sc, tc, ec, ec_all) = out["card"], out["cpu"]
+        lp, sp = out["card, plain versions"][:2]
         if eg:
-            differ = sum(int((a != b).sum()) for a, b in zip(eg, ec, strict=True))
-            log(f"[{tag}] {rows} prefill rows: router choices that differ between the card and "
-                f"the CPU: {differ} of {sum(a.numel() for a in eg)} ({len(eg)} routers)")
+            def differ(x, y):
+                return sum(int((a != b).sum()) for a, b in zip(x, y, strict=True))
+
+            line = (f"router choices that differ between the card and the CPU: "
+                    f"{differ(eg, ec)} of {sum(a.numel() for a in eg)} ({len(eg)} routers)")
+            if replay_choices:
+                line += (f"; over the prefill and the decode {differ(eg_all, ec_all)} of "
+                         f"{sum(a.numel() for a in eg_all)} ({len(eg_all)} router calls), "
+                         "the CPU's replayed on the card")
+            log(f"[{tag}] {rows} prefill rows: {line}")
         same = torch.equal(lg, lp) and bool((sg == sp).all())
         log(f"[{tag}] {rows} prefill rows: kernels vs plain versions on the card: logits max|diff| "
             f"{(lg - lp).abs().max().item():.3g}, streams equal: {bool((sg == sp).all())}")
@@ -1265,7 +1497,8 @@ def phase_prefill(torch, params, cfg):
     eng.generate(prompts, greedy)  # warm-up
     want = {"w1a8_matmul": 5, "decoupled_matmul": 2, "int8_matmul": 1,
             "w1a8_gemv": 0, "decoupled_gemv": 0}
-    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg, want, "6")
+    stream, launches, _ = _counted_generate(
+        torch, eng, prompts, greedy, *_layer_launches(cfg, want, greedy.max_new_tokens), "6")
     ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream, P_TIMED_RUNS)
     log(f"[6] stream (request 0): {stream[0].tolist()}")
     log(f"[6] {line}")
@@ -1304,6 +1537,11 @@ def phase_prefill(torch, params, cfg):
 CB_SLOTS, CB_MAX_LEN, CB_BLOCK, CB_CHUNK, CB_PREFILL_CHUNK = 16, 512, 16, 8, 64
 CB_REQUESTS, CB_FIRST_WAVE = 32, 16  # 16 arrive at tick 0, then one per tick
 CB_PROMPT, CB_NEW = (16, 384), (8, 32)  # inclusive ranges of the load
+# a continuous-batching load: slots, positions a slot, requests, how many
+# arrive at tick 0 (then one a tick), inclusive ranges of prompt and new
+# tokens; phase 8's, and [13] (d)'s
+CBLoad = collections.namedtuple("CBLoad", "slots max_len requests first_wave prompt new")
+CB_LOAD = CBLoad(CB_SLOTS, CB_MAX_LEN, CB_REQUESTS, CB_FIRST_WAVE, CB_PROMPT, CB_NEW)
 CB_PROFILE_STEPS = (4, 6)  # engine steps [a, b) profiled for the device busy share
 NEAR_TIE = 1e-3  # top-2 logit gap under which two greedy streams may part
 CB_CONFIGS = (  # name, layout, prefill_chunk, pool size (fraction of default), REPRO_PAGED_ATTN
@@ -1315,15 +1553,16 @@ CB_CONFIGS = (  # name, layout, prefill_chunk, pool size (fraction of default), 
 )
 
 
-def _cb_load(vocab: int):
-    """The phase 8 load from SEED: (uid, prompt, max_new_tokens, arrival)."""
+def _cb_load(vocab: int, load: CBLoad = CB_LOAD):
+    """A continuous-batching load from SEED (phase 8's by default):
+    [(uid, prompt, max_new_tokens, arrival)]."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(CB_PROMPT[0], CB_PROMPT[1] + 1, CB_REQUESTS)
-    news = rng.integers(CB_NEW[0], CB_NEW[1] + 1, CB_REQUESTS)
+    lens = rng.integers(load.prompt[0], load.prompt[1] + 1, load.requests)
+    news = rng.integers(load.new[0], load.new[1] + 1, load.requests)
     return [(i, rng.integers(0, vocab, int(n)).astype(np.int32), int(m),
-             float(max(0, i - CB_FIRST_WAVE + 1)))
+             float(max(0, i - load.first_wave + 1)))
             for i, (n, m) in enumerate(zip(lens, news))]
 
 
@@ -1349,16 +1588,16 @@ class _PagedEnv:
             os.environ["REPRO_PAGED_ATTN"] = self._old
 
 
-def _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div):
+def _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div, load: CBLoad = CB_LOAD):
     from repro_torch.serve import ContinuousBatchingEngine, SamplerConfig
 
-    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=CB_NEW[1])
-    default = CB_SLOTS * CB_MAX_LEN // CB_BLOCK
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=load.new[1])
+    default = load.slots * load.max_len // CB_BLOCK
     eng = ContinuousBatchingEngine(
-        params, cfg, CB_SLOTS, CB_MAX_LEN, greedy, layout=layout, block_size=CB_BLOCK,
+        params, cfg, load.slots, load.max_len, greedy, layout=layout, block_size=CB_BLOCK,
         num_blocks=default // pool_div, chunk=CB_CHUNK, prefill_chunk=prefill_chunk,
         device=torch.device("cuda"))
-    for uid, prompt, new, arrival in _cb_load(cfg.vocab_size):
+    for uid, prompt, new, arrival in _cb_load(cfg.vocab_size, load):
         eng.submit(prompt, max_new_tokens=new, seed=uid, uid=uid, arrival=arrival)
     counts = {"chunks": 0, "slices": 0, "owners": []}
     run_chunk, prefill_tick = eng._run_chunk, eng._prefill_tick
@@ -1378,15 +1617,16 @@ def _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div):
     return eng, counts
 
 
-def _cb_run(torch, params, cfg, name, layout, prefill_chunk, pool_div, env):
-    """One phase 8 run: serve the load to the end on a fresh engine, each
+def _cb_run(torch, params, cfg, name, layout, prefill_chunk, pool_div, env,
+            load: CBLoad = CB_LOAD):
+    """One phase 8 run: serve ``load`` to the end on a fresh engine, each
     engine step ended by a synchronize.  Returns the run's record, the
     streams (uid -> tokens), the finish reasons and, per decode chunk, the
     request in each slot."""
     from repro_torch.kernels import _cuda
 
     with _PagedEnv(env):
-        eng, counts = _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div)
+        eng, counts = _cb_engine(torch, params, cfg, layout, prefill_chunk, pool_div, load)
         torch.cuda.synchronize()
         _cuda.reset_launches()
         steps, finished = [], []
@@ -1779,7 +2019,10 @@ GRAD_RTOL = 1e-5
 # gradient sums the whole (K, M) slice in f32, each device in its own
 # order, while the slice's largest other element takes only the tokens
 # its expert saw (about 1/N of them); held as tests/test_torch_train.py
-# holds an AbsMax element's gradient (AMAX_TOL of the largest)
+# holds an AbsMax element's gradient (AMAX_TOL of the largest); so is a
+# 0-d leaf (one layer's alpha or beta: deepseek-moe-16b's 2-layer cut
+# leaves its layers unstacked), whose gradient sums the layer's whole
+# (tokens, d_model) branch output in f32, each device in its own order
 AMAX_TOL = 1e-4
 FLIP_RATE = 1e-4
 TIE_NOISE = 1e-3
@@ -1997,7 +2240,7 @@ def _loss_grads(torch, params, batch, cfg, record, replay=None, choice_replay=No
     return loss.item(), grads, routed.host()
 
 
-def phase_train_cut(torch, n_experts: int = 1, tag: str = "10"):
+def phase_train_cut(torch, n_experts: int = 1, tag: str = "10", cfg=None):
     """[10] card vs CPU: one loss_fn with gradients of a 2-layer cut of
     pquant-1.3b (with ``n_experts`` experts) in f32 (remat off) at
     TRAIN_CUT_BATCH x TRAIN_CUT_SEQ tokens, by the CPU tests' rule.  With
@@ -2006,13 +2249,18 @@ def phase_train_cut(torch, n_experts: int = 1, tag: str = "10"):
     counted, their tokens join the loss's flip allowance, and the
     gradients as computed are held only where none differs; the AbsMax
     element of each expert's 8-bit slice is held to AMAX_TOL (its comment
-    says why), every other element to GRAD_RTOL."""
+    says why), every other element to GRAD_RTOL.  ``cfg`` gives the cut
+    itself (phase 13: deepseek-moe-16b's dense layer and one MoE layer,
+    whose top-6 router and shared 8-bit branch take the same two rules, and
+    whose unstacked layers' 0-d leaves AMAX_TOL: its comment says why)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import api
     from repro_torch.optim.adamw import tree_map, tree_paths
 
-    cfg = dataclasses.replace(get_config("pquant-1.3b", n_experts=n_experts),
-                              n_layers=TRAIN_CUT_LAYERS, dtype="float32", remat=False)
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("pquant-1.3b", n_experts=n_experts),
+                                  n_layers=TRAIN_CUT_LAYERS, dtype="float32", remat=False)
+    routed_cfg = cfg.moe or cfg.quant.num_experts > 1
     cpu, dev = torch.device("cpu"), torch.device("cuda")
     params = api.init_model(SEED, cfg, device=cpu)
     batch = _train_batch(torch, cfg.vocab_size, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, SEED, cpu)
@@ -2038,7 +2286,14 @@ def phase_train_cut(torch, n_experts: int = 1, tag: str = "10"):
         for (path, w), a, b in zip(tree_paths(params), grads, g_cpu, strict=True):
             scale = b.abs().max().item()
             diff = (a.cpu() - b).abs()
-            if n_experts > 1 and str(path[-1]).startswith("w8"):
+            if w.ndim == 0:
+                worst_amax = max(worst_amax, diff.item() / max(scale, 1e-30))
+                if diff.item() > AMAX_TOL * scale + 1e-12:
+                    raise AssertionError(f"card vs CPU ({runs}): the 0-d leaf "
+                                         f"{'/'.join(map(str, path))} off by {diff.item()} "
+                                         f"(itself {scale})")
+                continue
+            if routed_cfg and str(path[-1]).startswith("w8"):
                 red = (w.ndim - 2, w.ndim - 1)
                 amax = w.abs() == w.abs().amax(dim=red, keepdim=True)
                 worst_amax = max(worst_amax, diff[amax].max().item() / max(scale, 1e-30))
@@ -2053,8 +2308,8 @@ def phase_train_cut(torch, n_experts: int = 1, tag: str = "10"):
                                      f"{err} (largest {scale})")
             worst = max(worst, (err / max(scale, 1e-30), "/".join(map(str, path))))
     routed = (f"; router choices differing card vs CPU: {moved} of "
-              f"{sum(c.numel() for c in ch_cpu)}; the experts' AbsMax elements within "
-              f"{worst_amax:.2e} (rule {AMAX_TOL})" if ch_cpu else "")
+              f"{sum(c.numel() for c in ch_cpu)}; the 8-bit slices' AbsMax elements and the "
+              f"0-d leaves within {worst_amax:.2e} (rule {AMAX_TOL})" if ch_cpu else "")
     log(f"[{tag}] card vs CPU, {cfg.n_layers} layers in f32, {TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ} "
         f"tokens: loss {loss_card:.7f} / {loss_cpu:.7f} (replayed {loss_rep:.7f}; CPU "
         f"{t_cpu:.1f} s); {f['primary']} primary act-quant flips, {f['differ']} codes differ of "
@@ -2076,6 +2331,9 @@ LOOP_WARMUP, LOOP_TIMED = 2, 5
 # of step LOOP_EVERY: the recovery restores optimizer step LOOP_EVERY + 1),
 # then a second Trainer resumes from the last checkpoint for the rest
 LOOP_STEPS, LOOP_EVERY, LOOP_POISON = 8, 4, 6
+# the lifecycle run and the resume take 8 of the 24 layers (checkpoints of
+# 5.9 GB, not 15.2), so that the whole run keeps room for [13]
+LOOP_LIFECYCLE_LAYERS = 8
 
 
 def _host_memory() -> str:
@@ -2216,6 +2474,7 @@ def phase_trainer(torch, smi: str) -> dict:
         # checkpoint's, a snapshot's nor the recovery's
         paths = {k: os.path.join(tmp, k) for k in ("history.jsonl", "trace.jsonl", "heartbeat")}
         ck_dir = os.path.join(tmp, "ckpt")
+        cfg = dataclasses.replace(cfg, n_layers=LOOP_LIFECYCLE_LAYERS)
         with _CheckpointIO(torch) as io:
             a = Trainer(cfg, tcfg(probes=True, log_every=1, ckpt_every=LOOP_EVERY, ckpt_dir=ck_dir,
                                   sensitivity_every=LOOP_EVERY,
@@ -2336,6 +2595,9 @@ def phase_trainer(torch, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 EXPERTS = 8  # pquant-1.3b with N = 8, benchmarks/bench_memory.py's routed model
+# [12] runs 12 of the 24 layers (every layer alike, the launch counts per
+# layer as at full depth) so that the whole run keeps room for [13]
+EXPERTS_LAYERS = 12
 # (c): [8] (a)'s load, paged on the kernel route and dense: (name, layout,
 # REPRO_PAGED_ATTN)
 E_CB_CONFIGS = (("kernel", "paged", "auto"), ("dense", "dense", "auto"))
@@ -2348,7 +2610,8 @@ def _experts_model(torch):
     from repro_torch.models import api
     from repro_torch.train.quantized_serving import quantize_params_for_serving
 
-    cfg = get_config("pquant-1.3b", n_experts=EXPERTS)
+    cfg = dataclasses.replace(get_config("pquant-1.3b", n_experts=EXPERTS),
+                              n_layers=EXPERTS_LAYERS)
     t0 = time.perf_counter()
     latent = api.init_model(SEED, cfg, device=torch.device("cuda"))
     params = quantize_params_for_serving(latent, cfg, packed=True)
@@ -2385,8 +2648,9 @@ def phase_experts_serving(torch, cfg, params) -> tuple[dict, dict]:
     del logits, caches, step_logits
     eng = DecodeEngine(params, cfg, max_len=PROMPT + NEW_TOKENS, device=dev)
     # the counted run warms the engine for the timed ones
-    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg,
-                                            dict(none, w1a8_gemv=7), "12")
+    stream, launches, _ = _counted_generate(
+        torch, eng, prompts, greedy,
+        *_layer_launches(cfg, dict(none, w1a8_gemv=7), greedy.max_new_tokens), "12")
     ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream)
     log(f"[12] (a) decode tier, {BATCH} x {PROMPT} tokens, {NEW_TOKENS} new: {line}")
     busy = _device_trace_time(torch, lambda: eng.generate(prompts, greedy), t_gen, "12",
@@ -2411,8 +2675,9 @@ def phase_experts_serving(torch, cfg, params) -> tuple[dict, dict]:
         raise AssertionError("non-finite logits")
     del logits
     eng = DecodeEngine(params, cfg, max_len=max_len, device=dev)
-    stream, launches, _ = _counted_generate(torch, eng, prompts, greedy, cfg,
-                                            dict(none, w1a8_matmul=7), "12")
+    stream, launches, _ = _counted_generate(
+        torch, eng, prompts, greedy,
+        *_layer_launches(cfg, dict(none, w1a8_matmul=7), greedy.max_new_tokens), "12")
     ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream, P_TIMED_RUNS)
     log(f"[12] (b) prefill tier, {P_BATCH} x {P_PROMPT} tokens, {P_NEW_TOKENS} new: {line}")
     cap = routing.expert_capacity(P_BATCH * P_PROMPT, routing.RouterConfig(num_experts=EXPERTS))
@@ -2458,15 +2723,24 @@ def phase_experts_serving(torch, cfg, params) -> tuple[dict, dict]:
     return total, summary
 
 
-def phase_experts_train(torch, smi: str) -> dict:
-    """[12] (e): ``make_train_step`` on the routed model at [10]'s shape."""
-    from repro_torch.configs.base import param_count
-    from repro_torch.configs.registry import get_config
+def _routed_train(torch, smi: str, cfg, tag: str, part: str, batch: int, seq: int,
+                  n_timed: int, watch, active) -> dict:
+    """``make_train_step`` on a routed model (bf16 forward, remat) at
+    ``batch`` x ``seq`` tokens: TRAIN_WARMUP warm-up steps, ``n_timed``
+    timed, one profiled.  ``watch(params)`` gives ({name: a layer-stacked
+    leaf of the first routed layer}, the names whose slice e is expert
+    e's): step 0 (lr 0) moves none of them at that layer; step 1 moves
+    every one, an expert's slice wherever that expert took a token in the
+    step's forward.  ``active(n)`` gives (the parameters active a token,
+    how they were counted).  Checks finite losses, the first within ln V
+    +- 1.5, no host sync in a step, ``qat_router_entropy`` in [0, 1] and
+    aux > 0.  Returns the summary."""
     from repro_torch.models import api
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import trainer
 
-    cfg = get_config("pquant-1.3b", n_experts=EXPERTS)
+    if cfg.dtype != "bfloat16" or not cfg.remat:
+        raise AssertionError(f"{cfg.name}: dtype {cfg.dtype}, remat {cfg.remat}")
     dev = torch.device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2477,39 +2751,41 @@ def phase_experts_train(torch, smi: str) -> dict:
     state = trainer.init_train_state(SEED, cfg, device=dev)
     torch.cuda.synchronize()
     n = sum(p.numel() for p in tree_leaves(state.params))
-    pc = param_count(cfg)
-    n_active = n - pc["n_8bit"] * (EXPERTS - 1) // EXPERTS
-    log(f"[12] (e) {cfg.name} with {EXPERTS} experts: {n} parameters, {n_active} active a token "
-        f"(N_active = N - {EXPERTS - 1}/{EXPERTS} x n_8bit, n_8bit {pc['n_8bit']} from "
-        f"param_count); master + AdamW moments {(torch.cuda.memory_allocated() - base) / 1e9:.2f} "
-        f"GB, init {time.perf_counter() - t0:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+    n_active, how = active(n)
+    log(f"[{tag}] {part} {cfg.name}, {cfg.n_layers} layers: {n} parameters, {n_active} active "
+        f"a token ({how}); master + AdamW moments {(torch.cuda.memory_allocated() - base) / 1e9:.2f} "
+        f"GB, init {time.perf_counter() - t0:.1f} s; {batch} x {seq} tokens a step, "
         f"{cfg.dtype} forward, remat {cfg.remat}")
     step = trainer.make_train_step(cfg, TRAIN_TOTAL_STEPS)
-    batches = [_train_batch(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, SEED + i, dev)
-               for i in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
-    ffn = state.params["segments"][0]["b0"]["ffn"]
-    before = {"router": ffn["router"]["w"][0].clone(), "w8_up": ffn["w8_up"][0].clone(),
-              "w8_down": ffn["w8_down"][0].clone()}
+    batches = [_train_batch(torch, cfg.vocab_size, batch, seq, SEED + i, dev)
+               for i in range(TRAIN_WARMUP + n_timed + 1)]
+    watched, per_expert = watch(state.params)
+    before = {name: t[0].clone() for name, t in watched.items()}
     mets, walls = [], []
-    for i, batch in enumerate(batches[:-1]):
+    for i, b in enumerate(batches[:-1]):
         torch.cuda.synchronize()
         t = time.perf_counter()
         with _ExpertChoices() if i == 1 else contextlib.nullcontext() as routed:
-            state, m = step(state, batch)
+            state, m = step(state, b)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         mets.append(m)
-        if i == 0 and not torch.equal(before["router"], ffn["router"]["w"][0]):
-            raise AssertionError("a step at lr 0 moved the router")
-        if i == 1:  # lr > 0: the router and every expert of layer 0 that took a token
+        if i == 0:
+            moved = [name for name, t in watched.items() if not torch.equal(before[name], t[0])]
+            if moved:
+                raise AssertionError(f"a step at lr 0 moved {moved}")
+        if i == 1:  # lr > 0; the choices of the step's forward (remat's rerun follows)
             used = sorted(set(routed.choices[0].flatten().tolist()))
-            still = [e for e in used for k in ("w8_up", "w8_down")
-                     if torch.equal(before[k][e], ffn[k][0][e])]
-            if torch.equal(before["router"], ffn["router"]["w"][0]) or still:
-                raise AssertionError(f"step 1 left the router or experts {still} unmoved")
-            log(f"[12] (e) step 1 moved layer 0's router and its experts {used} (those that "
-                "took tokens in the step's forward)")
-    del before
+            still = [name for name in watched if name not in per_expert
+                     and torch.equal(before[name], watched[name][0])]
+            still += [(name, e) for e in used for name in per_expert
+                      if torch.equal(before[name][e], watched[name][0][e])]
+            if still:
+                raise AssertionError(f"step 1 left {still} unmoved")
+            log(f"[{tag}] {part} step 1 moved the first routed layer's {sorted(watched)}, each "
+                f"expert's slice of {list(per_expert)} for the {len(used)} experts that took "
+                "tokens in the step's forward")
+    del before, watched
     timed = walls[TRAIN_WARMUP:]
     wall = statistics.median(timed)
     # as [10]: the mode must catch the sync of an .item() (its first use
@@ -2519,7 +2795,7 @@ def phase_experts_train(torch, smi: str) -> dict:
     syncs = _syncs(torch, lambda: step(state, batches[-2]))
     if syncs:
         raise AssertionError(f"{len(syncs)} host syncs in a step, the first: {syncs[0]}")
-    busy = _device_trace_time(torch, lambda: step(state, batches[-1]), wall, "12", "step",
+    busy = _device_trace_time(torch, lambda: step(state, batches[-1]), wall, tag, "step",
                               top=14)
     peak = torch.cuda.max_memory_allocated()
     vals = {k: torch.stack([m[k] for m in mets]).tolist() for k in mets[0]}
@@ -2532,41 +2808,65 @@ def phase_experts_train(torch, smi: str) -> dict:
         _, lm = api.loss_fn(trainer.cast_for_forward(state.params, torch.bfloat16), batches[0],
                             cfg)
     aux = lm["aux"].item()
-    if not (math.isfinite(aux) and aux > 0):
-        raise AssertionError(f"aux {aux}")
     probe_step = trainer.make_train_step(cfg, TRAIN_TOTAL_STEPS, probes=True)
     _, pm = probe_step(state, batches[0])
     entropy = pm["qat_router_entropy"].item()
-    if not (math.isfinite(entropy) and 0.0 <= entropy <= 1.0):
-        raise AssertionError(f"qat_router_entropy {entropy}")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    model_flops, _ = _train_flops(cfg, n_active, TRAIN_BATCH, TRAIN_SEQ)
-    log(f"[12] (e) losses {[round(v, 4) for v in vals['loss']]}; grad_norm "
-        f"{[round(v, 4) for v in vals['grad_norm']]}; aux (after the steps) {aux:.6f}; "
-        f"qat_router_entropy {entropy:.6f}")
-    log(f"[12] (e) step wall (synchronized, host clock) over {TRAIN_TIMED} steps: median "
+    if not (math.isfinite(aux) and aux > 0 and math.isfinite(entropy) and 0 <= entropy <= 1):
+        raise AssertionError(f"aux {aux}, qat_router_entropy {entropy}")
+    tokens = batch * seq
+    # the matmul parameters: an untied input embedding is a gather
+    n_matmul = n_active - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    model_flops, _ = _train_flops(cfg, n_matmul, batch, seq)
+    log(f"[{tag}] {part} losses {[round(v, 4) for v in vals['loss']]} (ln V "
+        f"{math.log(cfg.vocab_size):.4f}); grad_norm {[round(v, 4) for v in vals['grad_norm']]}; "
+        f"aux (after the steps) {aux:.6f}; qat_router_entropy {entropy:.6f}")
+    log(f"[{tag}] {part} step wall (synchronized, host clock) over {n_timed} steps: median "
         f"{wall * 1e3:.1f} ms (min {min(timed) * 1e3:.1f}, max {max(timed) * 1e3:.1f}); "
-        f"{tokens / wall:.0f} tokens/s; peak memory {(peak - base) / 1e9:.2f} GB over the "
-        f"{base / 1e9:.2f} GB held before (max_memory_allocated {peak / 1e9:.2f} GB)")
-    log(f"[12] (e) model FLOPs a step = 6 x N_active x tokens + 12 x layers x batch x seq^2 x "
-        f"d_model = 6 x {n_active} x {tokens} + 12 x {cfg.n_layers} x {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ}^2 x {cfg.d_model} = {model_flops / 1e12:.2f} TFLOP: "
+        f"{tokens / wall:.0f} tokens/s; no host sync in a step; peak memory "
+        f"{(peak - base) / 1e9:.2f} GB over the {base / 1e9:.2f} GB held before "
+        f"(max_memory_allocated {peak / 1e9:.2f} GB)")
+    log(f"[{tag}] {part} model FLOPs a step = 6 x N x tokens + 12 x layers x batch x seq^2 x "
+        f"d_model, N the active matmul parameters = 6 x {n_matmul} x {tokens} + 12 x {cfg.n_layers} x "
+        f"{batch} x {seq}^2 x {cfg.d_model} = {model_flops / 1e12:.2f} TFLOP: "
         f"{model_flops / wall / 1e12:.1f} TFLOP/s, {100 * model_flops / wall / 989e12:.1f}% of "
         f"the bf16 dense peak 989 TFLOP/s (card: {smi})")
     del state, step, probe_step, batches
     gc.collect()
     torch.cuda.empty_cache()
     return {"ms_per_step": wall * 1e3, "ms_steps": [w * 1e3 for w in timed],
-            "tokens_per_s": tokens / wall, "peak_gb": (peak - base) / 1e9,
+            "tokens_per_s": tokens / wall, "peak_gb": (peak - base) / 1e9, "params": n,
             "active_params": n_active, "model_tflop": model_flops / 1e12,
             "tflop_per_s": model_flops / wall / 1e12, "device_busy": busy / wall,
             "losses": vals["loss"], "aux": aux, "router_entropy": entropy}
 
 
+def phase_experts_train(torch, smi: str) -> dict:
+    """[12] (e): ``make_train_step`` on the routed model at [10]'s shape."""
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config("pquant-1.3b", n_experts=EXPERTS),
+                              n_layers=EXPERTS_LAYERS)
+    n_8bit = param_count(cfg)["n_8bit"]
+
+    def watch(params):
+        ffn = params["segments"][0]["b0"]["ffn"]
+        return ({"router": ffn["router"]["w"], "w8_up": ffn["w8_up"],
+                 "w8_down": ffn["w8_down"]}, ("w8_up", "w8_down"))
+
+    def active(n):
+        return (n - n_8bit * (EXPERTS - 1) // EXPERTS,
+                f"N - {EXPERTS - 1}/{EXPERTS} x n_8bit, n_8bit {n_8bit} from param_count")
+
+    return _routed_train(torch, smi, cfg, "12", "(e)", TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED,
+                         watch, active)
+
+
 def phase_experts(torch, smi: str) -> tuple[dict, dict]:
     """Phase 12: pquant-1.3b with EXPERTS routed 8-bit experts at full width
-    and depth, served ((a)-(c)), cut to 2 layers on the card and the CPU
-    ((d)), trained ((e)) and its gradients held card vs CPU ((f)).
+    (EXPERTS_LAYERS of its layers), served ((a)-(c)), cut to 2 layers on
+    the card and the CPU ((d)), trained ((e)) and its gradients held card
+    vs CPU ((f)).
     Returns ({kernel: launches of the counted runs}, summary)."""
     t0 = time.perf_counter()
     cfg, params, nbytes = _experts_model(torch)
@@ -2586,6 +2886,315 @@ def phase_experts(torch, smi: str) -> tuple[dict, dict]:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: DeepSeek-MoE (models/moe.py)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-moe-16b"
+# (a): the layer-by-layer export held to the one-shot export of the same
+# latents on a cut of 1 dense + 2 MoE layers (the MoE segment stacked)
+MOE_EXPORT_CHECK_LAYERS = 3
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 8, 16  # (b) the decode tier
+MOE_P_BATCH, MOE_P_PROMPT, MOE_P_NEW = 16, 256, 8  # (c) the prefill tier: 4096 rows
+MOE_TIMED_RUNS = 3
+# (b)'s busy share: a generate of this many new tokens, profiled (a trace
+# of the full generate's 87k launches takes the profiler about half a
+# minute), against the wall of the same generate unprofiled
+MOE_PROFILED_NEW = 4
+# (d): 4 slots of 160 positions, 8 requests (4 at tick 0, then one a
+# tick), prompts of 16-128 tokens, 8-16 new
+MOE_CB = CBLoad(4, 160, 8, 4, (16, 128), (8, 16))
+MOE_CUT_LAYERS = 2  # (e) and (f)'s gradient cut: the dense layer and one MoE layer
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048  # (f): 1 dense + 3 MoE
+MOE_TRAIN_TIMED = 3
+
+
+MOE_KERNELS = ("w1a8_gemv", "decoupled_gemv", "int8_matmul", "w1a8_matmul", "decoupled_matmul")
+
+
+def _moe_forward_launches(cfg, tier: str) -> dict:
+    """Kernel launches of one packed forward of an MoE config whose every
+    linear sees ``tier``'s rows ("decode": at most 32, "prefill": more):
+    each layer's q/k/v/o and its FFN's 1-bit down projection (the dense
+    FFN's, or the shared experts') on the W1A8 kernel, its two up/gate
+    pairs on the fused kernel and its 8-bit down projection on
+    ``int8_matmul``; each MoE layer's experts one W1A8 call a slice and
+    linear (upstream's ``_experts_apply_packed``)."""
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    one, two = (("w1a8_gemv", "decoupled_gemv") if tier == "decode"
+                else ("w1a8_matmul", "decoupled_matmul"))
+    return dict({k: 0 for k in MOE_KERNELS},
+                **{one: 5 * cfg.n_layers + (3 if cfg.glu else 2) * cfg.n_routed_experts * n_moe,
+                   two: 2 * cfg.n_layers, "int8_matmul": cfg.n_layers})
+
+
+def _add(a: dict, b: dict, times: int = 1) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = out.get(k, 0) + v * times
+    return out
+
+
+def _stack_trees(torch, trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees(torch, [t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _moe_export(torch, cfg, one_shot: bool = False):
+    """``cfg``'s packed serving export from SEED, made on the card one layer
+    at a time: each block's latent params from a generator of its own,
+    exported alone by ``quantize_params_for_serving`` (which exports every
+    slice of a stack on its own), the exports stacked on the layer axis;
+    the embedding, the final norm and the untied head stay float.  With
+    ``one_shot`` the latent blocks are stacked first, from the same
+    generators, and the whole latent tree exported at once: the reference
+    the layer-by-layer export must equal (its 16.4e9 f32 latents fit on
+    the card only as a cut)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_embedding, init_rmsnorm
+    from repro_torch.train.quantized_serving import quantize_params_for_serving as export
+
+    dev = torch.device("cuda")
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(SEED * 1000 + i)
+
+    segs, layer = [], 0
+    for seg in transformer.build_segments(cfg):
+        reps = []
+        for _ in range(seg.repeats):
+            block = {f"b{bi}": transformer._init_block(gen(1 + layer + bi), spec, cfg, (), dev)
+                     for bi, spec in enumerate(seg.blocks)}
+            layer += len(seg.blocks)
+            reps.append(block if one_shot else export(block, cfg, packed=True))
+            del block
+        segs.append(reps[0] if seg.repeats == 1 else _stack_trees(torch, reps))
+        del reps
+    tree = {"embed": init_embedding(gen(0), cfg.vocab_size, cfg.d_model, dev), "segments": segs,
+            "final_norm": init_rmsnorm(cfg.d_model, (), dev),
+            "lm_head": init_embedding(gen(cfg.n_layers + 1), cfg.vocab_size, cfg.d_model, dev)}
+    return export(tree, cfg, packed=True) if one_shot else tree
+
+
+def phase_moe_export(torch, cfg):
+    """[13] (a): the export layer by layer, held leaf for leaf, exactly, to
+    the one-shot export on a cut of MOE_EXPORT_CHECK_LAYERS layers; then
+    the full model's.  Returns (params, bytes)."""
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=MOE_EXPORT_CHECK_LAYERS)
+    a = dict(_tree_paths(_moe_export(torch, cut)))
+    b = dict(_tree_paths(_moe_export(torch, cut, one_shot=True)))
+    if list(a) != list(b):
+        raise AssertionError(f"export trees differ: {sorted(set(a) ^ set(b))}")
+    differ = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"the layer-by-layer export differs from the one-shot export at "
+                             f"{differ}")
+    stacked = [k for k in a if k.startswith("/segments/1/") and a[k].ndim and
+               a[k].shape[0] == MOE_EXPORT_CHECK_LAYERS - cfg.first_k_dense]
+    log(f"[13] (a) {MOE_EXPORT_CHECK_LAYERS}-layer cut: the layer-by-layer export equals the "
+        f"one-shot export of the same latents leaf for leaf, bit for bit ({len(a)} leaves, "
+        f"{len(stacked)} of them stacked over its 2 MoE layers); {time.perf_counter() - t0:.1f} s")
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = _moe_export(torch, cfg)
+    torch.cuda.synchronize()
+    leaves = dict(_tree_paths(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    by_kind = {}
+    for k, t in leaves.items():
+        kind = ("packed 1-bit" if t.dtype == torch.uint8 else "int8" if t.dtype == torch.int8
+                else "float")
+        by_kind[kind] = by_kind.get(kind, 0) + t.numel() * t.element_size()
+    log(f"[13] (a) {cfg.name}: {cfg.n_layers} layers ({cfg.first_k_dense} dense, d_ff "
+        f"{cfg.d_ff}; {cfg.n_layers - cfg.first_k_dense} MoE: {cfg.n_routed_experts} experts "
+        f"top-{cfg.moe_top_k} of width {cfg.d_ff_expert}, {cfg.n_shared_experts} shared), "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, r {cfg.quant.r}, vocab "
+        f"{cfg.vocab_size} untied; exported layer by layer in {time.perf_counter() - t0:.1f} s: "
+        f"{nbytes / 1e9:.3f} GB (" + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in by_kind.items())
+        + f"); device memory held {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return params, nbytes
+
+
+def phase_moe_serving(torch, cfg, params) -> tuple[dict, dict]:
+    """[13] (b)-(d): DecodeEngine at the decode tier and at the prefill
+    tier, and the continuous batcher on the paged kernel route and dense.
+    Returns ({kernel: launches summed over the counted runs}, summary)."""
+    from repro_torch.core import routing
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import api
+    from repro_torch.serve.engine import DecodeEngine, SamplerConfig
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    summary, total = {}, {}
+    decode = _moe_forward_launches(cfg, "decode")
+    # (b) the decode tier
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED))
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=MOE_NEW)
+    max_len = MOE_PROMPT + MOE_NEW
+    logits, caches = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, max_len)
+    step_logits, _ = api.decode_step(params, logits.argmax(-1)[:, None], caches, MOE_PROMPT, cfg)
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
+        raise AssertionError("non-finite logits")
+    del logits, caches, step_logits
+    eng = DecodeEngine(params, cfg, max_len=max_len, device=dev)
+    stream, launches, _ = _counted_generate(
+        torch, eng, prompts, greedy, _add({}, decode, MOE_NEW),
+        f"(b) decode tier: {MOE_NEW} forwards x {decode} (no other kernel)", "13")
+    ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream, MOE_TIMED_RUNS)
+    log(f"[13] (b) decode tier, {MOE_BATCH} x {MOE_PROMPT} tokens, {MOE_NEW} new: {line}")
+    log(f"[13] (b) stream (request 0): {stream[0].tolist()}")
+    short = dataclasses.replace(greedy, max_new_tokens=MOE_PROFILED_NEW)
+    t0 = time.perf_counter()
+    eng.generate(prompts, short)
+    t_short = time.perf_counter() - t0
+    busy = _device_trace_time(torch, lambda: eng.generate(prompts, short), t_short, "13",
+                              f"generate of {MOE_PROFILED_NEW} new tokens", top=10)
+    summary["decode"] = {"ttft_ms": ttft * 1e3,
+                         "ms_per_step": (t_gen - ttft) / (MOE_NEW - 1) * 1e3,
+                         "tokens_per_s": MOE_BATCH * (MOE_NEW - 1) / (t_gen - ttft),
+                         "device_busy_share": busy / t_short, "launches": launches}
+    total = _add(total, launches)
+    del eng
+    log(f"[time] [13] (b) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (c) the prefill tier: 4096 prefill rows (capacity 480 an expert),
+    # then decode at 16 rows
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_P_BATCH, MOE_P_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 2))
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=MOE_P_NEW)
+    max_len = MOE_P_PROMPT + MOE_P_NEW
+    prefill = _moe_forward_launches(cfg, "prefill")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with _Drops(torch) as drops:
+        logits, _ = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, max_len)
+    got = dict(_cuda.LAUNCHES)
+    if got != {k: v for k, v in prefill.items() if v} or not torch.isfinite(logits).all():
+        raise AssertionError(f"(c) prefill: launches {got}, want {prefill}; or non-finite logits")
+    dropped = int(drops.total.item())
+    del logits
+    log(f"[13] (c) one prefill of {MOE_P_BATCH * MOE_P_PROMPT} rows: launches {got}, as "
+        "predicted")
+    eng = DecodeEngine(params, cfg, max_len=max_len, device=dev)
+    stream, launches, _ = _counted_generate(
+        torch, eng, prompts, greedy, _add(prefill, decode, MOE_P_NEW - 1),
+        f"(c) prefill tier: 1 prefill forward x {prefill} + {MOE_P_NEW - 1} decode forwards x "
+        f"{decode}", "13")
+    ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream, MOE_TIMED_RUNS)
+    log(f"[13] (c) prefill tier, {MOE_P_BATCH} x {MOE_P_PROMPT} tokens, {MOE_P_NEW} new: {line}")
+    rcfg = routing.RouterConfig(num_experts=cfg.n_routed_experts, top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.moe_capacity_factor)
+    cap = routing.expert_capacity(MOE_P_BATCH * MOE_P_PROMPT, rcfg)
+    routings = MOE_P_BATCH * MOE_P_PROMPT * cfg.moe_top_k * drops.routers
+    log(f"[13] (c) routings dropped by capacity in the prefill: {dropped} of {routings} "
+        f"({100 * dropped / routings:.2f}%) over {drops.routers} routers ({cfg.moe_top_k} a token, "
+        f"capacity {cap} an expert)")
+    summary["prefill"] = {"ttft_ms": ttft * 1e3,
+                          "ms_per_step": (t_gen - ttft) / (MOE_P_NEW - 1) * 1e3,
+                          "tokens_per_s": MOE_P_BATCH * (MOE_P_NEW - 1) / (t_gen - ttft),
+                          "dropped_routings": dropped, "routings": routings,
+                          "launches": launches}
+    total = _add(total, launches)
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[time] [13] (c) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (d) continuous batching: paged on the kernel route, and dense
+    streams = {}
+    for name, layout, env in E_CB_CONFIGS:
+        rec, st, reasons, _ = _cb_run(torch, params, cfg, name, layout, None, 1, env, MOE_CB)
+        rec.pop("step_walls")
+        streams[name] = st
+        if sorted(st) != list(range(MOE_CB.requests)) or set(reasons) != {"length"}:
+            raise AssertionError(f"(d) {name}: requests did not each finish once by length")
+        if rec["free_blocks"] is not None and rec["free_blocks"] != rec["num_blocks"]:
+            raise AssertionError(f"(d) {name}: blocks left allocated after the run")
+        pa = rec["launches"].get("paged_attention", 0)
+        want = cfg.n_layers * rec["decode_steps"] if layout == "paged" else 0
+        if pa != want:
+            raise AssertionError(f"(d) {name}: paged_attention launched {pa} times, want {want}")
+        log(f"[13] (d) {name}: wall {rec['wall_s']:.2f} s, {rec['tokens_per_s']:.1f} tokens/s, "
+            f"TTFT p50 {rec['ttft_ms_p50']:.1f} / p99 {rec['ttft_ms_p99']:.1f} ms, "
+            f"{rec['engine_steps']} engine steps, {rec['decode_steps']} decode steps, launches "
+            f"{rec['launches']} (paged_attention at head_dim {cfg.head_dim}, {cfg.n_heads} heads: "
+            f"{pa} = {cfg.n_layers} layers x {rec['decode_steps']} decode steps)")
+        summary[f"continuous_{name}"] = {k: rec[k] for k in (
+            "wall_s", "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "engine_steps",
+            "decode_steps", "launches")}
+        if name == "kernel":
+            total = _add(total, rec["launches"])
+    load = _cb_load(cfg.vocab_size, MOE_CB)
+    summary["continuous_kernel_vs_dense_equal"] = _compare_streams(
+        torch, params, cfg, load, streams["dense"], streams["kernel"], "(d) kernel route vs dense",
+        tag="13")
+    log(f"[time] [13] (d) done at {time.perf_counter() - t_start:.1f} s")
+    return total, summary
+
+
+def phase_moe_train(torch, smi: str) -> dict:
+    """[13] (f): ``make_train_step`` on a MOE_TRAIN_LAYERS-layer cut at full
+    width (bf16 forward, remat) at MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    e, k = cfg.n_routed_experts, cfg.moe_top_k
+    routed = (cfg.n_layers - cfg.first_k_dense) * 3 * e * cfg.d_model * cfg.d_ff_expert
+
+    def watch(params):
+        ffn = params["segments"][1]["b0"]["ffn"]  # the first MoE layer's, stacked
+        return ({"router": ffn["router"]["w"], "shared/w1_up": ffn["shared"]["w1_up"],
+                 "shared/w8_down": ffn["shared"]["w8_down"], "we_up": ffn["we_up"],
+                 "we_down": ffn["we_down"]}, ("we_up", "we_down"))
+
+    def active(n):
+        return n - routed * (e - k) // e, f"{k} of the {e} routed experts"
+
+    return _routed_train(torch, smi, cfg, "13", "(f)", MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                         MOE_TRAIN_TIMED, watch, active)
+
+
+def phase_moe(torch, smi: str) -> tuple[dict, dict]:
+    """Phase 13: deepseek-moe-16b at full width and depth, exported layer
+    by layer ((a)), served ((b)-(d)), cut to 2 layers on the card and the
+    CPU ((e)), trained on a 4-layer cut and its gradients held card vs CPU
+    on the 2-layer cut ((f)).  Returns ({kernel: launches of the counted
+    runs}, summary)."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    params, nbytes = phase_moe_export(torch, cfg)
+    log(f"[time] [13] (a) done at {time.perf_counter() - t0:.1f} s")
+    launches, summary = phase_moe_serving(torch, cfg, params)
+    summary["export_gb"] = nbytes / 1e9
+    # (e) card vs CPU on the dense layer and the first MoE layer
+    gpu = dict(params)
+    gpu["segments"] = [params["segments"][0],
+                       _tree(lambda t: t[0].contiguous(), params["segments"][1])]
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED))
+    phase_cut(torch, None, cfg, prompts, tag="13", decode_may_part=True,
+              cut=(gpu, dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS)), prefill_tier=False,
+              replay_choices=True)
+    log(f"[time] [13] (e) done at {time.perf_counter() - t0:.1f} s")
+    del params, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["train"] = phase_moe_train(torch, smi)
+    summary["train_cut"] = phase_train_cut(
+        torch, tag="13", cfg=dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS, dtype="float32",
+                                                 remat=False))
+    log(f"[time] [13] (f) done at {time.perf_counter() - t0:.1f} s")
+    summary["card"] = smi
+    return launches, summary
+
+
 def train(torch) -> int:
     """Phases 1, 10 and 11 alone: prints one JSON line of the summaries of
     phases 10 and 11."""
@@ -2597,6 +3206,20 @@ def train(torch) -> int:
     phase_train_cut(torch)
     loop = phase_trainer(torch, smi)
     print(json.dumps({"step": summary, "trainer": loop}))
+    return 0
+
+
+def moe(torch) -> int:
+    """Phases 1, 2 and 13 alone: prints one JSON line of phase 13's launch
+    counts and summary."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, _ = phase_card(torch)
+    t0 = phase_build(_cuda)
+    launches, summary = phase_moe(torch, smi)
+    log(f"[time] [13] done at {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches": launches, "moe": summary}, default=str))
     return 0
 
 
@@ -2768,6 +3391,9 @@ def main(torch) -> int:
     e_launches, e_summary = phase_experts(torch, smi)
     log(f"[12] summary: {json.dumps(e_summary, default=str)}")
     lap("[12]")
+    m_launches, m_summary = phase_moe(torch, smi)
+    log(f"[13] summary: {json.dumps(m_summary, default=str)}")
+    lap("[13]")
     c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
@@ -2782,7 +3408,9 @@ def main(torch) -> int:
     # path's f32 rows for rmsnorm_quant; paged_attention at phase 8's
     # decode shape); launches from each path's counted run: [4] decode,
     # [6] prefill, [8] continuous batching in configuration (a), [12] the
-    # routed experts' (a) decode, (b) prefill and (c) kernel-route runs
+    # routed experts' (a) decode, (b) prefill and (c) kernel-route runs,
+    # [13] deepseek-moe-16b's (b) decode, (c) prefill and generate and (d)
+    # kernel-route runs
     main_key = {
         "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
@@ -2799,7 +3427,8 @@ def main(torch) -> int:
         res = results[n]
         key = main_key[n]
         by_path = {"decode": launches.get(n, 0), "prefill": p_launches.get(n, 0),
-                   "continuous": c_launches.get(n, 0), "experts": e_launches.get(n, 0)}
+                   "continuous": c_launches.get(n, 0), "experts": e_launches.get(n, 0),
+                   "moe": m_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2828,6 +3457,8 @@ if __name__ == "__main__":
                     help="phases 1, 10 and 11 only (training; no kernel build)")
     ap.add_argument("--experts", action="store_true",
                     help="phases 1, 2 and 12 only (pquant-1.3b with 8 routed experts)")
+    ap.add_argument("--moe", action="store_true",
+                    help="phases 1, 2 and 13 only (deepseek-moe-16b)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -2841,6 +3472,8 @@ if __name__ == "__main__":
         sys.exit(train(torch))
     if args.experts:
         sys.exit(experts(torch))
+    if args.moe:
+        sys.exit(moe(torch))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
         sys.exit(one_kernel(torch, args.kernel, src))

@@ -1,11 +1,12 @@
 """Port of ``repro.configs.registry``: ``--arch <id>`` resolution and the
 reduced smoke configs.
 
-Only the paper's own decoder family is ported so far: the ``pquant-<size>``
+Ported so far: the paper's own decoder family, the ``pquant-<size>``
 entries (which take ``quant_mode=`` like upstream) and, as named
 shorthands for the same family under another quantization mode,
-``bitnet-<size>``, ``bitnet158-<size>`` and ``none-<size>``.  The other
-architectures of the JAX registry raise ``NotImplementedError``.
+``bitnet-<size>``, ``bitnet158-<size>`` and ``none-<size>``; and
+``deepseek-moe-16b``.  The other architectures of the JAX registry raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs import pquant_paper
+from repro_torch.configs import deepseek_moe_16b, pquant_paper
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, Callable[..., ModelConfig]] = {}
@@ -27,6 +28,7 @@ for _size in pquant_paper.SIZES:
                 _s, quant_mode=_m, **kw
             )
         )
+ARCHS["deepseek-moe-16b"] = deepseek_moe_16b.make
 
 # architectures the JAX registry serves that this package has not ported yet
 NOT_PORTED = (
@@ -36,7 +38,6 @@ NOT_PORTED = (
     "deepseek-coder-33b",
     "whisper-large-v3",
     "deepseek-v2-236b",
-    "deepseek-moe-16b",
     "phi-3-vision-4.2b",
     "mamba2-780m",
     "recurrentgemma-2b",

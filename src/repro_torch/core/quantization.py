@@ -162,6 +162,24 @@ def quantize_weights_int8(w: Tensor, axis: Optional[int] = None) -> tuple[Tensor
     return q / scale, scale
 
 
+def binarize_weights_stacked(w: Tensor, n_batch_axes: int = 1) -> tuple[Tensor, Tensor]:
+    """Per-slice 1-bit quantization of stacked (e.g. per-expert) weights
+    (N..., d_in, d_out) with ``n_batch_axes`` leading stack axes: mu and
+    lambda over every later axis, so each slice keeps its own scale."""
+    red = tuple(range(n_batch_axes, w.ndim))
+    mu = torch.mean(w, dim=red, keepdim=True)
+    lam = torch.mean(_abs(w), dim=red, keepdim=True) + EPS
+    return ste_sign(w - mu) * lam, lam
+
+
+def ternarize_weights_stacked(w: Tensor, n_batch_axes: int = 1) -> tuple[Tensor, Tensor]:
+    """Per-slice ternary AbsMean quantization of stacked weights."""
+    red = tuple(range(n_batch_axes, w.ndim))
+    lam = torch.mean(_abs(w), dim=red, keepdim=True) + EPS
+    q = clip(ste_round(w / lam), -1.0, 1.0)
+    return q * lam, lam
+
+
 def quantize_weights_int8_stacked(w, n_batch_axes: int = 1) -> tuple[Tensor, Tensor]:
     """Per-slice INT8 AbsMax for stacked weights.  Accepts the serving dict
     layout ({"q": int8, "scale"}), which it dequantizes directly."""
@@ -282,6 +300,18 @@ def fake_quant_linear_weights(w, cfg: QuantConfig) -> Tensor:
     if cfg.mode == "bitnet158":
         return ternarize_weights(w)[0]
     return cfg.binarize(w)[0]
+
+
+def fake_quant_stacked(w, cfg: QuantConfig, n_batch_axes: int = 1) -> Tensor:
+    """The backbone quantizer of stacked (per-expert) weights, per slice;
+    a serving dict layout is dequantized."""
+    if isinstance(w, dict):
+        return _dequant_stored(w)
+    if cfg.mode == "none":
+        return w
+    if cfg.mode == "bitnet158":
+        return ternarize_weights_stacked(w, n_batch_axes)[0]
+    return binarize_weights_stacked(w, n_batch_axes)[0]
 
 
 def maybe_quant_acts(x: Tensor, cfg: QuantConfig) -> Tensor:

@@ -12,8 +12,8 @@ a host sync: where upstream's scatter drops out-of-capacity writes
 
 Ties: ``jax.lax.top_k`` takes the lowest index among equal values, and so
 does :func:`_top_k` (``argmax`` promises the first maximal index on every
-device).  The one-hot dispatch (``einsum_dispatch_combine``) comes with the
-DeepSeek-MoE family, its only user.
+device).  The one-hot dispatch (:func:`einsum_dispatch_combine`) serves
+the DeepSeek-MoE family's ``moe_dispatch="einsum"``.
 """
 
 from __future__ import annotations
@@ -161,6 +161,48 @@ def combine_scatter(y_experts: Tensor, dispatch: dict, num_tokens: int) -> Tenso
     rows = yz.reshape(n * (c + 1), d).index_select(0, flat)
     w = dispatch["combine_weight"].reshape(-1, 1).to(rows.dtype)
     return torch.sum((rows * w).reshape(num_tokens, k, d), dim=1)
+
+
+def einsum_dispatch_combine(probs: Tensor, cfg: RouterConfig, group_size: int):
+    """Grouped one-hot dispatch (Switch / Mesh-TF style), as upstream:
+    probs (T, E) with T a multiple of ``group_size`` S ->
+    (combine (G, S, E, C), dispatch (G, S, E, C), aux_loss), C the
+    capacity of a group of S tokens.
+
+    A (token, slot)'s rank within its expert is the count of earlier
+    (token, slot) pairs of its group, in (s, k) order, that chose it (the
+    one-hot's cumsum less itself).  The kept gates are scattered into
+    ``combine``; a dropped slot adds 0 at rank 0, as upstream's
+    ``.at[...].add``.  A token's k experts differ, so no two slots add to
+    one element.  ``dispatch`` is ``combine > 0``; the aux loss is the
+    sort path's (:func:`topk_dispatch`)."""
+    t, e = probs.shape
+    k, s = cfg.top_k, group_size
+    if t % s:
+        raise ValueError(f"{t} tokens do not divide into groups of {s}")
+    g = t // s
+    dev = probs.device
+    gate, idx = _top_k(probs.reshape(g, s, e), k)  # (g, s, k)
+
+    oh = torch.nn.functional.one_hot(idx, e).float().reshape(g, s * k, e)
+    pos_before = torch.cumsum(oh, dim=1) - oh
+    rank = torch.sum(pos_before * oh, dim=-1).long().reshape(g, s, k)
+    c = expert_capacity(s, cfg)
+    kept = rank < c
+
+    zero = torch.zeros((), dtype=probs.dtype, device=dev)
+    gs = torch.arange(g * s, device=dev).reshape(g, s, 1)
+    flat = (gs * e + idx) * c + torch.where(kept, rank, 0)
+    combine = torch.zeros(g * s * e * c, dtype=probs.dtype, device=dev).scatter_add(
+        0, flat.reshape(-1), torch.where(kept, gate, zero).reshape(-1)).reshape(g, s, e, c)
+    dispatch = (combine > 0).to(probs.dtype)
+
+    me = fdiv(torch.sum(probs, dim=0), float(t))
+    top1 = torch.zeros(e, dtype=probs.dtype, device=dev).scatter_add(
+        0, idx.reshape(-1, k)[:, 0], torch.ones(t, dtype=probs.dtype, device=dev))
+    ce = fdiv(top1, float(t))
+    aux = torch.sum(me * ce) * e * cfg.aux_loss_weight
+    return combine, dispatch, aux
 
 
 def route_and_apply(router_params, x: Tensor, cfg: RouterConfig,

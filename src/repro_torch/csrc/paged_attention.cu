@@ -143,49 +143,6 @@ struct Plan {
   int mb;      // table width
 };
 
-inline Plan make_plan(int b, int t, int hq, int hkv, int d, int mb) {
-  const int tg = t * (hq / hkv);
-  Plan p;
-  p.tile = tg >= kTileRows / 2 && d % 32 == 0 && d <= kMaxD;
-  if (p.tile) {
-    p.rows = kTileRows;
-  } else {
-    p.rows = 1;
-    while (p.rows < tg && p.rows < kSplitRows) p.rows <<= 1;
-  }
-  const long groups = (long)b * hkv * ((tg + p.rows - 1) / p.rows);
-  const long target = p.tile ? kTileTargetBlocks : kTargetBlocks;
-  p.splits = 1;
-  while (p.splits < kMaxSplits && groups * p.splits < target &&
-         (mb + 2 * p.splits - 1) / (2 * p.splits) >= kMinPages)
-    p.splits <<= 1;
-  if (PA_SPLITS) p.splits = PA_SPLITS;
-  p.mb = mb;
-  return p;
-}
-
-// The largest power of two up to 32 that divides the block size.
-inline int column_group(int bs) {
-  int cg = 1;
-  while (cg < 32 && bs % (2 * cg) == 0) cg <<= 1;
-  return cg;
-}
-
-// Columns a split-route pass scores: a warp's 32 lanes take `rows` rows
-// of cg columns (cg dividing the block size), the rest split D.
-inline int split_cg(int rows, int bs) {
-  const int cg = column_group(bs);
-  return cg < 32 / rows ? cg : 32 / rows;
-}
-
-// XOR mask of the staged rows' chunks: the largest 2^k - 1 with 2^k <= 8
-// dividing the chunks of a row.
-inline int swizzle_mask(int units) {
-  int s = 1;
-  while (s < 8 && units % (2 * s) == 0) s <<= 1;
-  return s - 1;
-}
-
 // ---- shared memory ----
 //   q     the block's query rows as f32 (rows x D)
 //   ring  the staged K/V rows (split: per warp 2 pages of K then V rows;
@@ -230,6 +187,53 @@ inline Layout make_layout(const Plan& p, int d, int bs, int elem) {
   l.tbl_off = l.bar_off + 8;
   l.total = l.tbl_off + p.mb * 4;
   return l;
+}
+
+inline Plan make_plan(int b, int t, int hq, int hkv, int d, int mb) {
+  const int tg = t * (hq / hkv);
+  Plan p;
+  p.tile = tg >= kTileRows / 2 && d % 32 == 0 && d <= kMaxD;
+  if (p.tile) {
+    p.rows = kTileRows;
+  } else {
+    p.rows = 1;
+    while (p.rows < tg && p.rows < kSplitRows) p.rows <<= 1;
+  }
+  const long groups = (long)b * hkv * ((tg + p.rows - 1) / p.rows);
+  const long target = p.tile ? kTileTargetBlocks : kTargetBlocks;
+  p.splits = 1;
+  while (p.splits < kMaxSplits && groups * p.splits < target &&
+         (mb + 2 * p.splits - 1) / (2 * p.splits) >= kMinPages)
+    p.splits <<= 1;
+  if (PA_SPLITS) p.splits = PA_SPLITS;
+  p.mb = mb;
+  // the tile route keeps a merge slot of 64 x (D + 2) floats for each split
+  // past the first: at D 128, 8 splits need 340 KB; halve them until a
+  // block's f32 layout fits (its layout does not depend on the block size)
+  while (p.tile && p.splits > 1 && make_layout(p, d, 1, 4).total > kMaxSmem) p.splits >>= 1;
+  return p;
+}
+
+// The largest power of two up to 32 that divides the block size.
+inline int column_group(int bs) {
+  int cg = 1;
+  while (cg < 32 && bs % (2 * cg) == 0) cg <<= 1;
+  return cg;
+}
+
+// Columns a split-route pass scores: a warp's 32 lanes take `rows` rows
+// of cg columns (cg dividing the block size), the rest split D.
+inline int split_cg(int rows, int bs) {
+  const int cg = column_group(bs);
+  return cg < 32 / rows ? cg : 32 / rows;
+}
+
+// XOR mask of the staged rows' chunks: the largest 2^k - 1 with 2^k <= 8
+// dividing the chunks of a row.
+inline int swizzle_mask(int units) {
+  int s = 1;
+  while (s < 8 && units % (2 * s) == 0) s <<= 1;
+  return s - 1;
 }
 
 struct Args {

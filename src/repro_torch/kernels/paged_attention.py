@@ -93,7 +93,9 @@ def paged_attention_plan(b: int, t: int, hq: int, hkv: int, d: int, mb: int) -> 
     ``csrc/paged_attention.cu``): the route, the query rows of a block, and
     the splits of each (slot, KV head)'s table, doubled from 1 while the
     grid has fewer than 256 blocks (tile route: 1024), a cluster fewer
-    than 8 and each split of the whole table keeps at least 2 pages."""
+    than 8 and each split of the whole table keeps at least 2 pages; on
+    the tile route then halved until a block's layout with f32 pools fits
+    its shared memory (at head_dim 128, 4 splits)."""
     tg = t * (hq // hkv)
     tile = tg >= _TILE_ROWS // 2 and d % 32 == 0 and d <= MAX_HEAD_DIM
     if tile:
@@ -108,6 +110,11 @@ def paged_attention_plan(b: int, t: int, hq: int, hkv: int, d: int, mb: int) -> 
     while (splits < _MAX_SPLITS and groups * splits < target
            and -(-mb // (2 * splits)) >= _MIN_PAGES):
         splits *= 2
+    # the tile route's merge slots (64 x (D + 2) floats a split past the
+    # first) must fit a block with f32 pools: halve the splits until they do
+    while tile and splits > 1 and smem_bytes(PagedPlan("tile", rows, splits), d, 1, 4,
+                                             mb) > _MAX_SMEM:
+        splits //= 2
     return PagedPlan("tile" if tile else "split", rows, splits)
 
 

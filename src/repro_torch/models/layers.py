@@ -66,15 +66,18 @@ def apply_rope(x: Tensor, sin: Tensor, cos: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_ffn(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=None):
+def init_ffn(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=None,
+             d_ff: int | None = None):
     """FFN parameters of one layer (``lead`` prepends the layer stack):
-    pquant mode builds the d_ff-wide 1-bit and r-wide 8-bit branches, other
-    modes a single branch (r = 0)."""
+    pquant mode builds the 1-bit branch of width ``d_ff`` (default
+    ``cfg.d_ff``) and the r-wide 8-bit branch, other modes a single branch
+    (r = 0)."""
     q = cfg.quant
+    width = cfg.d_ff if d_ff is None else d_ff
     r = q.r if q.mode == "pquant" else 0
     n = q.num_experts if q.mode == "pquant" else 1
     return init_decoupled_ffn(
-        gen, cfg.d_model, cfg.d_ff, r, num_experts=n, glu=cfg.glu, lead=lead,
+        gen, cfg.d_model, width, r, num_experts=n, glu=cfg.glu, lead=lead,
         device=device, alpha_init=q.alpha_init, beta_init=q.beta_init,
     )
 

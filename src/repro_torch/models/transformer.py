@@ -20,8 +20,10 @@ enabled, each layer runs under ``torch.utils.checkpoint`` (upstream's
 ``prefill`` is ``forward_chunk`` from an empty cache and ``decode_step``
 is ``forward_chunk`` with T=1; caches are updated in place.
 
-Other segment plans (MoE, sliding-window rings, MLA, SSM, hybrids,
-enc-dec) are not ported yet and raise ``NotImplementedError``.
+The MoE plan (DeepSeek-MoE: ``first_k_dense`` dense blocks, then MoE
+blocks, ``models/moe.py``) is ported; other segment plans (sliding-window
+rings, MLA, SSM, hybrids, enc-dec) are not yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_ffn,
     cross_entropy_loss,
@@ -58,7 +61,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
     mixer: str  # attn
-    ffn: str  # dense
+    ffn: str  # dense | moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,13 +71,18 @@ class Segment:
 
 
 def build_segments(cfg: ModelConfig) -> list[Segment]:
-    """The plain decoder: one segment of ``n_layers`` attention + dense-FFN
-    blocks with full attention."""
-    if (cfg.family != "decoder" or cfg.moe or cfg.attn_type != "full"
-            or cfg.global_every > 0):
+    """The full-attention decoder: one segment of ``n_layers`` attention +
+    dense-FFN blocks; with ``cfg.moe``, one segment of ``first_k_dense``
+    dense blocks (one repeat), then ``n_layers - first_k_dense`` repeats of
+    an MoE block."""
+    if cfg.family != "decoder" or cfg.attn_type != "full" or cfg.global_every > 0:
         raise NotImplementedError(
-            f"{cfg.name}: only the plain full-attention decoder is ported"
+            f"{cfg.name}: only the full-attention decoder (dense or MoE) is ported"
         )
+    if cfg.moe:
+        k = cfg.first_k_dense
+        segs = [Segment(1, tuple(BlockSpec("attn", "dense") for _ in range(k)))] if k else []
+        return segs + [Segment(cfg.n_layers - k, (BlockSpec("attn", "moe"),))]
     return [Segment(cfg.n_layers, (BlockSpec("attn", "dense"),))]
 
 
@@ -113,7 +121,10 @@ def _init_block(gen, spec: BlockSpec, cfg: ModelConfig, lead: tuple, device):
     params: dict[str, Any] = {"pre_norm": init_rmsnorm(cfg.d_model, lead, device)}
     params["mixer"] = attn_mod.init_attention(gen, cfg, lead, device)
     params["ffn_norm"] = init_rmsnorm(cfg.d_model, lead, device)
-    params["ffn"] = init_ffn(gen, cfg, lead, device)
+    if spec.ffn == "moe":
+        params["ffn"] = moe_mod.init_moe_ffn(gen, cfg, lead, device)
+    else:
+        params["ffn"] = init_ffn(gen, cfg, lead, device)
     return params
 
 
@@ -141,18 +152,27 @@ def init_model(seed, cfg: ModelConfig, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(bparams, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor):
+def _ffn(bparams, spec: BlockSpec, h: Tensor, cfg: ModelConfig):
+    """The block's FFN: (y, aux)."""
+    if spec.ffn == "moe":
+        return moe_mod.moe_ffn(bparams["ffn"], h, cfg)
+    return apply_ffn(bparams["ffn"], h, cfg)
+
+
+def _apply_block(bparams, spec: BlockSpec, x: Tensor, cfg: ModelConfig, sin: Tensor,
+                 cos: Tensor):
     h = rmsnorm(bparams["pre_norm"], x)
     x = x + attn_mod.attention(bparams["mixer"], h, cfg, sin, cos)
     h = rmsnorm(bparams["ffn_norm"], x)
-    y, aux = apply_ffn(bparams["ffn"], h, cfg)
+    y, aux = _ffn(bparams, spec, h, cfg)
     return x + y, aux
 
 
-def _apply_layer(layer, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor, n_blocks: int):
+def _apply_layer(layer, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor,
+                 specs: tuple[BlockSpec, ...]):
     aux_layer = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bi in range(n_blocks):
-        x, aux = _apply_block(layer[f"b{bi}"], x, cfg, sin, cos)
+    for bi, spec in enumerate(specs):
+        x, aux = _apply_block(layer[f"b{bi}"], spec, x, cfg, sin, cos)
         aux_layer = aux_layer + aux
     return x, aux_layer
 
@@ -168,13 +188,12 @@ def forward(params, batch: dict, cfg: ModelConfig):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for si, seg in enumerate(build_segments(cfg)):
-        n = len(seg.blocks)
         for layer in _seg_layers(seg, params["segments"][si]):
             if remat:  # the layer draws no random numbers: no RNG state to keep
-                x, aux = checkpoint(_apply_layer, layer, x, cfg, sin, cos, n,
+                x, aux = checkpoint(_apply_layer, layer, x, cfg, sin, cos, seg.blocks,
                                     use_reentrant=False, preserve_rng_state=False)
             else:
-                x, aux = _apply_layer(layer, x, cfg, sin, cos, n)
+                x, aux = _apply_layer(layer, x, cfg, sin, cos, seg.blocks)
             aux_total = aux_total + aux
     x = rmsnorm(params["final_norm"], x)
     head = params.get("lm_head", params["embed"])
@@ -229,7 +248,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return caches
 
 
-def _chunk_block(bparams, x, cache, pos, cfg, rope, active=None, lengths=None, read_to=None):
+def _chunk_block(bparams, spec, x, cache, pos, cfg, rope, active=None, lengths=None,
+                 read_to=None):
     h = rmsnorm(bparams["pre_norm"], x)
     y, cache = attn_mod.attention_chunk(
         bparams["mixer"], h, cache, pos, cfg, rope,
@@ -237,7 +257,7 @@ def _chunk_block(bparams, x, cache, pos, cfg, rope, active=None, lengths=None, r
     )
     x = x + y
     h = rmsnorm(bparams["ffn_norm"], x)
-    y, _ = apply_ffn(bparams["ffn"], h, cfg)
+    y, _ = _ffn(bparams, spec, h, cfg)  # serving drops the aux loss, as upstream
     return x + y, cache
 
 
@@ -251,9 +271,9 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
     for si, seg in enumerate(build_segments(cfg)):
         layers_c = _seg_layers(seg, caches[si])
         for r, layer in enumerate(_seg_layers(seg, params["segments"][si])):
-            for bi in range(len(seg.blocks)):
+            for bi, spec in enumerate(seg.blocks):
                 x, _ = _chunk_block(
-                    layer[f"b{bi}"], x, layers_c[r][f"b{bi}"], pos, cfg, rope,
+                    layer[f"b{bi}"], spec, x, layers_c[r][f"b{bi}"], pos, cfg, rope,
                     active, lengths, read_to,
                 )
     return x, caches
