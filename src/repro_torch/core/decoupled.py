@@ -33,9 +33,12 @@ from repro_torch.telemetry import probes
 
 Tensor = torch.Tensor
 
-# the paper's family uses SiLU (GLU); upstream's other activations come
-# with the architectures that use them
-ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {"silu": F.silu}
+ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
 
 
 def init_decoupled_ffn(

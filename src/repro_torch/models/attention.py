@@ -1,12 +1,15 @@
-"""Port of ``repro.models.attention``: full/GQA attention with the dense
-and the paged KV-cache adapters (sliding-window rings and MLA are not
+"""Port of ``repro.models.attention``: full/GQA and sliding-window
+attention with the dense, ring and paged KV-cache adapters (MLA is not
 ported yet).
 
 All projections are BitLinear; on packed serving weights every projection
 runs the W1A8 kernel tier (``repro_torch.core.bitlinear``).  Two cache
 layouts ride the same call sites:
 
-* dense — ``{"k", "v"}`` of shape (B, L, Hkv, D);
+* dense — ``{"k", "v"}`` of shape (B, L, Hkv, D); a sliding-window
+  layer keeps a RING of L = window positions, position p at slot p % L
+  (in both layouts: the window is small), whose chunks run token by token
+  (:func:`_ring_chunk`);
 * paged — ``{"kpool", "vpool", "table"}`` from ``repro_torch.serve.kv_pool``:
   a shared block pool plus per-slot block tables (the ``"table"`` key is
   the layout discriminator).  Paged scoring runs the paged-attention
@@ -91,21 +94,27 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
     return out.reshape(b, sq, hq, dv)
 
 
-def causal_mask(sq: int, skv: int, device=None) -> Tensor:
-    """(1, 1, Sq, Skv) boolean mask of full causal attention."""
-    i = torch.arange(sq, device=device)[:, None] + (skv - sq)
+def causal_mask(sq: int, skv: int, window: int = 0, device=None) -> Tensor:
+    """(1, 1, Sq, Skv) boolean causal mask; a ``window`` > 0 also limits
+    each query to the ``window`` latest positions, itself included (0 is
+    unlimited: a global layer)."""
+    i = torch.arange(sq, device=device)[:, None] + (skv - sq)  # absolute query positions
     j = torch.arange(skv, device=device)[None, :]
-    return (j <= i)[None, None]
+    m = j <= i
+    if window > 0:
+        m = m & ((i - j) < window)
+    return m[None, None]
 
 
-def attention(params, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor):
-    """Full-sequence causal attention (train / eval, no cache)."""
+def attention(params, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor, window: int = 0):
+    """Full-sequence causal attention (train / eval, no cache), over the
+    ``window`` latest positions where it is > 0."""
     q, k, v = _project_qkv(params, x, cfg)
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     s = x.shape[1]
-    return _out_proj(params, _sdpa(q, k, v, causal_mask(s, s, x.device)), cfg)
+    return _out_proj(params, _sdpa(q, k, v, causal_mask(s, s, window, x.device)), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +210,45 @@ def _span_mask(posmat: Tensor, skv: int) -> Tensor:
     return (j[None, None, :] <= posmat[..., None])[:, None]
 
 
+def _ring_write(flat: Tensor, rows: Tensor, new: Tensor, ok: Tensor | None) -> None:
+    """In place: one token per slot into a ring viewed as (B * L, ...), at
+    per-slot flat rows (B,) (each slot its own row, so no two entries
+    meet); a slot with ``ok`` False writes nothing."""
+    new = new.to(flat.dtype)
+    if ok is not None:
+        new = torch.where(ok.reshape((-1,) + (1,) * (new.ndim - 1)), new, flat[rows])
+    flat.index_put_((rows,), new)
+
+
+def _ring_chunk(q: Tensor, k: Tensor, v: Tensor, cache: dict, posmat: Tensor,
+                valid: Tensor | None):
+    """Sequential per-token chunk over a RING cache (sliding-window layer),
+    in place.  A parallel span write is wrong here: writing token p evicts
+    the resident key at p - L, which earlier queries of the same chunk
+    still attend.  Each token writes its slot p % L, then reads the ring
+    under the decode mask, so the chunk is, token for token, what T decode
+    steps compute (upstream's ``lax.scan`` becomes a loop over T; the
+    projections around it stay chunk-parallel).  q/k/v: (B, T, H, D);
+    posmat: (B|1, T).  Returns (out (B, T, Hq, D), cache)."""
+    b, t = q.shape[:2]
+    kc, vc = cache["k"], cache["v"]
+    l = kc.shape[1]
+    posmat = posmat.expand(b, t)
+    rows = torch.arange(b, device=q.device)[:, None] * l + (posmat % l).long()
+    # the decode mask of every step at once: slots 0..min(p, L - 1)
+    masks = torch.arange(l, device=q.device) <= torch.clamp(posmat, max=l - 1)[..., None]
+    kf = kc.view((b * l,) + tuple(kc.shape[2:]))
+    vf = vc.view((b * l,) + tuple(vc.shape[2:]))
+    outs = []
+    for i in range(t):
+        ok = None if valid is None else valid[:, i]
+        _ring_write(kf, rows[:, i], k[:, i], ok)
+        _ring_write(vf, rows[:, i], v[:, i], ok)
+        outs.append(_sdpa(q[:, i:i + 1], kc.to(q.dtype), vc.to(q.dtype),
+                          masks[:, i][:, None, None, :]))
+    return torch.cat(outs, dim=1), cache
+
+
 def _pos_vector(pos, b: int, device=None) -> Tensor:
     """(B,) int32 absolute position of each slot's first chunk token."""
     if not torch.is_tensor(pos):
@@ -237,15 +285,18 @@ def _paged_scores(q: Tensor, kpool: Tensor, vpool: Tensor, table: Tensor, posv: 
 
 def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
                     rope: tuple[Tensor, Tensor] | None, active: Tensor | None = None,
-                    lengths: Tensor | None = None, read_to: int | None = None):
+                    lengths: Tensor | None = None, read_to: int | None = None,
+                    ring: bool = False):
     """Cache-resident multi-token attention on the dense or paged cache:
     process T tokens per slot, write their K/V into the cache (in place —
     dense rows or pool pages) and let each
     query attend the resident prefix plus the in-chunk causal keys.  T = 1
     without ``lengths`` is :func:`attention_decode`.  ``read_to`` bounds
     the read when no position >= read_to can be attended.  ``rope`` is
-    :func:`rope_at` of this chunk (None when ``cfg.pos_embedding`` is not
-    rope).
+    :func:`rope_at` of this chunk at the layer's theta (None when
+    ``cfg.pos_embedding`` is not rope).  ``ring`` marks a sliding-window
+    layer, whose dense ring takes the sequential in-chunk path
+    (:func:`_ring_chunk`): the window is carried by the ring's length.
 
     Returns (y (B, T, D), cache)."""
     b, t = x.shape[:2]
@@ -267,6 +318,9 @@ def attention_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
         return _out_proj(params, out, cfg), cache
 
     valid = _chunk_valid(b, t, active, lengths, x.device)
+    if ring:  # ahead of the lockstep slice write, which drops rows past L
+        out, cache = _ring_chunk(q, k, v, cache, posmat, valid)
+        return _out_proj(params, out, cfg), cache
     skv = cache["k"].shape[1]
     lim = skv if read_to is None else min(read_to, skv)
     if valid is None and isinstance(pos, int):
@@ -287,8 +341,9 @@ def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
                      rope: tuple[Tensor, Tensor] | None, active: Tensor | None = None):
     """One-token decode step (in place).  x: (B, 1, D); ``rope`` is
     :func:`rope_at` of the step.  On the dense cache the write slot is
-    ``pos % L`` and the mask covers min(pos+1, L) slots; a paged cache
-    takes the token into its slot's page and scores via
+    ``pos % L`` and the mask covers min(pos+1, L) slots: a ring of length
+    W is the W-token sliding window, so no other window mask is needed; a
+    paged cache takes the token into its slot's page and scores via
     :func:`_paged_scores`."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg)

@@ -25,13 +25,22 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, device=None):
 
 
 def embed(params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    """Token embeddings (the ported family scales none: no gemma configs)."""
-    return params["table"][tokens]
+    """Token embeddings; the gemma family scales them by sqrt(d_model),
+    rounded to the table's type first, as upstream."""
+    x = params["table"][tokens]
+    if "gemma" in cfg.name:
+        x = x * torch.full((), cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    return x
 
 
 def unembed(params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Tied-table logits (no ported config sets ``logit_softcap``)."""
-    return x @ params["table"].T.to(x.dtype)
+    """Logits against the (tied or untied) table, soft-capped as
+    ``c * tanh(logits / c)`` where ``cfg.logit_softcap`` is set."""
+    logits = x @ params["table"].T.to(x.dtype)
+    if cfg.logit_softcap > 0:
+        c = torch.full((), cfg.logit_softcap, dtype=logits.dtype, device=logits.device)
+        logits = c * torch.tanh(fdiv(logits, c))
+    return logits
 
 
 # ---------------------------------------------------------------------------

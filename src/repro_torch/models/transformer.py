@@ -1,4 +1,4 @@
-"""Port of ``repro.models.transformer`` for the plain decoder segment.
+"""Port of ``repro.models.transformer`` for the attention decoder family.
 
 API (as upstream, with a generator or seed where upstream takes a key):
   init_model(seed, cfg, device)                    -> params
@@ -20,9 +20,17 @@ enabled, each layer runs under ``torch.utils.checkpoint`` (upstream's
 ``prefill`` is ``forward_chunk`` from an empty cache and ``decode_step``
 is ``forward_chunk`` with T=1; caches are updated in place.
 
-The MoE plan (DeepSeek-MoE: ``first_k_dense`` dense blocks, then MoE
-blocks, ``models/moe.py``) is ported; other segment plans (sliding-window
-rings, MLA, SSM, hybrids, enc-dec) are not yet and raise
+Ported segment plans: the full-attention decoder; the MoE plan
+(DeepSeek-MoE: ``first_k_dense`` dense blocks, then MoE blocks,
+``models/moe.py``); sliding-window attention (``attn_type="swa"``: every
+layer windowed) and gemma3's local/global interleave (``global_every``:
+period segments of ``global_every - 1`` local blocks and one global,
+then a remainder segment).  A windowed layer keeps a dense RING cache of
+``min(window, max_len)`` positions in both cache layouts, and rotates at
+``rope_theta_local`` under ``global_every``.  Upstream scans a stacked
+segment with per-layer metadata as scanned arrays; the port's loop reads
+each layer's window and theta as Python values.  Other segment plans
+(MLA, SSM, hybrids, enc-dec) are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -62,28 +70,70 @@ Tensor = torch.Tensor
 class BlockSpec:
     mixer: str  # attn
     ffn: str  # dense | moe
+    # static sliding window of this block (0 = full attention); a windowed
+    # layer keeps a RING cache of exactly min(window, max_len) positions
+    window: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
     repeats: int
     blocks: tuple[BlockSpec, ...]
+    first_layer: int  # absolute layer index of the first block (window / theta)
 
 
 def build_segments(cfg: ModelConfig) -> list[Segment]:
-    """The full-attention decoder: one segment of ``n_layers`` attention +
-    dense-FFN blocks; with ``cfg.moe``, one segment of ``first_k_dense``
-    dense blocks (one repeat), then ``n_layers - first_k_dense`` repeats of
-    an MoE block."""
-    if cfg.family != "decoder" or cfg.attn_type != "full" or cfg.global_every > 0:
+    """The decoder's segments: one segment of ``n_layers`` attention +
+    dense-FFN blocks (windowed under ``attn_type="swa"``); with
+    ``cfg.moe``, one segment of ``first_k_dense`` dense blocks (one repeat),
+    then ``n_layers - first_k_dense`` repeats of an MoE block; with
+    ``global_every`` g, ``n_layers // g`` repeats of (g - 1 local blocks,
+    one global), then one repeat of the remaining local blocks."""
+    if cfg.family != "decoder" or cfg.attn_type not in ("full", "swa"):
         raise NotImplementedError(
-            f"{cfg.name}: only the full-attention decoder (dense or MoE) is ported"
+            f"{cfg.name}: only the full-attention and sliding-window decoder (dense or MoE) "
+            "is ported"
         )
     if cfg.moe:
         k = cfg.first_k_dense
-        segs = [Segment(1, tuple(BlockSpec("attn", "dense") for _ in range(k)))] if k else []
-        return segs + [Segment(cfg.n_layers - k, (BlockSpec("attn", "moe"),))]
-    return [Segment(cfg.n_layers, (BlockSpec("attn", "dense"),))]
+        segs = [Segment(1, tuple(BlockSpec("attn", "dense") for _ in range(k)), 0)] if k else []
+        return segs + [Segment(cfg.n_layers - k, (BlockSpec("attn", "moe"),), k)]
+    if cfg.global_every > 0:
+        # group by the local:global period so that each block's cache length
+        # is the same over the repeats (local blocks get ring caches)
+        g = cfg.global_every
+        reps, rem = divmod(cfg.n_layers, g)
+
+        def blocks(first, n):
+            return tuple(BlockSpec("attn", "dense", layer_window(cfg, first + i))
+                         for i in range(n))
+
+        segs = [Segment(reps, blocks(0, g), 0)]
+        if rem:
+            segs.append(Segment(1, blocks(reps * g, rem), reps * g))
+        return segs
+    win = cfg.window_size if cfg.attn_type == "swa" else 0
+    return [Segment(cfg.n_layers, (BlockSpec("attn", "dense", win),), 0)]
+
+
+def layer_window(cfg: ModelConfig, layer: int) -> int:
+    """Static per-layer sliding window (0 = global/full)."""
+    if cfg.global_every > 0:
+        return 0 if (layer + 1) % cfg.global_every == 0 else cfg.window_size
+    if cfg.attn_type == "swa":
+        return cfg.window_size
+    return 0
+
+
+def layer_uses_local_rope(cfg: ModelConfig, layer: int) -> bool:
+    return cfg.global_every > 0 and (layer + 1) % cfg.global_every != 0
+
+
+def _local_rope(cfg: ModelConfig, spec: BlockSpec) -> bool:
+    """Whether a block takes the local RoPE theta: its window is static over
+    its segment's repeats, so this is ``layer_uses_local_rope`` of each of
+    its layers."""
+    return cfg.global_every > 0 and spec.window > 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,19 +212,27 @@ def _ffn(bparams, spec: BlockSpec, h: Tensor, cfg: ModelConfig):
 def _apply_block(bparams, spec: BlockSpec, x: Tensor, cfg: ModelConfig, sin: Tensor,
                  cos: Tensor):
     h = rmsnorm(bparams["pre_norm"], x)
-    x = x + attn_mod.attention(bparams["mixer"], h, cfg, sin, cos)
+    x = x + attn_mod.attention(bparams["mixer"], h, cfg, sin, cos, window=spec.window)
     h = rmsnorm(bparams["ffn_norm"], x)
     y, aux = _ffn(bparams, spec, h, cfg)
     return x + y, aux
 
 
-def _apply_layer(layer, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor,
-                 specs: tuple[BlockSpec, ...]):
+def _apply_layer(layer, x: Tensor, cfg: ModelConfig, tabs: dict, specs: tuple[BlockSpec, ...]):
     aux_layer = torch.zeros((), dtype=torch.float32, device=x.device)
     for bi, spec in enumerate(specs):
-        x, aux = _apply_block(layer[f"b{bi}"], spec, x, cfg, sin, cos)
+        x, aux = _apply_block(layer[f"b{bi}"], spec, x, cfg, *tabs[_local_rope(cfg, spec)])
         aux_layer = aux_layer + aux
     return x, aux_layer
+
+
+def _rope_tabs(cfg: ModelConfig, rope) -> dict:
+    """{local?: tables}: the global theta's, and under ``global_every`` the
+    local layers' (``rope(theta)`` builds one pair)."""
+    tabs = {False: rope(cfg.rope_theta)}
+    if cfg.global_every > 0:
+        tabs[True] = rope(cfg.rope_theta_local)
+    return tabs
 
 
 def forward(params, batch: dict, cfg: ModelConfig):
@@ -184,16 +242,16 @@ def forward(params, batch: dict, cfg: ModelConfig):
     backward pass and runs again there; the values are the same."""
     x = embed(params["embed"], batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    tabs = _rope_tabs(cfg, lambda theta: rope_table(positions, cfg.head_dim, theta))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for si, seg in enumerate(build_segments(cfg)):
         for layer in _seg_layers(seg, params["segments"][si]):
             if remat:  # the layer draws no random numbers: no RNG state to keep
-                x, aux = checkpoint(_apply_layer, layer, x, cfg, sin, cos, seg.blocks,
+                x, aux = checkpoint(_apply_layer, layer, x, cfg, tabs, seg.blocks,
                                     use_reentrant=False, preserve_rng_state=False)
             else:
-                x, aux = _apply_layer(layer, x, cfg, sin, cos, seg.blocks)
+                x, aux = _apply_layer(layer, x, cfg, tabs, seg.blocks)
             aux_total = aux_total + aux
     x = rmsnorm(params["final_norm"], x)
     head = params.get("lm_head", params["embed"])
@@ -213,8 +271,14 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _init_block_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, lead: tuple, device,
-                      layout: str, block_size: int, num_blocks: int | None):
+def _init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      lead: tuple, device, layout: str, block_size: int,
+                      num_blocks: int | None):
+    if spec.window > 0:
+        # a sliding-window layer keeps the dense RING in both layouts: a
+        # W-position ring is the window, and W is small
+        length = min(spec.window, max_len)
+        return attn_mod.init_attention_cache(cfg, batch, length, dtype, lead, device)
     if layout == "paged":
         from repro_torch.serve import kv_pool  # deferred: serve imports models
 
@@ -233,7 +297,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     ``layout="paged"`` swaps the attention layers to the shared block pool
     of ``num_blocks`` blocks (default: full occupancy) with per-slot
     tables (``repro_torch.serve.kv_pool``) — interchangeable at every call
-    site."""
+    site.  A sliding-window layer keeps its dense ring in both layouts."""
     if layout not in ("dense", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     dev = resolve_device(device)
@@ -241,9 +305,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     for seg in build_segments(cfg):
         lead = () if seg.repeats == 1 else (seg.repeats,)
         caches.append({
-            f"b{bi}": _init_block_cache(cfg, batch, max_len, dtype, lead, dev, layout,
+            f"b{bi}": _init_block_cache(spec, cfg, batch, max_len, dtype, lead, dev, layout,
                                         block_size, num_blocks)
-            for bi in range(len(seg.blocks))
+            for bi, spec in enumerate(seg.blocks)
         })
     return caches
 
@@ -253,7 +317,7 @@ def _chunk_block(bparams, spec, x, cache, pos, cfg, rope, active=None, lengths=N
     h = rmsnorm(bparams["pre_norm"], x)
     y, cache = attn_mod.attention_chunk(
         bparams["mixer"], h, cache, pos, cfg, rope,
-        active=active, lengths=lengths, read_to=read_to,
+        active=active, lengths=lengths, read_to=read_to, ring=spec.window > 0,
     )
     x = x + y
     h = rmsnorm(bparams["ffn_norm"], x)
@@ -265,15 +329,17 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
                      active=None, lengths=None, read_to: int | None = None):
     """Walk the layers over embedded inputs x (B, T, D), extending the caches
     in place.  Returns (hidden (B, T, D), caches)."""
-    rope = None
-    if cfg.pos_embedding == "rope":  # the same tables for every layer
-        rope = attn_mod.rope_at(pos, x.shape[1], cfg.head_dim, cfg.rope_theta, x.device)
+    tabs = {False: None, True: None}
+    if cfg.pos_embedding == "rope":  # one pair of tables a theta, for every layer
+        tabs = _rope_tabs(cfg, lambda theta: attn_mod.rope_at(pos, x.shape[1], cfg.head_dim,
+                                                              theta, x.device))
     for si, seg in enumerate(build_segments(cfg)):
         layers_c = _seg_layers(seg, caches[si])
         for r, layer in enumerate(_seg_layers(seg, params["segments"][si])):
             for bi, spec in enumerate(seg.blocks):
                 x, _ = _chunk_block(
-                    layer[f"b{bi}"], spec, x, layers_c[r][f"b{bi}"], pos, cfg, rope,
+                    layer[f"b{bi}"], spec, x, layers_c[r][f"b{bi}"], pos, cfg,
+                    tabs[_local_rope(cfg, spec)],
                     active, lengths, read_to,
                 )
     return x, caches

@@ -161,7 +161,9 @@ class FinishedRequest:
 
 def _chunked_prefill_safe(cfg: ModelConfig) -> bool:
     """Whether admission prefill may be split into fixed-budget slices
-    without changing any stream: attention mixers only, no MoE / routed
+    without changing any stream: attention mixers only (ring-cache
+    sliding-window layers too: their in-chunk path is already sequential
+    a token, so slice boundaries change nothing), no MoE / routed
     branches / VLM prefix (whose tokens couple across a slice)."""
     if cfg.moe or cfg.quant.num_experts > 1 or cfg.n_image_tokens > 0:
         return False
@@ -173,15 +175,16 @@ def _bucketed_prefill_safe(cfg: ModelConfig, max_len: int) -> bool:
     """Whether admission prefill may right-pad prompts to a bucket length
     without changing any stream: causal attention confines pad tokens to
     positions the decode mask gates until real tokens overwrite them.
-    Unsafe: ring caches shorter than ``max_len`` (they would keep padded
-    positions), recurrent mixers, MoE / routed branches, VLM prefixes."""
+    Unsafe: ring caches shorter than ``max_len`` (a prefill keeps the last
+    W positions of the padded sequence, evicting real tokens), recurrent
+    mixers, MoE / routed branches, VLM prefixes."""
     if cfg.moe or cfg.quant.num_experts > 1 or cfg.n_image_tokens > 0:
         return False
     for seg in build_segments(cfg):
         for spec in seg.blocks:
             if spec.mixer not in ("attn", "mla"):
                 return False
-            if 0 < getattr(spec, "window", 0) < max_len:
+            if 0 < spec.window < max_len:
                 return False
     return True
 
@@ -203,7 +206,8 @@ def _install(cfg: ModelConfig, big, small, slot: int, table_row: Tensor, nb: int
     big cache tree, in place: a paged layer span-writes the ``nb``
     prompt-covering pages of its dense prefill rows into the slot's blocks
     (``kv_pool.write_span``, the one pool write path) and takes the slot's
-    table row; a dense layer copies the whole row."""
+    table row; a dense layer (a sliding-window ring too, in either layout)
+    copies the whole row."""
     for (stacked, bigc), (_, smallc) in zip(_cache_dicts(cfg, big), _cache_dicts(cfg, small)):
         if "table" in bigc:
             bs = bigc["kpool"].shape[-3]
