@@ -166,24 +166,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (a) the packed export built on the card one layer at a time (16.4e9
    f32 latents do not fit), held leaf for leaf, bit for bit, to the
    one-shot export of the same latents on a 3-layer cut; its GB.  (b)
-   ``DecodeEngine``, 4 requests of 8 tokens, 16 new: finite logits, one
+   ``DecodeEngine``, 4 requests of 8 tokens, 8 new: finite logits, one
    transfer, exactly 28 x 5 + 27 x 64 x 3 = 5324 ``w1a8_gemv``, 56
    ``decoupled_gemv`` and 28 ``int8_matmul`` launches a forward and no
-   other kernel; TTFT, ms/step, tokens/s (medians of 3), busy share.
+   other kernel; TTFT, ms/step, tokens/s (medians of 2), busy share.
    (c) 16 requests of 256 tokens (4096 prefill rows, capacity 480 an
    expert), 8 new: the prefill's launches exactly 5324 ``w1a8_matmul``,
    56 ``decoupled_matmul`` and 28 ``int8_matmul``, the generate's with
    7 decode forwards on the GEMVs; TTFT and the routings dropped by
-   capacity.  (d) ``ContinuousBatchingEngine``, 4 slots of 160 positions,
-   5 requests from ``SEED`` (prompts 16-128, 8-16 new; ``MOE_CB``), paged on
-   the kernel route and dense: each request finished once by length, the
-   pool drained, ``paged_attention`` (head_dim 128) launched 28 x decode
+   capacity.  (d) ``ContinuousBatchingEngine`` on a 4-layer cut of the
+   export (1 dense + 3 MoE), 4 slots of 160 positions, 5 requests from
+   ``SEED`` (prompts 16-128, 8-16 new; ``MOE_CB``), paged on the kernel
+   route and dense: each request finished once by length, the pool
+   drained, ``paged_attention`` (head_dim 128) launched 4 x decode
    steps on the kernel route and never dense, the streams compared as
    phase 9 compares them.  (e) phase 5's checks on a 2-layer cut (the
    dense layer and the first MoE layer) at (b)'s prompts, with the
    CPU's router choices replayed on the card and the choices the card
-   computes counted.  (f) ``make_train_step`` on a 4-layer cut (1 dense +
-   3 MoE; bf16, remat, 2 x 2048 tokens): finite losses, the first within
+   computes counted.  (f) ``make_train_step`` on a 3-layer cut (1 dense +
+   2 MoE; bf16, remat, 2 x 2048 tokens): finite losses, the first within
    ln V +- 1.5, step 0 (lr 0) moves nothing watched, step 1 moves the
    first MoE layer's router, shared FFN and every expert that took a
    token, no host sync, ``qat_router_entropy`` in [0, 1], aux > 0; ms a
@@ -206,28 +207,72 @@ Phases, in order; any failure ends the run with a non-zero exit:
    plain version called; TTFT (the prefill, synchronized where it ends)
    and ms/step from that generate, a second generate repeating the
    stream, the busy share of 3 decode steps.  (c)
-   ``ContinuousBatchingEngine``, 4 slots of 1280 positions, 8 requests
+   ``ContinuousBatchingEngine`` on the first 12 layers (two periods: 10
+   local, 2 global), 4 slots of 1280 positions, 8 requests
    from ``SEED`` (prompts 64-256 and one of 1100, whose rings wrap, 8-16
    new; ``SWA_CB``; one-shot admission at exact length: a ring shorter
    than the slot declines the buckets), paged on
-   the kernel route (the 10 global layers on the pool, the local layers
+   the kernel route (the 2 global layers on the pool, the local layers
    on dense rings) and dense: each request finished once by length, the
    pool drained, ``paged_attention`` (GQA 32 over 16 heads of 128)
-   launched 10 x (decode steps + slices) times on the kernel route and
+   launched 2 x (decode steps + slices) times on the kernel route and
    never dense, every paged attention call of the kernel route held to
    the gather route on the same inputs within ``PA_ATOL``, the streams
    compared as phase 9 compares them.  (d) a
    2-layer cut of the export (one local layer of a 32-token window, one
-   global) at 4 x 48-token prompts, 4 new: phase 5's checks with its tie rule;
+   global) at 4 x 48-token prompts, 2 new: phase 5's checks with its tie rule;
    then [10]'s card vs CPU gradient check on the same cut in f32 at 2 x 64
-   tokens.  (e) h2o-danube-1.8b at full width and depth (24 layers, each
-   a 4096-token window; 32 heads over 8 KV heads of 80, vocab 32000
-   untied), ``DecodeEngine`` on 2 requests of 4160 tokens, 8 new: the
-   launches (24 x (5, 2, 1) a forward, no ``paged_attention``), TTFT and
-   ms/step.  (f) ``make_train_step`` on it at full width and depth (bf16,
+   tokens.  (e) h2o-danube-1.8b at full width (24 layers, each a
+   4096-token window; 32 heads over 8 KV heads of 80, vocab 32000
+   untied) on its first 8 layers, ``DecodeEngine`` on 2 requests of 4160
+   tokens, 8 new: the launches (8 x (5, 2, 1) a forward, no
+   ``paged_attention``), TTFT and ms/step.  (f) ``make_train_step`` on
+   it at full width and depth (bf16,
    remat) at 1 x 6144 tokens (past the window): finite losses, the first
    within ln V +- 1.5, step 0 (lr 0) moves nothing watched and step 1
    does, no host sync; ms a step, tokens/s, peak memory, busy share.
+
+15. Multi-head Latent Attention: deepseek-v2-236b at full width and
+   depth (60 layers: one dense of d_ff 12288, then 59 MoE layers of 160
+   routed 1-bit experts top-6 of width 1536 and 2 shared decoupled
+   experts; MLA with 128 heads, q_lora 1536, kv_lora 512, qk 128 + 64
+   rope, v 128; r 256, vocab 102400 untied) from ``SEED``, its latent
+   caches dense and f32 in both layouts.  (a) the packed export built on
+   the card one block at a time (236e9 f32 latents, one MoE block 15.1
+   GB), held leaf for leaf, bit for bit, to the one-shot export on a
+   3-layer cut (1 dense + 2 MoE); its GB by kind, the device memory held.
+   (b) ``DecodeEngine``, 4 requests of 32 tokens, 8 new: one transfer, no
+   plain version called, exactly the launches ``_mla_launches`` derives
+   (a decode forward 60 x 5 + 59 x 160 x 3 = 28620 ``w1a8_gemv``, 60
+   ``w1a8_matmul``: the latent expansion over 4 x 40 cache rows, 120
+   ``decoupled_gemv``, 60 ``int8_matmul``; the 128-row prefill on the
+   GEMMs but its experts' 8-row buffers); TTFT (synchronized where the
+   prefill ends) and ms/step of two generates (the second repeating the
+   stream); finite logits of a prefill and a decode step; the busy share
+   of one decode step.  (c) 8 requests of 256 tokens (2048 prefill rows,
+   capacity 96 an expert), one new token, twice: the launches exactly
+   ``w1a8_matmul``, ``decoupled_matmul`` and ``int8_matmul``; TTFT and
+   the routings dropped by capacity.  (d) ``ContinuousBatchingEngine`` on
+   a 4-layer cut of the export (1 dense + 3 MoE), 4 slots of 272
+   positions, 5 requests from ``SEED`` (prompts 16-256, 4-8 new;
+   ``MLA_CB``), paged (no layer on the pool: the allocator's bookkeeping
+   only) and dense: each request finished once by length, the pool
+   drained, no ``paged_attention`` launch, a ``w1a8_matmul`` expansion a
+   layer and decode step, every stream equal across the layouts.  (e)
+   phase 5's checks on a 2-layer cut (the dense layer and the first MoE
+   layer) at 4 x 8 tokens, 2 new, with the CPU's router choices replayed
+   on the card; then the dense layer's MLA, an 8-token ``mla_chunk``
+   against 8 ``mla_decode`` steps on the card: the latent caches and the
+   outputs, each bit for bit or by how much, the outputs within
+   ``LOGIT_TOL`` of their largest.  (f) ``make_train_step`` on a 2-layer cut at full width
+   with 32 of the 160 routed experts (top-6 and the 2 shared kept; bf16,
+   remat, 2 x 2048 tokens): finite losses, the first within ln V +- 1.5,
+   step 0 moves nothing watched, step 1 moves the dense layer's MLA
+   projections, ``q_norm``, ``kv_norm``, ``subln``, the router and every
+   expert that took a token, no host sync; ms a step, tokens/s, peak
+   memory, busy share, model TFLOP/s (attention at H (d_qk + d_v)); then
+   [10]'s card vs CPU gradient check on the 2 layers in f32 with 8 routed
+   experts, both kinds of decision replayed, under phase 13's rules.
 
 Phase 3 also holds the kernels at deepseek-moe-16b's shapes (tagged
 "moe"): the W1A8 linears (2048, 1408), (1408, 2048), (10944, 2048) and
@@ -242,7 +287,14 @@ positions ("d128").  It holds them at phase 14's shapes too (tagged
 and at 32) and at the prefill rows 1100 and 4400 / 8320; the fused pairs
 (5376, 21504, 1024) and (2560, 6912, 384) likewise; ``int8_matmul`` at K
 1024 and 384; ``paged_attention`` at GQA 32 over 16 heads of 128 over 4
-slots of 1280 positions ("gemma").  Phase 3 also holds
+slots of 1280 positions ("gemma").  And at phase 15's (tagged "mla"):
+the W1A8 linears of deepseek-v2-236b (5120, 1536), (1536, 24576), (5120,
+576), (16384, 5120), (1536, 5120), (3072, 5120), (12288, 5120) at every
+decode row (timed at 4 and at 32) and, on the GEMMs, at (c)'s 2048
+prefill rows (an expert's at its capacity of 96, the last 16 rows zero),
+the latent expansion (512, 32768) at (b)'s 160 cache rows and at 2048;
+the fused pairs (5120, 3072, 256) and (5120, 12288, 256); ``int8_matmul``
+at K 256.  Phase 3 also holds
 ``paged_attention`` against its plain version at phase 8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
 a 64-token chunked slice) within ``PA_ATOL``, beside its bound and the
 time of ``scaled_dot_product_attention`` on the gathered view.
@@ -290,6 +342,11 @@ launch counts and summary.
     python3 chip_smoke.py --swa
 
 runs phases 1, 2 and 14 alone and prints one JSON line of phase 14's
+launch counts and summary.
+
+    python3 chip_smoke.py --mla
+
+runs phases 1, 2 and 15 alone and prints one JSON line of phase 15's
 launch counts and summary.
 
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
@@ -357,6 +414,21 @@ SWA_DECOUPLED_SHAPES = {"gemma": (5376, 21504, 1024), "danube": (2560, 6912, 384
 SWA_INT8_SHAPES = {"gemma": (1024, 5376), "danube": (384, 2560)}
 SWA_DECODE_ROWS = {"gemma": 4, "danube": 2}
 SWA_PREFILL_ROWS = {"gemma": (1100, 4400), "danube": (8320,)}
+# deepseek-v2-236b's shapes (phase 15): the W1A8 linears (K, N): wq_down
+# (and a routed expert's gate/up), wq_up, wkv_down (the latent and the
+# shared rope key), wo, a routed expert's down, the shared and the dense
+# FFN's w1_down; the latent expansion wkv_up over B x L cache rows; the
+# shared and dense up/gate pairs (K, N, r) and w8_down (K, N); the rows of
+# [15]: (b)'s 4 requests and its decode expansion over 4 x 40 positions,
+# (c)'s 8 x 256 prefill rows and an expert's capacity there (96: 2048 x 6
+# x 1.25 / 160)
+MLA_W1A8_SHAPES = ((5120, 1536), (1536, 24576), (5120, 576), (16384, 5120), (1536, 5120),
+                   (3072, 5120), (12288, 5120))
+MLA_EXPERT_SHAPES = ((5120, 1536), (1536, 5120))
+MLA_EXPAND_SHAPE = (512, 32768)
+MLA_DECOUPLED_SHAPES = ((5120, 3072, 256), (5120, 12288, 256))
+MLA_INT8_SHAPE = (256, 5120)
+MLA_DECODE_ROWS, MLA_EXPAND_ROWS, MLA_PREFILL_ROWS, MLA_EXPERT_ROWS = 4, 160, 2048, 96
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
 SLOT_ROWS = 16  # decode rows of the continuous-batching path (16 slots)
 BF16_GEMV_ROWS = (MAIN_ROWS, SLOT_ROWS, 32)  # the GEMV rows also timed in bf16
@@ -646,6 +718,24 @@ def phase_kernels(torch, peaks, only=None):
                        lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale),
                        lambda i: int8_matmul_plain(x, ws[0], gamma, wscale), b,
                        (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None, tag=tag)
+        # deepseek-v2-236b's w8_down (K 256, N 5120): held at every M of
+        # both tiers and at [15] (c)'s prefill rows, timed in f32 at its
+        # decode and prefill rows
+        k, n = MLA_INT8_SHAPE
+        ws = [int8(k, n) for _ in range(_copies(k * n))]
+        for m in INT8_ROWS + (MLA_PREFILL_ROWS,):
+            x, gamma = int8(m, k), scales(m)
+            err = max(_close(int8_matmul(x, ws[0], gamma, wscale, dt).float(),
+                             int8_matmul_plain(x, ws[0], gamma, wscale, dt).float())
+                      for dt in dtypes)
+            held("int8_matmul", err)
+            if m not in (MLA_DECODE_ROWS, MLA_PREFILL_ROWS):
+                continue
+            b = bound(m * k + k * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("int8_matmul", m, (k, n), err,
+                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale),
+                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale), b,
+                   (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None, tag="mla")
         log("[3] int8_matmul routes (M, K, N) at [14]'s shapes: " + ", ".join(
             f"{(m,) + s} {int8_matmul_route(m, *s)}" for tag, s in SWA_INT8_SHAPES.items()
             for m in (SWA_DECODE_ROWS[tag], 33) + SWA_PREFILL_ROWS[tag]))
@@ -723,6 +813,32 @@ def phase_kernels(torch, peaks, only=None):
                            (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS
                            else None, tag=tag)
                 del ws, w_lib
+        # [15]'s shapes (deepseek-v2-236b: wo's K 16384, wq_up's N 24576,
+        # wkv_down's N 576): held exactly at every M with x and the output
+        # f32 and bf16 (the routed experts' shapes at M 8 with seven rows of
+        # zeros, an expert's sentinel rows), timed in f32 at (b)'s 4 rows and
+        # at 32 beside _int_mm
+        for k, n in MLA_W1A8_SHAPES:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            for m in ROWS:
+                x = torch.randn((m, k), generator=gen, **f32)
+                if m == 8 and (k, n) in MLA_EXPERT_SHAPES:
+                    x[1:] = 0.0
+                err = max(_close(wg.w1a8_gemv(x.to(dt), ws[0], lam, dt).float(),
+                                 wg.w1a8_gemv_plain(x.to(dt), ws[0], lam, dt).float())
+                          for dt in dtypes)
+                held("w1a8_gemv", err)
+                if m not in (MLA_DECODE_ROWS, LIB_GEMV_ROWS):
+                    continue
+                x_lib = int8(m, k)
+                b = bound(m * k * 4 + k // 8 * n + 4 + m * n * 4, 2 * m * k * n)
+                record("w1a8_gemv", m, (k, n), err,
+                       lambda i: wg.w1a8_gemv(x, ws[i % len(ws)], lam),
+                       lambda i: wg.w1a8_gemv_plain(x, ws[0], lam), b,
+                       (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                       tag="mla")
+            del ws, w_lib
 
     def rows_decoupled_gemv():
         k, n, r = DECOUPLED_SHAPE
@@ -802,6 +918,33 @@ def phase_kernels(torch, peaks, only=None):
                        lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b,
                        (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
                        tag=tag)
+            del w1s, w8s, w_lib
+        # [15]'s shared (N 3072) and dense (N 12288) pairs at r 256: held at
+        # every M in f32 and bf16, timed in f32 at (b)'s 4 rows and at 32
+        # beside _int_mm
+        for k, n, r in MLA_DECOUPLED_SHAPES:
+            w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+            w8s = [int8(k, r) for _ in w1s]
+            w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+            for m in ROWS:
+                x = torch.randn((m, k), generator=gen, **f32)
+                err = 0.0
+                for dt in dtypes:
+                    got = wg.decoupled_gemv(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                    want = wg.decoupled_gemv_plain(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                    err = max(err, _close(got[0].float(), want[0].float()),
+                              _close(got[1].float(), want[1].float()))
+                held("decoupled_gemv", err)
+                if m not in (MLA_DECODE_ROWS, LIB_GEMV_ROWS):
+                    continue
+                x_lib = int8(m, k)
+                b = bound(m * k * 4 + k // 8 * n + k * r + 16 + m * (n + r) * 4,
+                          2 * m * k * (n + r))
+                record("decoupled_gemv", m, (k, n, r), err,
+                       lambda i: wg.decoupled_gemv(x, w1s[i % len(w1s)], w8s[i % len(w8s)], *sc),
+                       lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b,
+                       (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                       tag="mla")
             del w1s, w8s, w_lib
 
     def rows_w1a8_matmul():
@@ -886,6 +1029,31 @@ def phase_kernels(torch, peaks, only=None):
             del ws, w_lib
         log("[3] w1a8_matmul routes (M, K, N) at [14]'s shapes: " + ", ".join(
             f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for _, s, m in swa_rows))
+        # [15]'s shapes: the latent expansion at (b)'s decode rows (4 x 40
+        # cache positions) and at (c)'s prefill rows; the other linears at
+        # (c)'s 2048 rows; a routed expert's at its capacity there (the last
+        # 16 rows sentinel zeros); held exactly in f32 and bf16, timed in f32
+        mla_rows = [(MLA_EXPAND_SHAPE, MLA_EXPAND_ROWS), (MLA_EXPAND_SHAPE, MLA_PREFILL_ROWS)]
+        mla_rows += [(s, MLA_PREFILL_ROWS) for s in MLA_W1A8_SHAPES if s != (1536, 5120)]
+        mla_rows += [(s, MLA_EXPERT_ROWS) for s in MLA_EXPERT_SHAPES]
+        for (k, n), m in mla_rows:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            x, gamma = int8(m, k), scales(m)
+            if m == MLA_EXPERT_ROWS:
+                x[-16:] = 0
+                gamma[-16:] = 127.0 / 1e-5
+            err = max(_close(wm.w1a8_matmul(x, ws[0], gamma, lam, dt).float(),
+                             wm.w1a8_matmul_plain(x, ws[0], gamma, lam, dt).float())
+                      for dt in dtypes)
+            b = bound(m * k + k // 8 * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("w1a8_matmul", m, (k, n), err,
+                   lambda i: wm.w1a8_matmul(x, ws[i % len(ws)], gamma, lam),
+                   lambda i: wm.w1a8_matmul_plain(x, ws[0], gamma, lam), b,
+                   lambda i: torch._int_mm(x, w_lib), tag="mla", nops=2 * m * k * n)
+            del ws, w_lib
+        log("[3] w1a8_matmul routes (M, K, N) at [15]'s shapes: " + ", ".join(
+            f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s, m in mla_rows))
 
     def rows_decoupled_matmul():
         # held exactly in f32 and bf16 and timed in f32 at every M (the
@@ -973,6 +1141,30 @@ def phase_kernels(torch, peaks, only=None):
         log("[3] decoupled_matmul routes (M, K, N, r) at [14]'s shapes: " + ", ".join(
             f"{(m,) + s} {route(m, *s)}" for tag, s in SWA_DECOUPLED_SHAPES.items()
             for m in SWA_PREFILL_ROWS[tag]))
+        # [15]'s shared and dense pairs at r 256 at (c)'s prefill rows: held
+        # exactly in f32 and bf16, timed in f32 beside _int_mm
+        m = MLA_PREFILL_ROWS
+        for k, n, r in MLA_DECOUPLED_SHAPES:
+            w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+            w8s = [int8(k, r) for _ in w1s]
+            w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+            x, gamma = int8(m, k), scales(m)
+            err = 0.0
+            for dt in dtypes:
+                got = decoupled_matmul(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                want = decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                err = max(err, _close(got[0].float(), want[0].float()),
+                          _close(got[1].float(), want[1].float()))
+            b = bound(m * k + k // 8 * n + k * r + m * 4 + 16 + m * (n + r) * 4,
+                      2 * m * k * (n + r))
+            record("decoupled_matmul", m, (k, n, r), err,
+                   lambda i: decoupled_matmul(x, w1s[i % len(w1s)], w8s[i % len(w8s)], gamma,
+                                              *sc),
+                   lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
+                   lambda i: torch._int_mm(x, w_lib), tag="mla", nops=2 * m * k * (n + r))
+            del w1s, w8s, w_lib
+        log("[3] decoupled_matmul routes (M, K, N, r) at [15]'s shapes: " + ", ".join(
+            f"{(m,) + s} {route(m, *s)}" for s in MLA_DECOUPLED_SHAPES))
 
     def rows_rmsnorm_quant():
         # timed on bf16 and f32 rows of d_model at the prefill rows, x
@@ -2254,16 +2446,39 @@ def _train_batch(torch, vocab: int, b: int, s: int, seed: int, device):
 
 
 def _train_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
-    """(model FLOPs of one step, FLOPs with remat's second forward):
-    6 N T for the weights (forward 2 N T, backward 4 N T; the tied table
-    counted once, for the unembedding) plus 12 L B S^2 d for the attention
-    matmuls (QK^T and AV, 2 B S^2 d each, over all S^2: no causal skip),
-    T = B S tokens; remat runs the layers' forward again."""
+    """(model FLOPs of one step, FLOPs with remat's second forward) of a
+    model with ``n_params`` (active) parameters, both vocabulary tables
+    among them where the head is untied.  6 N T for the matmul weights
+    (forward 2 N T, backward 4 N T; N without an untied input embedding,
+    which is a gather, the tied table counted once, for the unembedding)
+    plus 6 L B S^2 H (d_qk + d_v) for the attention matmuls (QK^T at H d_qk
+    and AV at H d_v, 2 B S^2 H d each in the forward, over all S^2: no
+    causal skip; under MLA d_qk = qk_nope + qk_rope and d_v = v_head_dim,
+    else both head_dim), T = B S tokens; remat runs the layers' forward
+    again (their weights: N without the vocabulary tables)."""
     t = b * s
-    attn = 2 * 2 * b * s * s * cfg.d_model * cfg.n_layers
-    model = 6 * n_params * t + 3 * attn
-    layer_params = n_params - cfg.vocab_size * cfg.d_model
+    tables = cfg.vocab_size * cfg.d_model
+    d_qk, d_v = _attn_widths(cfg)
+    attn = 2 * b * s * s * cfg.n_heads * (d_qk + d_v) * cfg.n_layers
+    model = 6 * (n_params - (0 if cfg.tie_embeddings else tables)) * t + 3 * attn
+    layer_params = n_params - tables * (1 if cfg.tie_embeddings else 2)
     return model, model + 2 * layer_params * t + attn
+
+
+def _attn_widths(cfg) -> tuple[int, int]:
+    """(d_qk, d_v): a head's query/key and value widths."""
+    if cfg.attn_type == "mla":
+        return cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return cfg.head_dim, cfg.head_dim
+
+
+def _flops_formula(cfg, n_params: int, b: int, s: int) -> str:
+    """:func:`_train_flops`'s model FLOPs written out with this step's numbers."""
+    d_qk, d_v = _attn_widths(cfg)
+    n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    return (f"6 x N x tokens + 6 x layers x batch x seq^2 x heads x (d_qk + d_v), N the "
+            f"matmul parameters (without an untied input embedding) = 6 x {n} x {b * s} + 6 x "
+            f"{cfg.n_layers} x {b} x {s}^2 x {cfg.n_heads} x ({d_qk} + {d_v})")
 
 
 @contextlib.contextmanager
@@ -2368,9 +2583,8 @@ def phase_train(torch, smi: str) -> dict:
         f"warm-up steps {[round(w * 1e3, 1) for w in walls[:TRAIN_WARMUP]]} ms; "
         f"{tokens / wall:.0f} tokens/s; peak memory {(peak - base) / 1e9:.2f} GB over the "
         f"{base / 1e9:.2f} GB held before the phase (max_memory_allocated {peak / 1e9:.2f} GB)")
-    log(f"[10] model FLOPs a step = 6 x N x tokens + 12 x layers x batch x seq^2 x d_model "
-        f"= 6 x {n} x {tokens} + 12 x {cfg.n_layers} x {TRAIN_BATCH} x {TRAIN_SEQ}^2 x "
-        f"{cfg.d_model} = {model_flops / 1e12:.2f} TFLOP ({exec_flops / 1e12:.2f} with remat's "
+    log(f"[10] model FLOPs a step = {_flops_formula(cfg, n, TRAIN_BATCH, TRAIN_SEQ)} "
+        f"= {model_flops / 1e12:.2f} TFLOP ({exec_flops / 1e12:.2f} with remat's "
         f"second forward): {model_flops / wall / 1e12:.1f} TFLOP/s, "
         f"{100 * model_flops / wall / 989e12:.1f}% of the bf16 dense peak 989 TFLOP/s "
         f"(card: {smi})")
@@ -3122,9 +3336,7 @@ def _train_cell(torch, smi: str, cfg, tag: str, part: str, batch: int, seq: int,
         if not (math.isfinite(aux) and aux > 0 and math.isfinite(entropy) and 0 <= entropy <= 1):
             raise AssertionError(f"aux {aux}, qat_router_entropy {entropy}")
     tokens = batch * seq
-    # the matmul parameters: an untied input embedding is a gather
-    n_matmul = n_active - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
-    model_flops, _ = _train_flops(cfg, n_matmul, batch, seq)
+    model_flops, _ = _train_flops(cfg, n_active, batch, seq)
     log(f"[{tag}] {part} losses {[round(v, 4) for v in vals['loss']]} (ln V "
         f"{math.log(cfg.vocab_size):.4f}); grad_norm {[round(v, 4) for v in vals['grad_norm']]}"
         + (f"; aux (after the steps) {aux:.6f}; qat_router_entropy {entropy:.6f}" if routed
@@ -3134,9 +3346,8 @@ def _train_cell(torch, smi: str, cfg, tag: str, part: str, batch: int, seq: int,
         f"{tokens / wall:.0f} tokens/s; no host sync in a step; peak memory "
         f"{(peak - base) / 1e9:.2f} GB over the {base / 1e9:.2f} GB held before "
         f"(max_memory_allocated {peak / 1e9:.2f} GB)")
-    log(f"[{tag}] {part} model FLOPs a step = 6 x N x tokens + 12 x layers x batch x seq^2 x "
-        f"d_model, N the active matmul parameters = 6 x {n_matmul} x {tokens} + 12 x {cfg.n_layers} x "
-        f"{batch} x {seq}^2 x {cfg.d_model} = {model_flops / 1e12:.2f} TFLOP: "
+    log(f"[{tag}] {part} model FLOPs a step = {_flops_formula(cfg, n_active, batch, seq)} "
+        f"(the active parameters) = {model_flops / 1e12:.2f} TFLOP: "
         f"{model_flops / wall / 1e12:.1f} TFLOP/s, {100 * model_flops / wall / 989e12:.1f}% of "
         f"the bf16 dense peak 989 TFLOP/s (card: {smi})")
     del state, step, batches
@@ -3203,9 +3414,11 @@ MOE_ARCH = "deepseek-moe-16b"
 # (a): the layer-by-layer export held to the one-shot export of the same
 # latents on a cut of 1 dense + 2 MoE layers (the MoE segment stacked)
 MOE_EXPORT_CHECK_LAYERS = 3
-MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 8, 16  # (b) the decode tier
+# (b) the decode tier; (b) and (c) timed over MOE_TIMED_RUNS runs (8 new
+# and 2 runs, not 16 and 3: the whole run keeps room for [15])
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 8, 8
 MOE_P_BATCH, MOE_P_PROMPT, MOE_P_NEW = 16, 256, 8  # (c) the prefill tier: 4096 rows
-MOE_TIMED_RUNS = 3
+MOE_TIMED_RUNS = 2
 # (b)'s busy share: a generate of this many new tokens, profiled (a trace
 # of the full generate's 87k launches takes the profiler about half a
 # minute), against the wall of the same generate unprofiled
@@ -3214,9 +3427,13 @@ MOE_PROFILED_NEW = 4
 # waits for a slot), prompts of 16-128 tokens, 8-16 new; 5, not 8, so
 # that the whole run keeps room for [14]
 MOE_CB = CBLoad(4, 160, 5, 4, (16, 128), (8, 16))
+# (d) on 1 dense + 3 MoE layers, not all 28: the whole run keeps room for [15]
+MOE_CB_LAYERS = 4
 MOE_CUT_LAYERS = 2  # (e) and (f)'s gradient cut: the dense layer and one MoE layer
-MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048  # (f): 1 dense + 3 MoE
-MOE_TRAIN_TIMED = 3
+# (f): 1 dense + 2 MoE (the MoE segment stacked); 3 layers and 2 timed
+# steps, not 4 and 3: the whole run keeps room for [15]
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 3, 2, 2048
+MOE_TRAIN_TIMED = 2
 
 
 MOE_KERNELS = ("w1a8_gemv", "decoupled_gemv", "int8_matmul", "w1a8_matmul", "decoupled_matmul")
@@ -3245,31 +3462,52 @@ def _add(a: dict, b: dict, times: int = 1) -> dict:
     return out
 
 
-def _stack_trees(torch, trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack_trees(torch, [t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _moe_cut(params, cfg, n: int):
+    """(params, cfg) of the first ``n`` layers (n >= 2) of an exported MoE
+    model with one dense layer: its MoE segment sliced on the layer axis,
+    a segment of one repeat unstacked, as the export stores it."""
+    k = n - cfg.first_k_dense
+    seg = params["segments"][1]
+    cut = dict(params)
+    cut["segments"] = [params["segments"][0], _tree(lambda t: t[0].contiguous(), seg) if k == 1
+                       else _tree(lambda t: t[:k], seg)]
+    return cut, dataclasses.replace(cfg, n_layers=n)
 
 
-def _block_export(torch, cfg, one_shot: bool = False, stack_repeats: bool = False):
+def _stacked(make, n: int):
+    """The trees ``make(0)`` .. ``make(n - 1)`` stacked leaf by leaf on a new
+    leading axis, each copied into the stack and dropped before the next is
+    made: the stack and one tree are held at once (two of deepseek-v2-236b's
+    15.7 GB MoE blocks and their stack would not fit the card together)."""
+    out = None
+    for r in range(n):
+        tree = make(r)
+        if out is None:
+            out = _tree(lambda t: t.new_empty((n,) + tuple(t.shape)), tree)
+        _put(out, tree, r)
+        del tree
+    return out
+
+
+def _put(dst, src, r: int) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k], r)
+    else:
+        dst[r].copy_(src)
+
+
+def _block_export(torch, cfg, one_shot: bool = False):
     """``cfg``'s packed serving export from SEED, made on the card one block
     at a time, over any segment plan: each block's latent params from a
     generator of its own, exported alone by ``quantize_params_for_serving``
-    (which exports every slice of a stack on its own), the exports of a
-    segment's repeats stacked on the layer axis; the embedding, the final
-    norm and the head (where untied) stay float.  With ``stack_repeats``
-    one block position's latents are stacked over the segment's repeats
-    and exported together instead, in the leaf shapes of the one-shot
-    export: a scale is a mean, whose order of summation on the card
-    follows the tensor's shape, so at gemma3-27b's widths an (R, K, N)
-    stack and its (K, N) slices give scales an ulp apart (PR 25 call 1);
-    deepseek-moe-16b's 27 repeats of a 2.2 GB MoE block do not fit
-    stacked, and its slices export alone bit for bit as its stack (PR
-    24).  With ``one_shot`` the latent blocks are stacked first, from the
-    same generators, and the whole latent tree exported at once: the
-    reference the block-by-block export must equal (deepseek-moe-16b's
-    16.4e9 and gemma3-27b's 28.0e9 f32 latents fit on the card only as a
-    cut)."""
+    (whose scales do not depend on the stack a slice lies in), the exports
+    of a segment's repeats stacked on the layer axis; the embedding, the
+    final norm and the head (where untied) stay float.  With ``one_shot``
+    the latent blocks are stacked first, from the same generators, and the
+    whole latent tree exported at once: the reference the block-by-block
+    export must equal (deepseek-moe-16b's 16.4e9, gemma3-27b's 28.0e9 and
+    deepseek-v2-236b's 236e9 f32 latents fit on the card only as a cut)."""
     from repro_torch.models import transformer
     from repro_torch.models.layers import init_embedding, init_rmsnorm
     from repro_torch.train.quantized_serving import quantize_params_for_serving as export
@@ -3281,26 +3519,14 @@ def _block_export(torch, cfg, one_shot: bool = False, stack_repeats: bool = Fals
 
     segs = []
     for seg in transformer.build_segments(cfg):
-        def block(r, bi, spec):  # the latent block of absolute layer index first + r * len + bi
-            layer = seg.first_layer + r * len(seg.blocks) + bi
-            return transformer._init_block(gen(1 + layer), spec, cfg, (), dev)
-
-        if stack_repeats and not one_shot and seg.repeats > 1:
-            out = {}
+        def rep(r):  # the repeat's blocks, of absolute layers first + r * len + bi
+            latent = {}
             for bi, spec in enumerate(seg.blocks):
-                stack = {f"b{bi}": _stack_trees(torch, [block(r, bi, spec)
-                                                        for r in range(seg.repeats)])}
-                out.update(export(stack, cfg, packed=True))
-                del stack
-            segs.append(out)
-            continue
-        reps = []
-        for r in range(seg.repeats):
-            latent = {f"b{bi}": block(r, bi, spec) for bi, spec in enumerate(seg.blocks)}
-            reps.append(latent if one_shot else export(latent, cfg, packed=True))
-            del latent
-        segs.append(reps[0] if seg.repeats == 1 else _stack_trees(torch, reps))
-        del reps
+                layer = seg.first_layer + r * len(seg.blocks) + bi
+                latent[f"b{bi}"] = transformer._init_block(gen(1 + layer), spec, cfg, (), dev)
+            return latent if one_shot else export(latent, cfg, packed=True)
+
+        segs.append(rep(0) if seg.repeats == 1 else _stacked(rep, seg.repeats))
     tree = {"embed": init_embedding(gen(0), cfg.vocab_size, cfg.d_model, dev), "segments": segs,
             "final_norm": init_rmsnorm(cfg.d_model, (), dev)}
     if not cfg.tie_embeddings:
@@ -3436,7 +3662,9 @@ def phase_moe_serving(torch, cfg, params) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     log(f"[time] [13] (c) done at {time.perf_counter() - t_start:.1f} s")
 
-    # (d) continuous batching: paged on the kernel route, and dense
+    # (d) continuous batching on a MOE_CB_LAYERS cut: paged on the kernel
+    # route, and dense
+    params, cfg = _moe_cut(params, cfg, MOE_CB_LAYERS)
     streams = {}
     for name, layout, env in E_CB_CONFIGS:
         rec, st, reasons, _ = _cb_run(torch, params, cfg, name, layout, None, 1, env, MOE_CB)
@@ -3505,14 +3733,11 @@ def phase_moe(torch, smi: str) -> tuple[dict, dict]:
     launches, summary = phase_moe_serving(torch, cfg, params)
     summary["export_gb"] = nbytes / 1e9
     # (e) card vs CPU on the dense layer and the first MoE layer
-    gpu = dict(params)
-    gpu["segments"] = [params["segments"][0],
-                       _tree(lambda t: t[0].contiguous(), params["segments"][1])]
+    gpu, cut = _moe_cut(params, cfg, MOE_CUT_LAYERS)
     prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
                             generator=torch.Generator().manual_seed(SEED))
-    phase_cut(torch, None, cfg, prompts, tag="13", decode_may_part=True,
-              cut=(gpu, dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS)), prefill_tier=False,
-              replay_choices=True)
+    phase_cut(torch, None, cfg, prompts, tag="13", decode_may_part=True, cut=(gpu, cut),
+              prefill_tier=False, replay_choices=True)
     log(f"[time] [13] (e) done at {time.perf_counter() - t0:.1f} s")
     del params, gpu
     gc.collect()
@@ -3541,14 +3766,18 @@ SWA_BUSY_STEPS = 3  # (b)'s busy share: decode steps profiled
 # its admission and whose decode writes go on round them beside the pooled
 # global layers; 8-16 new (2064 prompt tokens from the seed: a one-shot
 # admission costs about ten eager launches a token and ring layer on the
-# host, 241-281 us; prompts of 64-1100 took 104 s for the two runs, 64-400
-# without the long one 58 s)
+# host, 241-402 us); on the first SWA_CB_LAYERS layers (2 global, 10 local),
+# not all 62: the whole run keeps room for [15] (52 ring layers made the
+# two runs 60 s)
 SWA_CB = CBLoad(4, 1280, 8, 4, (64, 256), (8, 16), 1100)
+SWA_CB_LAYERS = 12
 # (d): a 2-layer cut (a local layer and a global one) whose window of 32
 # the 48-token prompts wrap
-SWA_CUT_WINDOW, SWA_CUT_PROMPT, SWA_CUT_NEW = 32, 48, 4
-# (e): every ring (4096) wraps in the prefill
+SWA_CUT_WINDOW, SWA_CUT_PROMPT, SWA_CUT_NEW = 32, 48, 2  # 2 new, not 4: room for [15]
+# (e): every ring (4096) wraps in the prefill; on the first DANUBE_SERVE_LAYERS
+# layers, not all 24: the whole run keeps room for [15]
 DANUBE_BATCH, DANUBE_PROMPT, DANUBE_NEW, DANUBE_MAX_LEN = 2, 4160, 8, 4224
+DANUBE_SERVE_LAYERS = 8
 # (f): positions past the 4096 window in one sequence
 DANUBE_TRAIN_BATCH, DANUBE_TRAIN_SEQ, DANUBE_TRAIN_TIMED = 1, 6144, 2
 
@@ -3676,7 +3905,7 @@ def phase_swa_export(torch, cfg):
     Returns (params, bytes)."""
     t0 = time.perf_counter()
     cut = dataclasses.replace(cfg, n_layers=SWA_EXPORT_CHECK_LAYERS)
-    a = dict(_tree_paths(_block_export(torch, cut, stack_repeats=True)))
+    a = dict(_tree_paths(_block_export(torch, cut)))
     b = dict(_tree_paths(_block_export(torch, cut, one_shot=True)))
     if list(a) != list(b):
         raise AssertionError(f"export trees differ: {sorted(set(a) ^ set(b))}")
@@ -3696,7 +3925,7 @@ def phase_swa_export(torch, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = _block_export(torch, cfg, stack_repeats=True)
+    params = _block_export(torch, cfg)
     torch.cuda.synchronize()
     leaves = dict(_tree_paths(params))
     nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
@@ -3727,6 +3956,10 @@ def phase_swa_serving(torch, cfg, params) -> tuple[dict, dict]:
     summary["decode"]["device_busy_share"] = _swa_decode_busy(
         torch, cfg, params, SWA_BATCH, SWA_PROMPT, SWA_PROMPT + SWA_NEW)
     log(f"[time] [14] (b) done at {time.perf_counter() - t0:.1f} s")
+    # (c) on the first SWA_CB_LAYERS layers: whole periods of the stacked segment
+    cfg = dataclasses.replace(cfg, n_layers=SWA_CB_LAYERS)
+    params = {"embed": params["embed"], "final_norm": params["final_norm"], "segments": [
+        _tree(lambda t: t[:SWA_CB_LAYERS // cfg.global_every], params["segments"][0])]}
     n_global = cfg.n_layers // cfg.global_every
     if SWA_CB.long + SWA_CB.new[0] <= cfg.window_size:
         raise AssertionError("(c): no request's ring wraps")
@@ -3804,9 +4037,10 @@ def phase_swa(torch, smi: str) -> tuple[dict, dict]:
     log(f"[time] [14] (d) done at {time.perf_counter() - t0:.1f} s")
     # (e) h2o-danube-1.8b served past its window
     dcfg = get_config(DANUBE_ARCH)
-    dparams = _block_export(torch, dcfg, stack_repeats=True)
+    scfg = dataclasses.replace(dcfg, n_layers=DANUBE_SERVE_LAYERS)
+    dparams = _block_export(torch, scfg)
     d_launches, summary["danube_decode"] = _swa_generate(
-        torch, dcfg, dparams, "(e)", DANUBE_BATCH, DANUBE_PROMPT, DANUBE_NEW, DANUBE_MAX_LEN,
+        torch, scfg, dparams, "(e)", DANUBE_BATCH, DANUBE_PROMPT, DANUBE_NEW, DANUBE_MAX_LEN,
         repeat=False)
     launches = _add(launches, d_launches)
     del dparams
@@ -3827,6 +4061,390 @@ def phase_swa(torch, smi: str) -> tuple[dict, dict]:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: Multi-head Latent Attention (deepseek-v2-236b)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-236b"
+# (a): the block-by-block export held to the one-shot export of the same
+# latents on a cut of 1 dense + 2 MoE layers (the MoE segment stacked)
+MLA_EXPORT_CHECK_LAYERS = 3
+# (b) the decode tier: the prefill's 128 rows run the prefill GEMMs, each
+# decode step's 4 rows the GEMVs, its latent expansion the 4 x 40 cache rows
+MLA_BATCH, MLA_PROMPT, MLA_NEW = 4, 32, 8
+MLA_P_BATCH, MLA_P_PROMPT = 8, 256  # (c) the prefill tier: 2048 rows
+# (d): a 4-layer cut (1 dense + 3 MoE) of the export, 4 slots of 272
+# positions, 5 requests (4 at tick 0), prompts of 16-256 tokens, 4-8 new
+MLA_CB_LAYERS = 4
+MLA_CB = CBLoad(4, 272, 5, 4, (16, 256), (4, 8))
+MLA_CUT_LAYERS, MLA_CUT_NEW = 2, 2  # (e): the dense layer and the first MoE layer
+# (e): the dense layer's chunk of MLA_STEPS_T tokens against as many decode
+# steps, per-slot positions in a latent cache of MLA_STEPS_LEN positions
+MLA_STEPS_T, MLA_STEPS_POS, MLA_STEPS_LEN = 8, (2, 5, 11, 20), 32
+# (f): a 2-layer cut at full width with MLA_TRAIN_EXPERTS of the 160 routed
+# experts (top-6 and the 2 shared kept), bf16, remat
+MLA_TRAIN_LAYERS, MLA_TRAIN_EXPERTS = 2, 32
+MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, MLA_TRAIN_TIMED = 2, 2048, 2
+# (f)'s card vs CPU gradient cut: the same 2 layers in f32 with 8 routed
+# experts (top-6 kept), small enough for the CPU
+MLA_GRAD_EXPERTS = 8
+
+
+def _mla_launches(cfg, rows: int, latent_rows: int) -> dict:
+    """Kernel launches of one packed forward of an MLA MoE model over
+    ``rows`` token rows whose latent expansion reads ``latent_rows`` cache
+    rows (B x the positions read), each linear on the decode GEMVs at most
+    32 rows, else on the prefill GEMMs: a layer's wq_down, wq_up, wkv_down
+    and wo at ``rows`` and its wkv_up at ``latent_rows``; its FFN's (the
+    dense one's or the shared experts') 1-bit down projection, two up/gate
+    pairs and 8-bit down projection at ``rows``; each MoE layer's routed
+    experts one W1A8 call a slice and linear at their capacity."""
+    from repro_torch.core import routing
+
+    def one(m):
+        return "w1a8_gemv" if m <= 32 else "w1a8_matmul"
+
+    rcfg = routing.RouterConfig(num_experts=cfg.n_routed_experts, top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.moe_capacity_factor)
+    out = _add({k: 0 for k in MOE_KERNELS}, {
+        one(rows): 5, "decoupled_gemv" if rows <= 32 else "decoupled_matmul": 2,
+        "int8_matmul": 1}, cfg.n_layers)
+    out = _add(out, {one(latent_rows): 1}, cfg.n_layers)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    return _add(out, {one(routing.expert_capacity(rows, rcfg)): 3 * cfg.n_routed_experts}, n_moe)
+
+
+def phase_mla_export(torch, cfg):
+    """[15] (a): deepseek-v2-236b's export block by block, held leaf for leaf,
+    exactly, to the one-shot export on a cut of MLA_EXPORT_CHECK_LAYERS
+    layers; then the full model's.  Returns (params, bytes)."""
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=MLA_EXPORT_CHECK_LAYERS)
+    a = dict(_tree_paths(_block_export(torch, cut)))
+    peak_a = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b = dict(_tree_paths(_block_export(torch, cut, one_shot=True)))
+    if list(a) != list(b):
+        raise AssertionError(f"export trees differ: {sorted(set(a) ^ set(b))}")
+    differ = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"the block-by-block export differs from the one-shot export at "
+                             f"{differ}")
+    stacked = [k for k in a if k.startswith("/segments/1/") and a[k].ndim and
+               a[k].shape[0] == MLA_EXPORT_CHECK_LAYERS - cfg.first_k_dense]
+    log(f"[15] (a) {MLA_EXPORT_CHECK_LAYERS}-layer cut: the block-by-block export equals the "
+        f"one-shot export of the same latents leaf for leaf, bit for bit ({len(a)} leaves, "
+        f"{len(stacked)} of them stacked over its 2 MoE layers); peak device memory "
+        f"{peak_a / 1e9:.2f} GB block by block, {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB one-shot; {time.perf_counter() - t0:.1f} s")
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _block_export(torch, cfg)
+    torch.cuda.synchronize()
+    leaves = dict(_tree_paths(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    by_kind = {}
+    for t in leaves.values():
+        kind = ("packed 1-bit" if t.dtype == torch.uint8 else "int8" if t.dtype == torch.int8
+                else "float")
+        by_kind[kind] = by_kind.get(kind, 0) + t.numel() * t.element_size()
+    log(f"[15] (a) {cfg.name}: {cfg.n_layers} layers ({cfg.first_k_dense} dense, d_ff "
+        f"{cfg.d_ff}; {cfg.n_layers - cfg.first_k_dense} MoE: {cfg.n_routed_experts} experts "
+        f"top-{cfg.moe_top_k} of width {cfg.d_ff_expert}, {cfg.n_shared_experts} shared), "
+        f"d_model {cfg.d_model}, MLA: {cfg.n_heads} heads, q_lora {cfg.q_lora_rank}, kv_lora "
+        f"{cfg.kv_lora_rank}, qk {cfg.qk_nope_dim} + {cfg.qk_rope_dim} rope, v "
+        f"{cfg.v_head_dim}; r {cfg.quant.r}, vocab {cfg.vocab_size} untied; exported block by "
+        f"block in {time.perf_counter() - t0:.1f} s: {nbytes / 1e9:.3f} GB (" + ", ".join(
+            f"{k} {v / 1e9:.3f} GB" for k, v in by_kind.items())
+        + f"); device memory held {torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params, nbytes, by_kind
+
+
+def _mla_generate(torch, cfg, params, prompts, new: int, want: dict, how: str, part: str):
+    """One counted ``DecodeEngine`` generate of ``new`` greedy tokens (no
+    plain version called), its TTFT read where its prefill ends (a
+    synchronize there), then a second generate that must repeat the
+    stream.  Returns (launches, {ttft_ms, generate_ms: both runs, medians,
+    ms_per_step, tokens_per_s}, the engine)."""
+    from repro_torch.serve.engine import DecodeEngine, SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=new)
+    eng = DecodeEngine(params, cfg, max_len=prompts.shape[1] + new, device=torch.device("cuda"))
+    ends = []
+    prefill = eng._prefill
+
+    def timed_prefill(*a, **k):
+        out = prefill(*a, **k)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    eng._prefill = timed_prefill
+    walls, ttfts = [], []
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        stream, launches, wall = _counted_generate(torch, eng, prompts, greedy, want, how, "15")
+        ttfts.append(ends[-1] - t0)
+        walls.append(wall)
+        t0 = time.perf_counter()
+        again = eng.generate(prompts, greedy)
+        walls.append(time.perf_counter() - t0)
+        ttfts.append(ends[-1] - t0)
+    if plain.calls:
+        raise AssertionError(f"{part}: plain versions called on the card: {dict(plain.calls)}")
+    if not (again == stream).all():
+        raise AssertionError(f"{part}: a repeated generate gave another stream")
+    eng._prefill = prefill
+    ttft, wall = statistics.median(ttfts), statistics.median(walls)
+    b = prompts.shape[0]
+    summary = {"ttft_ms": ttft * 1e3, "ttft_ms_runs": [t * 1e3 for t in ttfts],
+               "generate_ms": wall * 1e3, "generate_ms_runs": [w * 1e3 for w in walls]}
+    if new > 1:
+        summary["ms_per_step"] = (wall - ttft) / (new - 1) * 1e3
+        summary["tokens_per_s"] = b * (new - 1) / (wall - ttft)
+    log(f"[15] {part} DecodeEngine, {b} x {prompts.shape[1]} tokens, {new} new, over 2 runs "
+        f"(host clock; TTFT where the prefill ends, synchronized; the generate ended by its one "
+        f"transfer): TTFT {[round(t * 1e3, 1) for t in ttfts]} ms, generate "
+        f"{[round(w * 1e3, 1) for w in walls]} ms" + (
+            f"; decode {summary['ms_per_step']:.2f} ms/step, {summary['tokens_per_s']:.2f} "
+            f"tokens/s at batch {b}" if new > 1 else ""))
+    log(f"[15] {part} stream (request 0): {stream[0].tolist()}; a second generate repeats it")
+    summary["launches"] = launches
+    return launches, summary, eng
+
+
+def _mla_chunk_vs_steps(torch, params, cfg) -> dict:
+    """[15] (e): the dense layer's packed MLA on the card, one
+    MLA_STEPS_T-token ``mla_chunk`` at per-slot positions MLA_STEPS_POS
+    (every token valid) against as many ``mla_decode`` steps from the same
+    latent cache (noise, MLA_STEPS_LEN positions): the latent caches and
+    the outputs, each bit for bit or by how much they differ, the outputs
+    held within LOGIT_TOL of their largest (the tests hold the two on the
+    CPU within 1e-5).  No plain version is called."""
+    from repro_torch.models import attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mp = params["segments"][0]["b0"]["mixer"]
+    b, t = len(MLA_STEPS_POS), MLA_STEPS_T
+    x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+    chunked = {"ckv": torch.randn((b, MLA_STEPS_LEN, cfg.kv_lora_rank), generator=gen,
+                                  device=dev),
+               "krope": torch.randn((b, MLA_STEPS_LEN, cfg.qk_rope_dim), generator=gen,
+                                    device=dev)}
+    stepped = {k: v.clone() for k, v in chunked.items()}
+    pos = torch.tensor(MLA_STEPS_POS, device=dev)
+    with _PlainCalls() as plain:
+        y, _ = attention.mla_chunk(mp, x, chunked, pos, cfg,
+                                   attention.rope_at(pos, t, cfg.qk_rope_dim, cfg.rope_theta),
+                                   lengths=torch.full((b,), t, device=dev))
+        ys = torch.cat([attention.mla_decode(
+            mp, x[:, i:i + 1], stepped, pos + i, cfg,
+            attention.rope_at(pos + i, 1, cfg.qk_rope_dim, cfg.rope_theta))[0]
+            for i in range(t)], dim=1)
+    if plain.calls:
+        raise AssertionError(f"(e) chunk vs steps: plain versions called: {dict(plain.calls)}")
+    if not (torch.isfinite(y).all() and torch.isfinite(ys).all()):
+        raise AssertionError("(e) chunk vs steps: non-finite outputs")
+    out = {"outputs_bitwise": torch.equal(y, ys),
+           "outputs_max_abs_diff": (y - ys).abs().max().item(),
+           "outputs_max_abs": ys.abs().max().item(),
+           "latents_bitwise": all(torch.equal(chunked[k], stepped[k]) for k in chunked),
+           "latents_max_abs_diff": max((chunked[k] - stepped[k]).abs().max().item()
+                                       for k in chunked)}
+    log(f"[15] (e) the dense layer's MLA, a {t}-token mla_chunk at positions {MLA_STEPS_POS} "
+        f"against {t} mla_decode steps on the card: latent caches bit for bit "
+        f"{out['latents_bitwise']} (max |diff| {out['latents_max_abs_diff']:.3g}); outputs bit "
+        f"for bit {out['outputs_bitwise']} (max |diff| {out['outputs_max_abs_diff']:.3g}, |y| <= "
+        f"{out['outputs_max_abs']:.3g}, tolerance {LOGIT_TOL} x that)")
+    if out["outputs_max_abs_diff"] > LOGIT_TOL * out["outputs_max_abs"]:
+        raise AssertionError("(e) a chunk and its decode steps disagree on the card")
+    return out
+
+
+def phase_mla_serving(torch, cfg, params) -> tuple[dict, dict]:
+    """[15] (b)-(d): DecodeEngine at the decode tier and at the prefill
+    tier, and the continuous batcher on a 4-layer cut in both layouts.
+    Returns ({kernel: launches summed over the counted runs}, summary)."""
+    from repro_torch.core import routing
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    summary = {}
+    # (b) the decode tier
+    prompts = torch.randint(0, cfg.vocab_size, (MLA_BATCH, MLA_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED))
+    max_len = MLA_PROMPT + MLA_NEW
+    prefill = _mla_launches(cfg, MLA_BATCH * MLA_PROMPT, MLA_BATCH * MLA_PROMPT)
+    decode = _mla_launches(cfg, MLA_BATCH, MLA_BATCH * max_len)
+    log(f"[15] (b) a decode forward launches {decode}: {cfg.n_layers} x 5 W1A8 GEMVs (wq_down, "
+        f"wq_up, wkv_down, wo, the FFN's w1_down) plus {cfg.n_layers - cfg.first_k_dense} x "
+        f"{cfg.n_routed_experts} x 3 expert slices; {cfg.n_layers} latent expansions (wkv_up "
+        f"over {MLA_BATCH} x {max_len} cache rows) on w1a8_matmul; {cfg.n_layers} x 2 "
+        f"decoupled_gemv, {cfg.n_layers} int8_matmul")
+    total, summary["decode"], eng = _mla_generate(
+        torch, cfg, params, prompts, MLA_NEW, _add(prefill, decode, MLA_NEW - 1),
+        f"1 prefill forward x {prefill} + {MLA_NEW - 1} decode forwards x {decode}", "(b)")
+    del eng
+    # finite logits of a prefill and a decode step, then the busy share of
+    # one decode step (timed unprofiled, then profiled, on the same caches)
+    with _PlainCalls() as plain:
+        logits, caches = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, max_len)
+        tok = logits.argmax(-1)[:, None]
+        step_logits, _ = api.decode_step(params, tok, caches, MLA_PROMPT, cfg)
+        if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
+            raise AssertionError("(b) non-finite logits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_step(params, tok, caches, MLA_PROMPT, cfg)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        busy = _device_trace_time(torch, lambda: api.decode_step(params, tok, caches, MLA_PROMPT,
+                                                                 cfg),
+                                  t_step, "15", "decode step", top=10)
+    if plain.calls:
+        raise AssertionError(f"(b): plain versions called on the card: {dict(plain.calls)}")
+    summary["decode"]["device_busy_share"] = busy / t_step
+    summary["decode"]["decode_step_ms"] = t_step * 1e3
+    del logits, caches, step_logits
+    log(f"[time] [15] (b) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (c) the prefill tier: 2048 rows (capacity 96 an expert), one token
+    prompts = torch.randint(0, cfg.vocab_size, (MLA_P_BATCH, MLA_P_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 2))
+    rows = MLA_P_BATCH * MLA_P_PROMPT
+    prefill = _mla_launches(cfg, rows, rows)
+    if prefill["w1a8_gemv"] or prefill["decoupled_gemv"]:
+        raise AssertionError(f"(c) {rows} rows would reach a GEMV: {prefill}")
+    with _Drops(torch) as drops:
+        launches, summary["prefill"], eng = _mla_generate(
+            torch, cfg, params, prompts, 1, prefill, f"1 prefill forward x {prefill}", "(c)")
+    del eng
+    total = _add(total, launches)
+    rcfg = routing.RouterConfig(num_experts=cfg.n_routed_experts, top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.moe_capacity_factor)
+    dropped = int(drops.total.item()) // 2  # two prefills
+    routings = rows * cfg.moe_top_k * drops.routers // 2
+    log(f"[15] (c) routings dropped by capacity in a prefill: {dropped} of {routings} "
+        f"({100 * dropped / routings:.2f}%) over {drops.routers // 2} routers ({cfg.moe_top_k} a "
+        f"token, capacity {routing.expert_capacity(rows, rcfg)} an expert)")
+    summary["prefill"].update(dropped_routings=dropped, routings=routings)
+    torch.cuda.empty_cache()
+    log(f"[time] [15] (c) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (d) continuous batching on a 4-layer cut: paged (no MLA layer on the
+    # pool: the allocator's bookkeeping only) and dense
+    sliced, cut = _moe_cut(params, cfg, MLA_CB_LAYERS)
+    streams = {}
+    for name, layout in (("paged", "paged"), ("dense", "dense")):
+        with _PlainCalls() as plain:
+            rec, st, reasons, _ = _cb_run(torch, sliced, cut, name, layout, None, 1, "auto",
+                                          MLA_CB)
+        rec.pop("step_walls")
+        streams[name] = st
+        if plain.calls:
+            raise AssertionError(f"(d) {name}: plain versions called: {dict(plain.calls)}")
+        if sorted(st) != list(range(MLA_CB.requests)) or set(reasons) != {"length"} \
+                or len(reasons) != MLA_CB.requests:
+            raise AssertionError(f"(d) {name}: requests did not each finish once by length")
+        if rec["free_blocks"] is not None and rec["free_blocks"] != rec["num_blocks"]:
+            raise AssertionError(f"(d) {name}: blocks left allocated after the run")
+        if rec["launches"].get("paged_attention", 0) or \
+                rec["launches"].get("w1a8_matmul", 0) < cut.n_layers * rec["decode_steps"]:
+            raise AssertionError(f"(d) {name}: launches {rec['launches']}: want no "
+                                 "paged_attention and a w1a8_matmul expansion a layer and step")
+        log(f"[15] (d) {name}: wall {rec['wall_s']:.2f} s, {rec['tokens_per_s']:.1f} tokens/s, "
+            f"TTFT p50 {rec['ttft_ms_p50']:.1f} / p99 {rec['ttft_ms_p99']:.1f} ms, "
+            f"{rec['engine_steps']} engine steps, {rec['decode_steps']} decode steps, launches "
+            f"{rec['launches']} (no paged_attention: every layer keeps its dense latent cache)")
+        summary[f"continuous_{name}"] = {k: rec[k] for k in (
+            "wall_s", "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "engine_steps",
+            "decode_steps", "launches")}
+        if name == "paged":
+            total = _add(total, rec["launches"])
+    equal = _compare_streams(torch, sliced, cut, _cb_load(cfg.vocab_size, MLA_CB),
+                             streams["dense"], streams["paged"], "(d) paged vs dense", tag="15")
+    if equal != MLA_CB.requests:
+        raise AssertionError("(d) the paged layout's streams differ from the dense layout's "
+                             "(the same computation: no MLA layer is on the pool)")
+    summary["continuous_paged_vs_dense_equal"] = equal
+    log(f"[time] [15] (d) done at {time.perf_counter() - t_start:.1f} s")
+    return total, summary
+
+
+def phase_mla_train(torch, smi: str) -> dict:
+    """[15] (f): ``make_train_step`` on a MLA_TRAIN_LAYERS-layer cut at full
+    width with MLA_TRAIN_EXPERTS routed experts (bf16 forward, remat) at
+    MLA_TRAIN_BATCH x MLA_TRAIN_SEQ tokens."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_TRAIN_LAYERS,
+                              n_routed_experts=MLA_TRAIN_EXPERTS)
+    e, k = cfg.n_routed_experts, cfg.moe_top_k
+    routed = (cfg.n_layers - cfg.first_k_dense) * 3 * e * cfg.d_model * cfg.d_ff_expert
+
+    def watch(params):
+        mixer = params["segments"][0]["b0"]["mixer"]  # the dense layer's MLA
+        ffn = params["segments"][1]["b0"]["ffn"]  # the MoE layer's (a segment of one)
+        lead = lambda t: t[None]  # noqa: E731  (the watch reads slice 0 of a stack)
+        got = {name: lead(mixer[name]["w"]) for name in ("wq_down", "wq_up", "wkv_down",
+                                                          "wkv_up", "wo")}
+        got.update({name: lead(mixer[name]["scale"]) for name in ("q_norm", "kv_norm", "subln")})
+        got.update({"router": lead(ffn["router"]["w"]), "we_up": lead(ffn["we_up"])})
+        return got, ("we_up",)
+
+    def active(n):
+        return n - routed * (e - k) // e, f"{k} of the {e} routed experts"
+
+    return _train_cell(torch, smi, cfg, "15", "(f)", MLA_TRAIN_BATCH, MLA_TRAIN_SEQ,
+                       MLA_TRAIN_TIMED, watch, active)
+
+
+def phase_mla(torch, smi: str) -> tuple[dict, dict]:
+    """Phase 15: deepseek-v2-236b at full width and depth, exported block by
+    block ((a)) and served ((b)-(d)); cut to 2 layers on the card and the
+    CPU ((e)); trained on a 2-layer cut with fewer routed experts, and its
+    gradients held card vs CPU ((f)).  Returns ({kernel: launches of the
+    counted runs}, summary)."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    params, nbytes, by_kind = phase_mla_export(torch, cfg)
+    log(f"[time] [15] (a) done at {time.perf_counter() - t0:.1f} s")
+    launches, summary = phase_mla_serving(torch, cfg, params)
+    summary["export_gb"] = nbytes / 1e9
+    summary["export_gb_by_kind"] = {k: v / 1e9 for k, v in by_kind.items()}
+    # (e) card vs CPU on the dense layer and the first MoE layer
+    gpu, cut = _moe_cut(params, cfg, MLA_CUT_LAYERS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab_size, (MLA_BATCH, 8),
+                            generator=torch.Generator().manual_seed(SEED))
+    phase_cut(torch, None, cfg, prompts, tag="15", decode_may_part=True, cut=(gpu, cut),
+              prefill_tier=False, replay_choices=True, new_tokens=MLA_CUT_NEW)
+    summary["chunk_vs_steps"] = _mla_chunk_vs_steps(torch, gpu, cut)
+    log(f"[time] [15] (e) done at {time.perf_counter() - t0:.1f} s")
+    del gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["train"] = phase_mla_train(torch, smi)
+    summary["train_cut"] = phase_train_cut(
+        torch, tag="15", init_on_card=True, cfg=dataclasses.replace(
+            cfg, n_layers=MLA_TRAIN_LAYERS, n_routed_experts=MLA_GRAD_EXPERTS, dtype="float32",
+            remat=False))
+    log(f"[time] [15] (f) done at {time.perf_counter() - t0:.1f} s")
+    summary["card"] = smi
+    return launches, summary
+
+
 def swa(torch) -> int:
     """Phases 1, 2 and 14 alone: prints one JSON line of phase 14's launch
     counts and summary."""
@@ -3838,6 +4456,20 @@ def swa(torch) -> int:
     launches, summary = phase_swa(torch, smi)
     log(f"[time] [14] done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"launches": launches, "swa": summary}, default=str))
+    return 0
+
+
+def mla(torch) -> int:
+    """Phases 1, 2 and 15 alone: prints one JSON line of phase 15's launch
+    counts and summary."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, _ = phase_card(torch)
+    t0 = phase_build(_cuda)
+    launches, summary = phase_mla(torch, smi)
+    log(f"[time] [15] done at {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches": launches, "mla": summary}, default=str))
     return 0
 
 
@@ -4043,6 +4675,9 @@ def main(torch) -> int:
     s_launches, s_summary = phase_swa(torch, smi)
     log(f"[14] summary: {json.dumps(s_summary, default=str)}")
     lap("[14]")
+    l_launches, l_summary = phase_mla(torch, smi)
+    log(f"[15] summary: {json.dumps(l_summary, default=str)}")
+    lap("[15]")
     c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
@@ -4060,7 +4695,8 @@ def main(torch) -> int:
     # routed experts' (a) decode, (b) prefill and (c) kernel-route runs,
     # [13] deepseek-moe-16b's (b) decode, (c) prefill and generate and (d)
     # kernel-route runs, [14] gemma3-27b's (b) generate and (c) kernel-route
-    # run and h2o-danube-1.8b's (e) generate
+    # run and h2o-danube-1.8b's (e) generate, [15] deepseek-v2-236b's (b)
+    # decode and (c) prefill generates and (d) paged run
     main_key = {
         "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
@@ -4078,7 +4714,8 @@ def main(torch) -> int:
         key = main_key[n]
         by_path = {"decode": launches.get(n, 0), "prefill": p_launches.get(n, 0),
                    "continuous": c_launches.get(n, 0), "experts": e_launches.get(n, 0),
-                   "moe": m_launches.get(n, 0), "swa": s_launches.get(n, 0)}
+                   "moe": m_launches.get(n, 0), "swa": s_launches.get(n, 0),
+                   "mla": l_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4111,6 +4748,8 @@ if __name__ == "__main__":
                     help="phases 1, 2 and 13 only (deepseek-moe-16b)")
     ap.add_argument("--swa", action="store_true",
                     help="phases 1, 2 and 14 only (gemma3-27b, h2o-danube-1.8b)")
+    ap.add_argument("--mla", action="store_true",
+                    help="phases 1, 2 and 15 only (deepseek-v2-236b: MLA)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -4128,6 +4767,8 @@ if __name__ == "__main__":
         sys.exit(moe(torch))
     if args.swa:
         sys.exit(swa(torch))
+    if args.mla:
+        sys.exit(mla(torch))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
         sys.exit(one_kernel(torch, args.kernel, src))

@@ -5,9 +5,10 @@ Ported so far: the paper's own decoder family, the ``pquant-<size>``
 entries (which take ``quant_mode=`` like upstream) and, as named
 shorthands for the same family under another quantization mode,
 ``bitnet-<size>``, ``bitnet158-<size>`` and ``none-<size>``;
-``deepseek-moe-16b``; and the sliding-window configs ``gemma3-27b``
-(5 local : 1 global) and ``h2o-danube-1.8b``.  The other architectures
-of the JAX registry raise ``NotImplementedError``.
+``deepseek-moe-16b`` and the MLA MoE ``deepseek-v2-236b``; and the
+sliding-window configs ``gemma3-27b`` (5 local : 1 global) and
+``h2o-danube-1.8b``.  The other architectures of the JAX registry raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs import deepseek_moe_16b, gemma3_27b, h2o_danube_1_8b, pquant_paper
+from repro_torch.configs import (
+    deepseek_moe_16b,
+    deepseek_v2_236b,
+    gemma3_27b,
+    h2o_danube_1_8b,
+    pquant_paper,
+)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, Callable[..., ModelConfig]] = {}
@@ -30,6 +37,7 @@ for _size in pquant_paper.SIZES:
             )
         )
 ARCHS["deepseek-moe-16b"] = deepseek_moe_16b.make
+ARCHS["deepseek-v2-236b"] = deepseek_v2_236b.make
 ARCHS["gemma3-27b"] = gemma3_27b.make
 ARCHS["h2o-danube-1.8b"] = h2o_danube_1_8b.make
 
@@ -38,7 +46,6 @@ NOT_PORTED = (
     "granite-20b",
     "deepseek-coder-33b",
     "whisper-large-v3",
-    "deepseek-v2-236b",
     "phi-3-vision-4.2b",
     "mamba2-780m",
     "recurrentgemma-2b",

@@ -32,7 +32,9 @@ def pack_signs(signs: Tensor) -> Tensor:
         torch.ones((), dtype=torch.uint8, device=signs.device),
         _bit_shifts(signs.device),
     )[:, None]
-    return torch.sum(bits * weights, dim=-2).to(torch.uint8)
+    # distinct powers of two sum to at most 255: exact in uint8, and no
+    # int64 copy of the bits (8x their bytes) as an integer sum would make
+    return torch.sum(bits * weights, dim=-2, dtype=torch.uint8)
 
 
 def unpack_signs(packed: Tensor, dtype=torch.int8) -> Tensor:

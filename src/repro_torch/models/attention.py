@@ -1,6 +1,7 @@
 """Port of ``repro.models.attention``: full/GQA and sliding-window
-attention with the dense, ring and paged KV-cache adapters (MLA is not
-ported yet).
+attention with the dense, ring and paged KV-cache adapters, and
+DeepSeek-V2's Multi-head Latent Attention (MLA) over a dense latent cache
+``{"ckv", "krope"}`` in both layouts.
 
 All projections are BitLinear; on packed serving weights every projection
 runs the W1A8 kernel tier (``repro_torch.core.bitlinear``).  Two cache
@@ -34,7 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.bitlinear import bitlinear, init_linear, init_rmsnorm
+from repro_torch.core.bitlinear import bitlinear, init_linear, init_rmsnorm, rmsnorm
 from repro_torch.models.layers import apply_rope, rope_table, rotate
 
 Tensor = torch.Tensor
@@ -373,3 +374,155 @@ def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
     mask = _decode_mask(pos, skv, device=x.device)
     out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
     return _out_proj(params, out, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=None):
+    d, nh = cfg.d_model, cfg.n_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    params = {}
+    if cfg.q_lora_rank > 0:
+        params["wq_down"] = init_linear(gen, d, cfg.q_lora_rank, lead, device)
+        params["wq_up"] = init_linear(gen, cfg.q_lora_rank, nh * qk, lead, device)
+        params["q_norm"] = init_rmsnorm(cfg.q_lora_rank, lead, device)
+    else:
+        params["wq"] = init_linear(gen, d, nh * qk, lead, device)
+    # joint KV down-projection: [c_kv ; k_rope]
+    params["wkv_down"] = init_linear(gen, d, cfg.kv_lora_rank + cfg.qk_rope_dim, lead, device)
+    params["wkv_up"] = init_linear(gen, cfg.kv_lora_rank, nh * (cfg.qk_nope_dim + cfg.v_head_dim),
+                                   lead, device)
+    params["kv_norm"] = init_rmsnorm(cfg.kv_lora_rank, lead, device)
+    params["wo"] = init_linear(gen, nh * cfg.v_head_dim, d, lead, device)
+    if cfg.quant.mode != "none":
+        params["subln"] = init_rmsnorm(nh * cfg.v_head_dim, lead, device)
+    return params
+
+
+def _mla_q(params, x: Tensor, cfg: ModelConfig):
+    """(q_nope, q_rope), each (B, S, H, ·): through the q LoRA pair
+    (down, RMSNorm, up) where ``q_lora_rank`` > 0, else one ``wq``."""
+    b, s, _ = x.shape
+    if cfg.q_lora_rank > 0:
+        cq = rmsnorm(params["q_norm"], bitlinear(params["wq_down"], x, cfg.quant))
+        q = bitlinear(params["wq_up"], cq, cfg.quant)
+    else:
+        q = bitlinear(params["wq"], x, cfg.quant)
+    q = q.reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
+
+
+def _mla_project(params, x: Tensor, cfg: ModelConfig, rope: tuple[Tensor, Tensor]):
+    """The queries and the new latents of x (B, S, D), rotated by ``rope``
+    (sin/cos broadcastable to (B, S, 1, qk_rope / 2)): (q_nope, q_rope,
+    the normed latent c_kv (B, S, kv_lora), the shared rope key (B, S,
+    qk_rope)), from the joint KV down-projection [c_kv ; k_rope]."""
+    q_nope, q_rope = _mla_q(params, x, cfg)
+    down = bitlinear(params["wkv_down"], x, cfg.quant)
+    ckv = rmsnorm(params["kv_norm"], down[..., : cfg.kv_lora_rank])
+    krope = rotate(down[..., cfg.kv_lora_rank :][:, :, None, :], *rope)[:, :, 0]
+    return q_nope, rotate(q_rope, *rope), ckv, krope
+
+
+def _mla_expand_kv(params, ckv: Tensor, cfg: ModelConfig):
+    """Expand the latents (B, L, kv_lora) into per-head K_nope and V."""
+    b, s, _ = ckv.shape
+    kv = bitlinear(params["wkv_up"], ckv, cfg.quant)
+    kv = kv.reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.v_head_dim)
+    return kv[..., : cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim :]
+
+
+def _mla_attend(params, q_nope: Tensor, q_rope: Tensor, ckv: Tensor, krope: Tensor,
+                mask: Optional[Tensor], cfg: ModelConfig) -> Tensor:
+    """Score rotated queries against L latents: expand ckv (B, L, kv_lora)
+    to K_nope / V, broadcast the rotated shared rope key krope (B, L,
+    qk_rope) over the heads, attend at scale (qk_nope + qk_rope)^-1/2, then
+    SubLN and ``wo``.  Returns y (B, Sq, D)."""
+    b, sq = q_nope.shape[:2]
+    l = ckv.shape[1]
+    k_nope, v = _mla_expand_kv(params, ckv, cfg)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(b, l, cfg.n_heads, cfg.qk_rope_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = _sdpa(q, k, v, mask, scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+    return bitlinear(params["wo"], out.reshape(b, sq, -1), cfg.quant,
+                     sublayer_norm=params.get("subln"))
+
+
+def mla_attention(params, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor) -> Tensor:
+    """Full-sequence causal MLA (train / eval; serving runs
+    :func:`mla_chunk`).  sin/cos: (S, qk_rope / 2) tables of positions
+    0..S-1; the rope key is one head shared by all."""
+    q_nope, q_rope, ckv, krope = _mla_project(params, x, cfg,
+                                              (sin[None, :, None], cos[None, :, None]))
+    s = x.shape[1]
+    return _mla_attend(params, q_nope, q_rope, ckv, krope, causal_mask(s, s, 0, x.device), cfg)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, lead: tuple = (),
+                   device=None):
+    """MLA caches only the compressed latent and the shared rope key — the
+    architecture's memory win, kept (never expanded K/V), dense per slot
+    in both serving layouts."""
+    shape = lead + (batch, max_len)
+    return {"ckv": torch.zeros(shape + (cfg.kv_lora_rank,), dtype=dtype, device=device),
+            "krope": torch.zeros(shape + (cfg.qk_rope_dim,), dtype=dtype, device=device)}
+
+
+def mla_chunk(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
+              rope: tuple[Tensor, Tensor], active: Tensor | None = None,
+              lengths: Tensor | None = None, read_to: int | None = None):
+    """Cache-resident multi-token MLA (in place): span-write T latents,
+    expand the latent cache up to the static ``read_to`` bound (see
+    :func:`attention_chunk`) and score each query against its causal
+    prefix.  T = 1 without ``lengths`` is :func:`mla_decode`, bit for bit
+    the decode stream.  The latent cache stays dense in both layouts:
+    with no paged K/V to walk, the paged-attention kernel does not apply.
+    Returns (y (B, T, D), cache)."""
+    b, t = x.shape[:2]
+    if t == 1 and lengths is None:
+        return mla_decode(params, x, cache, pos, cfg, rope, active=active)
+    q_nope, q_rope, ckv, krope = _mla_project(params, x, cfg, rope)
+    posmat = _pos_matrix(pos, t, x.device)
+    valid = _chunk_valid(b, t, active, lengths, x.device)
+    skv = cache["ckv"].shape[1]
+    lim = skv if read_to is None else min(read_to, skv)
+    if valid is None and isinstance(pos, int):
+        # lockstep chunk: one slice write (rows past the end are dropped)
+        end = min(pos + t, skv)
+        cache["ckv"][:, pos:end] = ckv[:, : end - pos].to(cache["ckv"].dtype)
+        cache["krope"][:, pos:end] = krope[:, : end - pos].to(cache["krope"].dtype)
+    else:
+        rows = posmat.expand(b, t)
+        _span_write(cache["ckv"], ckv, rows, valid)
+        _span_write(cache["krope"], krope, rows, valid)
+    y = _mla_attend(params, q_nope, q_rope, cache["ckv"][:, :lim].to(x.dtype),
+                    cache["krope"][:, :lim].to(x.dtype), _span_mask(posmat, lim), cfg)
+    return y, cache
+
+
+def mla_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
+               rope: tuple[Tensor, Tensor], active: Tensor | None = None):
+    """One-token MLA decode step (in place), on the dense latent cache in
+    both serving layouts: writes the token's latent at ``pos`` (per slot
+    where ``pos`` is (B,); ``active`` masks slots) and expands the whole
+    latent cache for scoring, as upstream (no weight absorption)."""
+    b = x.shape[0]
+    q_nope, q_rope, ckv, krope = _mla_project(params, x, cfg, rope)
+    skv = cache["ckv"].shape[1]
+    if isinstance(pos, int) and active is None:
+        # lockstep: every slot writes one row (upstream's dynamic_update_slice
+        # clamps the index into the cache)
+        row = min(pos, skv - 1)
+        cache["ckv"][:, row] = ckv[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][:, row] = krope[:, 0].to(cache["krope"].dtype)
+    else:
+        slots = _pos_matrix(pos, 1, x.device)[:, 0].expand(b)
+        _slot_write(cache["ckv"], ckv, slots, active)
+        _slot_write(cache["krope"], krope, slots, active)
+    y = _mla_attend(params, q_nope, q_rope, cache["ckv"].to(x.dtype), cache["krope"].to(x.dtype),
+                    _decode_mask(pos, skv, device=x.device), cfg)
+    return y, cache

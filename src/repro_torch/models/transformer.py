@@ -25,12 +25,16 @@ Ported segment plans: the full-attention decoder; the MoE plan
 ``models/moe.py``); sliding-window attention (``attn_type="swa"``: every
 layer windowed) and gemma3's local/global interleave (``global_every``:
 period segments of ``global_every - 1`` local blocks and one global,
-then a remainder segment).  A windowed layer keeps a dense RING cache of
+then a remainder segment); and MLA (``attn_type="mla"``, DeepSeek-V2:
+the same plans with ``mixer="mla"``, ``models/attention.py``'s
+``mla_*``).  A windowed layer keeps a dense RING cache of
 ``min(window, max_len)`` positions in both cache layouts, and rotates at
-``rope_theta_local`` under ``global_every``.  Upstream scans a stacked
-segment with per-layer metadata as scanned arrays; the port's loop reads
-each layer's window and theta as Python values.  Other segment plans
-(MLA, SSM, hybrids, enc-dec) are not ported yet and raise
+``rope_theta_local`` under ``global_every``; an MLA layer keeps its dense
+latent cache ``{"ckv", "krope"}`` in both layouts (no MLA layer goes on
+the paged pool) and rotates its ``qk_rope_dim`` slice.  Upstream scans a
+stacked segment with per-layer metadata as scanned arrays; the port's
+loop reads each layer's window and theta as Python values.  Other
+segment plans (SSM, hybrids, enc-dec) are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -68,7 +72,7 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    mixer: str  # attn
+    mixer: str  # attn | mla
     ffn: str  # dense | moe
     # static sliding window of this block (0 = full attention); a windowed
     # layer keeps a RING cache of exactly min(window, max_len) positions
@@ -88,16 +92,18 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
     ``cfg.moe``, one segment of ``first_k_dense`` dense blocks (one repeat),
     then ``n_layers - first_k_dense`` repeats of an MoE block; with
     ``global_every`` g, ``n_layers // g`` repeats of (g - 1 local blocks,
-    one global), then one repeat of the remaining local blocks."""
-    if cfg.family != "decoder" or cfg.attn_type not in ("full", "swa"):
+    one global), then one repeat of the remaining local blocks.  Every
+    block's mixer is ``"mla"`` under ``attn_type="mla"``."""
+    if cfg.family != "decoder" or cfg.attn_type not in ("full", "swa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: only the full-attention and sliding-window decoder (dense or MoE) "
-            "is ported"
+            f"{cfg.name}: only the full-attention, sliding-window and MLA decoder (dense or "
+            "MoE) is ported"
         )
+    mixer = "mla" if cfg.attn_type == "mla" else "attn"
     if cfg.moe:
         k = cfg.first_k_dense
-        segs = [Segment(1, tuple(BlockSpec("attn", "dense") for _ in range(k)), 0)] if k else []
-        return segs + [Segment(cfg.n_layers - k, (BlockSpec("attn", "moe"),), k)]
+        segs = [Segment(1, tuple(BlockSpec(mixer, "dense") for _ in range(k)), 0)] if k else []
+        return segs + [Segment(cfg.n_layers - k, (BlockSpec(mixer, "moe"),), k)]
     if cfg.global_every > 0:
         # group by the local:global period so that each block's cache length
         # is the same over the repeats (local blocks get ring caches)
@@ -105,7 +111,7 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
         reps, rem = divmod(cfg.n_layers, g)
 
         def blocks(first, n):
-            return tuple(BlockSpec("attn", "dense", layer_window(cfg, first + i))
+            return tuple(BlockSpec(mixer, "dense", layer_window(cfg, first + i))
                          for i in range(n))
 
         segs = [Segment(reps, blocks(0, g), 0)]
@@ -113,7 +119,7 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
             segs.append(Segment(1, blocks(reps * g, rem), reps * g))
         return segs
     win = cfg.window_size if cfg.attn_type == "swa" else 0
-    return [Segment(cfg.n_layers, (BlockSpec("attn", "dense", win),), 0)]
+    return [Segment(cfg.n_layers, (BlockSpec(mixer, "dense", win),), 0)]
 
 
 def layer_window(cfg: ModelConfig, layer: int) -> int:
@@ -134,6 +140,12 @@ def _local_rope(cfg: ModelConfig, spec: BlockSpec) -> bool:
     its segment's repeats, so this is ``layer_uses_local_rope`` of each of
     its layers."""
     return cfg.global_every > 0 and spec.window > 0
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The rotated width: MLA rotates its ``qk_rope_dim`` slice, other
+    attention the whole head."""
+    return cfg.qk_rope_dim if cfg.attn_type == "mla" else cfg.head_dim
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +181,10 @@ def _generator(seed, device) -> tuple[torch.Generator, torch.device]:
 
 def _init_block(gen, spec: BlockSpec, cfg: ModelConfig, lead: tuple, device):
     params: dict[str, Any] = {"pre_norm": init_rmsnorm(cfg.d_model, lead, device)}
-    params["mixer"] = attn_mod.init_attention(gen, cfg, lead, device)
+    if spec.mixer == "mla":
+        params["mixer"] = attn_mod.init_mla(gen, cfg, lead, device)
+    else:
+        params["mixer"] = attn_mod.init_attention(gen, cfg, lead, device)
     params["ffn_norm"] = init_rmsnorm(cfg.d_model, lead, device)
     if spec.ffn == "moe":
         params["ffn"] = moe_mod.init_moe_ffn(gen, cfg, lead, device)
@@ -212,7 +227,10 @@ def _ffn(bparams, spec: BlockSpec, h: Tensor, cfg: ModelConfig):
 def _apply_block(bparams, spec: BlockSpec, x: Tensor, cfg: ModelConfig, sin: Tensor,
                  cos: Tensor):
     h = rmsnorm(bparams["pre_norm"], x)
-    x = x + attn_mod.attention(bparams["mixer"], h, cfg, sin, cos, window=spec.window)
+    if spec.mixer == "mla":
+        x = x + attn_mod.mla_attention(bparams["mixer"], h, cfg, sin, cos)
+    else:
+        x = x + attn_mod.attention(bparams["mixer"], h, cfg, sin, cos, window=spec.window)
     h = rmsnorm(bparams["ffn_norm"], x)
     y, aux = _ffn(bparams, spec, h, cfg)
     return x + y, aux
@@ -242,7 +260,7 @@ def forward(params, batch: dict, cfg: ModelConfig):
     backward pass and runs again there; the values are the same."""
     x = embed(params["embed"], batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    tabs = _rope_tabs(cfg, lambda theta: rope_table(positions, cfg.head_dim, theta))
+    tabs = _rope_tabs(cfg, lambda theta: rope_table(positions, _rope_dim(cfg), theta))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for si, seg in enumerate(build_segments(cfg)):
@@ -274,6 +292,8 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
 def _init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int, dtype,
                       lead: tuple, device, layout: str, block_size: int,
                       num_blocks: int | None):
+    if spec.mixer == "mla":  # the dense latent cache in both layouts
+        return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, lead, device)
     if spec.window > 0:
         # a sliding-window layer keeps the dense RING in both layouts: a
         # W-position ring is the window, and W is small
@@ -297,7 +317,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     ``layout="paged"`` swaps the attention layers to the shared block pool
     of ``num_blocks`` blocks (default: full occupancy) with per-slot
     tables (``repro_torch.serve.kv_pool``) — interchangeable at every call
-    site.  A sliding-window layer keeps its dense ring in both layouts."""
+    site.  A sliding-window layer keeps its dense ring, and an MLA layer
+    its dense latent cache, in both layouts."""
     if layout not in ("dense", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     dev = resolve_device(device)
@@ -315,10 +336,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 def _chunk_block(bparams, spec, x, cache, pos, cfg, rope, active=None, lengths=None,
                  read_to=None):
     h = rmsnorm(bparams["pre_norm"], x)
-    y, cache = attn_mod.attention_chunk(
-        bparams["mixer"], h, cache, pos, cfg, rope,
-        active=active, lengths=lengths, read_to=read_to, ring=spec.window > 0,
-    )
+    if spec.mixer == "mla":
+        y, cache = attn_mod.mla_chunk(bparams["mixer"], h, cache, pos, cfg, rope,
+                                      active=active, lengths=lengths, read_to=read_to)
+    else:
+        y, cache = attn_mod.attention_chunk(
+            bparams["mixer"], h, cache, pos, cfg, rope,
+            active=active, lengths=lengths, read_to=read_to, ring=spec.window > 0,
+        )
     x = x + y
     h = rmsnorm(bparams["ffn_norm"], x)
     y, _ = _ffn(bparams, spec, h, cfg)  # serving drops the aux loss, as upstream
@@ -331,7 +356,7 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
     in place.  Returns (hidden (B, T, D), caches)."""
     tabs = {False: None, True: None}
     if cfg.pos_embedding == "rope":  # one pair of tables a theta, for every layer
-        tabs = _rope_tabs(cfg, lambda theta: attn_mod.rope_at(pos, x.shape[1], cfg.head_dim,
+        tabs = _rope_tabs(cfg, lambda theta: attn_mod.rope_at(pos, x.shape[1], _rope_dim(cfg),
                                                               theta, x.device))
     for si, seg in enumerate(build_segments(cfg)):
         layers_c = _seg_layers(seg, caches[si])

@@ -31,14 +31,26 @@ INT1_DIRECT = {"w1_gate", "w1_up", "w1_down", "we_up", "we_gate", "we_down", "w1
 INT8_DIRECT = {"w8_gate", "w8_up", "w8_down", "w8_a", "w8_b"}
 
 
+def _slice_means(w: Tensor) -> tuple[Tensor, Tensor]:
+    """mean(w) and mean(|w|) of each trailing (K, N) slice, keepdims, in
+    w's dtype.  Each slice is summed on its own in f64 and rounded once:
+    an f32 reduction sums in an order that follows the shape of the tensor
+    it runs over (and the device), so a layer's scale would depend on how
+    many layers were stacked with it when it was exported."""
+    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+    keep = tuple(w.shape[:-2]) + (1, 1)
+    mu = torch.stack([torch.mean(s, dtype=torch.float64) for s in flat])
+    mag = torch.stack([torch.mean(torch.abs(s), dtype=torch.float64) for s in flat])
+    return mu.to(w.dtype).reshape(keep), mag.to(w.dtype).reshape(keep)
+
+
 def _binarize_export(w: Tensor, packed: bool, name: str = ""):
     """Latent -> {"q" | "packed", "scale"} per trailing 2-D slice:
     ``scale = mean|w| + 1e-5`` and signs ``w - mean(w) >= 0``.  A K that
     isn't a multiple of 8 cannot pack and stays int8 signs, with a warning."""
-    red = tuple(range(max(0, w.ndim - 2), w.ndim))
-    mu = torch.mean(w, dim=red, keepdim=True)
-    lam = (torch.mean(torch.abs(w), dim=red, keepdim=True) + 1e-5).float()
-    signs = torch.where(w - mu >= 0, 1, -1).to(torch.int8)
+    mu, mag = _slice_means(w)
+    lam = (mag + 1e-5).float()
+    signs = (w - mu >= 0).to(torch.int8) * 2 - 1  # int8 throughout: no wide temporary
     if packed:
         if w.shape[-2] % 8 == 0:
             return {"packed": pack_signs(signs), "scale": lam}

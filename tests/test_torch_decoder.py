@@ -75,7 +75,7 @@ def test_configs_equal_jax_field_for_field(size, mode):
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.get_config("deepseek-v2-236b")
+        registry.get_config("granite-20b")
     with pytest.raises(KeyError):
         registry.get_config("no-such-arch")
 

@@ -70,8 +70,8 @@ from test_torch_trainer import _data_iter
 
 ARCH = "deepseek-moe-16b"
 TOTAL = 40
-OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "deepseek-v2-236b",
-          "phi-3-vision-4.2b", "mamba2-780m", "recurrentgemma-2b")
+OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b",
+          "mamba2-780m", "recurrentgemma-2b")
 
 
 def _cfgs(**kw):

@@ -101,6 +101,19 @@ def test_binarize_and_int8_exports_match_jax(shape):
     np.testing.assert_allclose(got["scale"].numpy(), np.asarray(want["scale"]), rtol=RTOL)
 
 
+@pytest.mark.parametrize("shape", [(3, 512, 1024), (2, 3, 256, 640)])
+def test_binarize_export_of_a_stack_equals_its_slices_alone(shape):
+    """Each (K, N) slice's scale and packed signs, bit for bit, as the slice
+    exports alone: a block-by-block export equals the one-shot export."""
+    w = _t((np.random.default_rng(len(shape)).standard_normal(shape) * 0.05).astype(np.float32))
+    whole = serve._binarize_export(w, packed=True)
+    for i, s in enumerate(w.reshape((-1,) + shape[-2:])):
+        alone = serve._binarize_export(s.clone(), packed=True)
+        at = np.unravel_index(i, shape[:-2])
+        assert torch.equal(whole["scale"][at], alone["scale"]), at
+        assert torch.equal(whole["packed"][at], alone["packed"]), at
+
+
 def test_unaligned_k_export_keeps_int8_signs():
     w = np.random.default_rng(0).standard_normal((12, 8)).astype(np.float32)
     with pytest.warns(UserWarning):
