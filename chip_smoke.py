@@ -199,11 +199,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``SEED``.  (a) the packed export built on the card one block at a time
    (28.0e9 f32 latents do not fit), held leaf for leaf, bit for bit, to
    the one-shot export on a 12-layer cut (its segment stacked over two
-   repeats, no ``lm_head``); its GB.  (b) ``DecodeEngine``, 4 requests of
-   1100 tokens (every ring wraps in the prefill), 16 new: one transfer,
-   exactly 310 ``w1a8_matmul``, 124 ``decoupled_matmul`` and 62
-   ``int8_matmul`` launches in the prefill and 310 / 124 / 62 decode-tier
-   launches a decode forward, no ``paged_attention`` (dense layout), no
+   repeats, no ``lm_head``); its GB.  (b) ``DecodeEngine`` on the first
+   30 layers (5 periods; ``SWA_DECODE_LAYERS``), 4 requests of 1100 tokens
+   (every ring wraps in the prefill), 16 new: one transfer, exactly 150
+   ``w1a8_matmul``, 60 ``decoupled_matmul`` and 30 ``int8_matmul`` launches
+   in the prefill and 150 / 60 / 30 decode-tier launches a decode forward, no ``paged_attention`` (dense layout), no
    plain version called; TTFT (the prefill, synchronized where it ends)
    and ms/step from that generate, a second generate repeating the
    stream, the busy share of 3 decode steps.  (c)
@@ -241,11 +241,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the card one block at a time (236e9 f32 latents, one MoE block 15.1
    GB), held leaf for leaf, bit for bit, to the one-shot export on a
    3-layer cut (1 dense + 2 MoE); its GB by kind, the device memory held.
-   (b) ``DecodeEngine``, 4 requests of 32 tokens, 8 new: one transfer, no
+   (b) ``DecodeEngine`` on the first 30 layers (``MLA_DECODE_LAYERS``: the
+   dense one and 29 MoE), 4 requests of 32 tokens, 8 new: one transfer, no
    plain version called, exactly the launches ``_mla_launches`` derives
-   (a decode forward 60 x 5 + 59 x 160 x 3 = 28620 ``w1a8_gemv``, 60
-   ``w1a8_matmul``: the latent expansion over 4 x 40 cache rows, 120
-   ``decoupled_gemv``, 60 ``int8_matmul``; the 128-row prefill on the
+   (a decode forward 30 x 5 + 29 x 160 x 3 = 14070 ``w1a8_gemv``, 30
+   ``w1a8_matmul``: the latent expansion over 4 x 40 cache rows, 60
+   ``decoupled_gemv``, 30 ``int8_matmul``; the 128-row prefill on the
    GEMMs but its experts' 8-row buffers); TTFT (synchronized where the
    prefill ends) and ms/step of two generates (the second repeating the
    stream); finite logits of a prefill and a decode step; the busy share
@@ -274,7 +275,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
    [10]'s card vs CPU gradient check on the 2 layers in f32 with 8 routed
    experts, both kinds of decision replayed, under phase 13's rules.
 
-Phase 3 also holds the kernels at deepseek-moe-16b's shapes (tagged
+16. (run after phase 9) the rest of the main path's serving, on phase 4's
+   full-width pquant-1.3b (packed, greedy, f32 KV, blocks of 16, the paged
+   kernel route; phase 8's 16 slots of 512, chunks of 8).  (a) a prefix-cache
+   trace from ``SEED`` (``_prefix_trace``): 4 system prompts of 256 tokens,
+   each shared by 6 requests (plain ones with 16-128-token suffixes, the
+   system prompt alone in two groups: fully cached, so a copy-on-write,
+   and a multi-turn follow-up: an earlier request's prompt, its reply and
+   32 more tokens, submitted when it finishes), 16 new tokens each, run
+   with ``prefix_cache`` off and on: every request finished once by
+   length, the hit, miss, hit-token and copy-on-write counters equal to
+   those derived from the trace, the pool drained (no block referenced),
+   the K/V bytes of every registered block at the end equal to those at
+   its registration; prints both runs' TTFT p50 / p99 and how many warm
+   streams equal the cold ones, with the top-2 gap where one parts.  (b)
+   the warm run again with a ``RequestTracer(ListSink())`` and an empty
+   ``FaultInjector()``: streams, counters, kernel launches and host
+   transfers equal to (a)'s; each request's events in order (submitted,
+   admitted, first_token, finished once), the ``prefix_hit`` and
+   ``block_cow`` events summing to the counters, the blocks allocated and
+   freed balancing.  (c) (a) on a 2-layer cut, every act-quant pass traced
+   by request and position (a reused position charged to the request that
+   computed it): phase 9's rule, warm against cold.  (d) phase 8 (a)'s load
+   without the prefix cache under one allocation failure, one forced
+   preemption, NaN logits at request 2's 6th token and a delayed arrival:
+   request 2 finishes "error" with the first 5 tokens of its fault-free
+   stream, every other request equals phase 8 (a)'s stream, each fault
+   fired once.  (e) ``BatchedServer`` at phase 4's load:
+   ``generate_python_loop`` equals ``generate`` with 32 fetches; both
+   walls a token.
+
+Phase 3 also holds ``paged_attention`` at phase 16's longest suffix
+slice (T 128 at 256 over 16 slots of 512).  It holds the kernels at
+deepseek-moe-16b's shapes (tagged
 "moe"): the W1A8 linears (2048, 1408), (1408, 2048), (10944, 2048) and
 (2816, 2048) at the decode rows (an expert's 8 rows, seven of them zero),
 at an expert's 480 and 960 prefill rows (the last 80 zero) and at 4096;
@@ -348,6 +381,12 @@ launch counts and summary.
 
 runs phases 1, 2 and 15 alone and prints one JSON line of phase 15's
 launch counts and summary.
+
+    python3 chip_smoke.py --prefix
+
+runs phases 1 and 2, phase 4's model (without its checks), phase 8 (a)'s
+run (for the fault-free streams) and phase 16, and prints one JSON line of
+phase 16's launch counts and summary.
 
     python3 chip_smoke.py --pairs OTHER_CHECKOUT N
 
@@ -1223,6 +1262,9 @@ def phase_kernels(torch, peaks, only=None):
 # block 16, 512 positions a slot, 16 slots)
 PA_SLOTS, PA_MAX_LEN, PA_BLOCK, PA_HEADS, PA_HEAD_DIM = 16, 512, 16, 32, 64
 PA_CHUNK = 64  # the chunked-prefill slice of phase 8 (b)
+# phase 16 (a)'s longest suffix slice: a 65-128-token suffix (bucketed to
+# 128) after a 256-token system prompt read from cache-hit pages
+PA_SUFFIX = 128
 PA_GQA_KV_HEADS = 8
 # deepseek-moe-16b at [13] (d)'s shapes: 16 heads of 128 (head_dim 128 is
 # the kernel's kMaxD), 4 slots of 160 positions; the chunk at position 64
@@ -1238,8 +1280,10 @@ def phase_paged_attention(torch, peaks, results):
     """``paged_attention`` against its plain version on the card at the
     shapes phase 8 gives it: decode (T = 1) over 16 slots with ragged
     resident lengths up to 512, in f32 and bf16 pools and with GQA (32 query
-    heads on 8 KV heads); and a chunked-prefill slice (T = 64 for one slot
-    at position 256, the other 15 slots masked, as the engine sends it).
+    heads on 8 KV heads); a chunked-prefill slice (T = 64 for one slot
+    at position 256, the other 15 slots masked, as the engine sends it);
+    and phase 16's longest suffix slice over cache-hit pages (T = 128 at
+    256).
     Then at deepseek-moe-16b's (``PA_MOE``, head_dim 128): decode in f32 and
     bf16 pools and a 64-token slice, rows keyed with "d128"; and at
     gemma3-27b's (``PA_SWA``: GQA, 32 query heads over 16 KV heads of 128,
@@ -1257,6 +1301,7 @@ def phase_paged_attention(torch, peaks, results):
         ("decode", 1, PA_HEADS, PA_GQA_KV_HEADS, torch.float32),
         ("chunk", PA_CHUNK, PA_HEADS, PA_HEADS, torch.float32),
         ("chunk", PA_CHUNK, PA_HEADS, PA_HEADS, torch.bfloat16),
+        ("chunk", PA_SUFFIX, PA_HEADS, PA_HEADS, torch.float32),
     )
     _paged_cases(torch, peaks[0], gen, results, cases, PA_SLOTS, PA_MAX_LEN, PA_HEAD_DIM, 256)
     h = PA_MOE["heads"]
@@ -3760,6 +3805,9 @@ SWA_ARCH, DANUBE_ARCH = "gemma3-27b", "h2o-danube-1.8b"
 # latents on a cut of two repeats of (5 local + 1 global): its segment stacked
 SWA_EXPORT_CHECK_LAYERS = 12
 SWA_BATCH, SWA_PROMPT, SWA_NEW = 4, 1100, 16  # (b): every ring (1024) wraps in the prefill
+# (b) on the first 5 of the 10 periods (25 local, 5 global layers; 62
+# before PR 27: room for [16]); (c) on the first two
+SWA_DECODE_LAYERS = 30
 SWA_BUSY_STEPS = 3  # (b)'s busy share: decode steps profiled
 # (c): 4 slots of 1280 positions, 8 requests (4 at tick 0, then one a
 # tick), prompts of 64-256 tokens but the last, of 1100, whose rings wrap in
@@ -3950,16 +3998,22 @@ def phase_swa_serving(torch, cfg, params) -> tuple[dict, dict]:
     pool, local layers on dense rings) and dense.  Returns ({kernel:
     launches of the counted runs}, summary)."""
     t0 = time.perf_counter()
-    launches, summary = _swa_generate(torch, cfg, params, "(b)", SWA_BATCH, SWA_PROMPT, SWA_NEW,
+    full = params
+
+    def periods(n):  # (params, cfg) of the first n layers: whole periods of the stacked segment
+        return ({"embed": full["embed"], "final_norm": full["final_norm"], "segments": [
+            _tree(lambda t: t[:n // cfg.global_every], full["segments"][0])]},
+                dataclasses.replace(cfg, n_layers=n))
+
+    params, cut = periods(SWA_DECODE_LAYERS)
+    launches, summary = _swa_generate(torch, cut, params, "(b)", SWA_BATCH, SWA_PROMPT, SWA_NEW,
                                       SWA_PROMPT + SWA_NEW, repeat=True)
     summary = {"decode": summary}
     summary["decode"]["device_busy_share"] = _swa_decode_busy(
-        torch, cfg, params, SWA_BATCH, SWA_PROMPT, SWA_PROMPT + SWA_NEW)
+        torch, cut, params, SWA_BATCH, SWA_PROMPT, SWA_PROMPT + SWA_NEW)
     log(f"[time] [14] (b) done at {time.perf_counter() - t0:.1f} s")
-    # (c) on the first SWA_CB_LAYERS layers: whole periods of the stacked segment
-    cfg = dataclasses.replace(cfg, n_layers=SWA_CB_LAYERS)
-    params = {"embed": params["embed"], "final_norm": params["final_norm"], "segments": [
-        _tree(lambda t: t[:SWA_CB_LAYERS // cfg.global_every], params["segments"][0])]}
+    # (c) on the first SWA_CB_LAYERS layers
+    params, cfg = periods(SWA_CB_LAYERS)
     n_global = cfg.n_layers // cfg.global_every
     if SWA_CB.long + SWA_CB.new[0] <= cfg.window_size:
         raise AssertionError("(c): no request's ring wraps")
@@ -4072,6 +4126,9 @@ MLA_EXPORT_CHECK_LAYERS = 3
 # (b) the decode tier: the prefill's 128 rows run the prefill GEMMs, each
 # decode step's 4 rows the GEMVs, its latent expansion the 4 x 40 cache rows
 MLA_BATCH, MLA_PROMPT, MLA_NEW = 4, 32, 8
+# (b) on the dense layer and the first 29 MoE layers (60 before PR 27: room
+# for [16]); (c) at full depth
+MLA_DECODE_LAYERS = 30
 MLA_P_BATCH, MLA_P_PROMPT = 8, 256  # (c) the prefill tier: 2048 rows
 # (d): a 4-layer cut (1 dense + 3 MoE) of the export, 4 slots of 272
 # positions, 5 requests (4 at tick 0), prompts of 16-256 tokens, 4-8 new
@@ -4277,7 +4334,9 @@ def phase_mla_serving(torch, cfg, params) -> tuple[dict, dict]:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     summary = {}
-    # (b) the decode tier
+    full = params, cfg
+    # (b) the decode tier, on the first MLA_DECODE_LAYERS layers
+    params, cfg = _moe_cut(params, cfg, MLA_DECODE_LAYERS)
     prompts = torch.randint(0, cfg.vocab_size, (MLA_BATCH, MLA_PROMPT),
                             generator=torch.Generator().manual_seed(SEED))
     max_len = MLA_PROMPT + MLA_NEW
@@ -4315,7 +4374,8 @@ def phase_mla_serving(torch, cfg, params) -> tuple[dict, dict]:
     del logits, caches, step_logits
     log(f"[time] [15] (b) done at {time.perf_counter() - t_start:.1f} s")
 
-    # (c) the prefill tier: 2048 rows (capacity 96 an expert), one token
+    # (c) the prefill tier at full depth: 2048 rows (capacity 96 an expert), one token
+    params, cfg = full
     prompts = torch.randint(0, cfg.vocab_size, (MLA_P_BATCH, MLA_P_PROMPT),
                             generator=torch.Generator().manual_seed(SEED + 2))
     rows = MLA_P_BATCH * MLA_P_PROMPT
@@ -4443,6 +4503,625 @@ def phase_mla(torch, smi: str) -> tuple[dict, dict]:
     log(f"[time] [15] (f) done at {time.perf_counter() - t0:.1f} s")
     summary["card"] = smi
     return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: prefix caching, fault injection, the request tracer, BatchedServer
+# ---------------------------------------------------------------------------
+
+# (a)'s trace: 4 system prompts of 256 tokens (16 full blocks each); each is
+# shared by 6 requests: plain ones with a 16-128-token suffix (4, 4, 5, 5 of
+# them), the system prompt alone (groups 0 and 1: block-aligned and fully
+# cached once its group's first request is in, so a copy-on-write), and a
+# multi-turn follow-up of the group's first request (its prompt, its reply
+# and 32 more tokens, submitted when it finishes); 16 new tokens each;
+# arrivals as phase 8's: 16 at tick 0, then one a tick
+PREFIX_SYSTEMS, PREFIX_SYSTEM_LEN, PREFIX_PLAIN = 4, 256, (4, 4, 5, 5)
+PREFIX_SUFFIX, PREFIX_TURN, PREFIX_NEW = (16, 128), 32, 16
+PREFIX_COW_GROUPS = (0, 1)
+# (d)'s schedule on phase 8 (a)'s load: the 4th allocation fails, the
+# youngest live request is preempted at step 3, request 2's logits go NaN
+# where it samples its 6th token, request 20 arrives 3 ticks late
+PREFIX_POISON_UID, PREFIX_POISON_GEN = 2, 5
+BS_TIMED_RUNS = 2  # (e): BatchedServer's timed runs of each path
+
+
+def _same(a, b) -> bool:
+    """Two token arrays of one length and equal."""
+    return len(a) == len(b) and bool((a == b).all())
+
+
+def _prefix_trace(vocab: int):
+    """(a)'s requests from SEED: ([(uid, prompt, arrival)] submitted at the
+    start, 16 at tick 0 then one a tick; {original uid: (follow-up
+    uid, its 32 new tokens)}).  uids 0-3 open groups 0-3 (and are the
+    originals), 4-5 are the system prompts alone, then the other plain
+    requests by turns over the groups."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 16)
+    systems = [rng.integers(0, vocab, PREFIX_SYSTEM_LEN).astype(np.int32)
+               for _ in range(PREFIX_SYSTEMS)]
+
+    def plain(g):
+        n = int(rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1))
+        return np.concatenate([systems[g], rng.integers(0, vocab, n).astype(np.int32)])
+
+    prompts = [plain(g) for g in range(PREFIX_SYSTEMS)]
+    prompts += [systems[g].copy() for g in PREFIX_COW_GROUPS]
+    left = [n - 1 for n in PREFIX_PLAIN]
+    while any(left):
+        for g in range(PREFIX_SYSTEMS):
+            if left[g]:
+                prompts.append(plain(g))
+                left[g] -= 1
+    first = len(prompts)
+    trace = [(uid, p, float(max(0, uid - CB_FIRST_WAVE + 1))) for uid, p in enumerate(prompts)]
+    turns = {g: (first + g, rng.integers(0, vocab, PREFIX_TURN).astype(np.int32))
+             for g in range(PREFIX_SYSTEMS)}
+    return trace, turns
+
+
+def _prefix_run(torch, params, cfg, prefix_cache: bool, replies=None, tracer=None,
+                faults=None, hook=None):
+    """Serve (a)'s trace on a fresh engine (16 slots of 512, blocks of 16,
+    chunks of 8, greedy, the paged kernel route), each step ended by a
+    synchronize; a follow-up is submitted when its original finishes, its
+    prompt built from ``replies`` (uid -> tokens) when given, else from the
+    original's own reply.  ``hook(eng)`` runs before anything is submitted.
+    Besides TTFT the record has each one-shot admission's own wall (from a
+    synchronize before it to one after it: the prefill or the suffix
+    slice, and the first token's fetch).  Returns (record, streams,
+    prompts, reasons, admission order, engine)."""
+    import numpy as np
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.serve import ContinuousBatchingEngine, SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=PREFIX_NEW)
+    with _PagedEnv("auto"):
+        eng = ContinuousBatchingEngine(
+            params, cfg, CB_SLOTS, CB_MAX_LEN, greedy, block_size=CB_BLOCK, chunk=CB_CHUNK,
+            prefix_cache=prefix_cache, tracer=tracer, faults=faults,
+            device=torch.device("cuda"))
+        order, alloc = [], eng._alloc_prompt_blocks
+
+        def admitted(req):  # the admission order (host only)
+            res = alloc(req)
+            if res is not None:
+                order.append(req.uid)
+            return res
+
+        eng._alloc_prompt_blocks = admitted
+        admissions = []
+
+        def timed(admit):
+            def fn(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = admit(*args)
+                torch.cuda.synchronize()
+                admissions.append((time.perf_counter() - t) * 1e3)
+                return out
+            return fn
+
+        eng._admit, eng._admit_cached = timed(eng._admit), timed(eng._admit_cached)
+        if hook is not None:
+            hook(eng)
+        trace, turns = _prefix_trace(cfg.vocab_size)
+        prompts = {uid: p for uid, p, _ in trace}
+        for uid, p, arrival in trace:
+            eng.submit(p, max_new_tokens=PREFIX_NEW, seed=uid, uid=uid, arrival=arrival)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        steps, finished = [], []
+        t_start = time.perf_counter()
+        while eng._queue or eng._live() or eng._pending_finished:
+            now, t0 = eng.now(), time.perf_counter()
+            done = eng.step()
+            torch.cuda.synchronize()
+            steps.append((now, t0, time.perf_counter()))
+            for f in done:
+                finished.append(f)
+                if f.uid in turns:
+                    fu, extra = turns[f.uid]
+                    reply = (replies or {}).get(f.uid, f.tokens)
+                    prompts[fu] = np.concatenate([prompts[f.uid], reply, extra]).astype(np.int32)
+                    eng.submit(prompts[fu], max_new_tokens=PREFIX_NEW, seed=fu, uid=fu,
+                               arrival=eng.now())
+        wall = time.perf_counter() - t_start
+        launches = dict(_cuda.LAUNCHES)
+    ttft = []
+    for f in finished:
+        t_arr = min(t0 for now, t0, _ in steps if now >= f.arrival)
+        t_first = max(t1 for now, _, t1 in steps if now == f.first_token_at)
+        ttft.append((t_first - t_arr) * 1e3)
+    q = statistics.quantiles(ttft, n=100, method="inclusive")
+    qa = statistics.quantiles(admissions, n=100, method="inclusive")
+    counters = eng.snapshot()["counters"]
+    rec = {"prefix_cache": eng.prefix_cache, "wall_s": wall, "engine_steps": len(steps),
+           "ttft_ms_p50": q[49], "ttft_ms_p99": q[98], "admission_ms_p50": qa[49],
+           "admission_ms_p99": qa[98], "tokens": eng.tokens_generated,
+           "host_transfers": eng.host_transfers, "preemptions": eng.preemptions,
+           "launches": launches,
+           **{k: int(counters[k]) for k in counters if k.startswith("prefix_cache_")}}
+    streams = {f.uid: f.tokens for f in finished}
+    reasons = {f.uid: f.finish_reason for f in finished}
+    return rec, streams, prompts, reasons, order, eng
+
+
+def _expected_prefix_counters(prompts, streams, order) -> dict:
+    """The prefix-cache counters (a)'s trace must give, derived on the host:
+    in admission order, each prompt's leading full blocks already
+    registered are hits (the rest misses), it reuses min(hits x 16, s - 1)
+    tokens and copies on write when every token is cached; then its prompt
+    blocks and the blocks its decode filled (s + n - 1 positions) are
+    registered.  Exact while nothing is evicted or preempted and a request
+    can only hit another's decoded blocks after that one finished (a
+    follow-up is submitted then)."""
+    import numpy as np
+
+    from repro_torch.serve import kv_pool
+
+    registered: set = set()
+    out = dict.fromkeys(("hits", "misses", "hit_tokens", "cow"), 0)
+    for uid in order:
+        p, s = prompts[uid], len(prompts[uid])
+        hashes = kv_pool.prompt_block_hashes(p, CB_BLOCK)
+        hit = 0
+        while hit < len(hashes) and hashes[hit] in registered:
+            hit += 1
+        out["hits"] += hit
+        out["misses"] += len(hashes) - hit
+        out["hit_tokens"] += min(hit * CB_BLOCK, s - 1)
+        out["cow"] += hit * CB_BLOCK == s
+        stream = np.concatenate([p, streams[uid]])[: s + len(streams[uid]) - 1]
+        registered.update(kv_pool.prompt_block_hashes(stream, CB_BLOCK))
+    return {f"prefix_cache_{k}_total": v for k, v in out.items()}
+
+
+class _RegisteredPages:
+    """While installed on an engine, keeps a copy of every paged layer's K
+    and V page of each block at the moment it is registered in the hash
+    index (on the device); ``check()`` holds the pages of every block still
+    registered to those copies byte for byte."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.serve import scheduler
+
+        self.torch, self.eng, self.pages = torch, eng, {}
+        self.pools = [c[n] for _, c in scheduler._cache_dicts(eng.cfg, eng._caches)
+                      if "table" in c for n in ("kpool", "vpool")]
+        orig = eng.allocator.register
+
+        def register(i, h):
+            ok = orig(i, h)
+            if ok and i not in self.pages:
+                self.pages[i] = [p[..., i, :, :, :].clone() for p in self.pools]
+            return ok
+
+        eng.allocator.register = register
+
+    def check(self) -> tuple[int, int]:
+        """(blocks checked, blocks whose bytes moved)."""
+        torch, moved, held = self.torch, 0, 0
+        for i, saved in self.pages.items():
+            if i not in self.eng.allocator._hash_of:
+                continue  # evicted: its page may hold another block now
+            held += 1
+            moved += not all(torch.equal(p[..., i, :, :, :].view(torch.int32),
+                                         c.view(torch.int32)) for p, c in zip(self.pools, saved))
+        return held, moved
+
+
+class _RowTrace:
+    """While active on an engine, tags every act-quant pass of its forwards
+    with the (uid, position) of each row that carries a request's token, and
+    keeps those rows (the float input and the plain quantizer's codes and
+    scale, on the host) by (uid, ordinal of the pass in its forward), and
+    each request's logits by (uid, position of the token fed).  It also
+    follows which request's rows wrote each pool slot, so a cache hit's
+    reused positions are charged to the request that computed them
+    (``source``): admission prefills (``api.prefill``), prefill slices
+    (``_prefill_slice``), decode steps (``api.decode_step``) and
+    copy-on-write (``scheduler._copy_block``) are wrapped."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.rows = collections.defaultdict(dict)  # (uid, ordinal) -> {pos: (x, q, g)}
+        self.logits = {}  # (uid, pos) -> (V,) f32
+        self.writer = {}  # (block, offset) -> (uid, pos) that last wrote it
+        self.source = {}  # (uid, pos) -> uid whose rows computed a reused position
+        self._map, self._ord, self._adm = None, 0, None
+
+    def _forward(self, rows):
+        """Start a forward whose row r carries (uid, pos) = rows[r]."""
+        self._map, self._ord = rows, 0
+
+    def _wrote(self, blocks, uid, positions):
+        bs = self.eng.block_size
+        for p in positions:
+            self.writer[(blocks[p // bs], p % bs)] = (uid, p)
+
+    def _record(self, x):
+        if self._map is None:
+            return
+        from repro_torch.core.quantization import quantize_act_int8
+
+        x = x.reshape(-1, x.shape[-1])
+        if x.shape[0] != len(self._map):
+            raise AssertionError(f"an act-quant pass of {x.shape[0]} rows in a forward of "
+                                 f"{len(self._map)}")
+        idx = [r for r, key in enumerate(self._map) if key is not None]
+        xs = x[idx].float()
+        q, g = quantize_act_int8(xs)
+        xs, q, g = xs.cpu(), q.cpu(), g.reshape(-1).cpu()
+        for j, r in enumerate(idx):
+            uid, pos = self._map[r]
+            self.rows[(uid, self._ord)][pos] = (xs[j], q[j], g[j])
+        self._ord += 1
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import api
+        from repro_torch.serve import scheduler
+
+        eng, trace = self.eng, self
+        self._saved = [(ops, n, getattr(ops, n)) for n in
+                       ("quantize_act_int8", "_bit_linear_decode", "_decoupled_decode")]
+        self._saved += [(api, n, getattr(api, n)) for n in ("prefill", "decode_step")]
+        self._saved += [(scheduler, "_copy_block", scheduler._copy_block)]
+        self._saved += [(eng, n, getattr(eng, n)) for n in ("_admit", "_admit_cached",
+                                                              "_prefill_slice")]
+        orig = {(m, n): f for m, n, f in self._saved}
+
+        def quant(x):
+            trace._record(x)
+            return orig[(ops, "quantize_act_int8")](x)
+
+        def wrap_decode(name):
+            def fn(xf, *args):
+                trace._record(xf)
+                return orig[(ops, name)](xf, *args)
+            return fn
+
+        def admit(req, slot, blocks, hashes=()):
+            trace._adm = (req.uid, blocks)
+            return orig[(eng, "_admit")](req, slot, blocks, hashes)
+
+        def admit_cached(req, slot, blocks, prefilled0, hashes, n_hit):
+            trace._adm = (req.uid, blocks)
+            bs = eng.block_size
+            for p in range(prefilled0):
+                src = trace.writer[(blocks[p // bs], p % bs)]
+                if src[1] != p:
+                    raise AssertionError(f"request {req.uid} reuses position {p} written as "
+                                         f"{src}")
+                trace.source[(req.uid, p)] = src[0]
+            return orig[(eng, "_admit_cached")](req, slot, blocks, prefilled0, hashes, n_hit)
+
+        def prefill(params, batch, cfg, cache_len, last_pos=None):
+            uid, blocks = trace._adm
+            s = batch["tokens"].shape[1] if last_pos is None else last_pos
+            trace._forward([(uid, p) if p < s else None
+                            for p in range(batch["tokens"].shape[1])])
+            logits, caches = orig[(api, "prefill")](params, batch, cfg, cache_len, last_pos)
+            trace.logits[(uid, s - 1)] = logits[0].float().cpu()
+            trace._wrote(blocks, uid, range(s))
+            trace._map = None
+            return logits, caches
+
+        def prefill_slice(slot, tokens, start, t):
+            uid, blocks = trace._adm
+            n = len(tokens)
+            rows = [None] * (eng.num_slots * t)
+            for j in range(n):
+                rows[slot * t + j] = (uid, start + j)
+            trace._forward(rows)
+            row = orig[(eng, "_prefill_slice")](slot, tokens, start, t)
+            trace.logits[(uid, start + n - 1)] = row[0].float().cpu()
+            trace._wrote(blocks, uid, range(start, start + n))
+            trace._map = None
+            return row
+
+        def decode_step(params, tokens, caches, pos, cfg, active=None):
+            pos_h, act_h = pos.cpu().tolist(), active.cpu().tolist()
+            live = {b: eng._slots[b] for b in range(eng.num_slots) if act_h[b]}
+            trace._forward([(live[b].request.uid, pos_h[b]) if b in live else None
+                            for b in range(eng.num_slots)])
+            logits, caches = orig[(api, "decode_step")](params, tokens, caches, pos, cfg,
+                                                        active)
+            rows = logits[:, -1].float().cpu()
+            for b, rs in live.items():
+                trace.logits[(rs.request.uid, pos_h[b])] = rows[b]
+                trace._wrote(rs.blocks, rs.request.uid, (pos_h[b],))
+            trace._map = None
+            return logits, caches
+
+        def copy_block(cfg, big, src, dst):
+            for off in range(eng.block_size):
+                if (src, off) in trace.writer:
+                    trace.writer[(dst, off)] = trace.writer[(src, off)]
+            return orig[(scheduler, "_copy_block")](cfg, big, src, dst)
+
+        ops.quantize_act_int8 = quant
+        for n in ("_bit_linear_decode", "_decoupled_decode"):
+            setattr(ops, n, wrap_decode(n))
+        api.prefill, api.decode_step = prefill, decode_step
+        scheduler._copy_block = copy_block
+        eng._admit, eng._admit_cached, eng._prefill_slice = admit, admit_cached, prefill_slice
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self._saved:
+            setattr(m, n, f)
+
+
+def _warm_against_cold(torch, cold: _RowTrace, warm: _RowTrace, prompts, streams_c,
+                       streams_w) -> dict:
+    """Phase 9's rule for a warm run against a cold one, request by
+    request: the rows that carry the request's positions (a reused
+    position's from the request that computed it in the warm run), pass by
+    pass, first the prompt's (before the first token), then each decode
+    step's.  Before the first act-quant code that differs, the request's
+    logits (first token, then each step) must agree within LOGIT_TOL of
+    their scale; that code must be a rounding tie: its scaled values within
+    BOUNDARY_TOL, the float inputs up to it within FLOAT_NOISE of max|x|.
+    With no differing code the streams must be equal.  Returns the worst
+    logits, gap and noise and the requests by outcome."""
+    n_ord = 1 + max(o for _, o in cold.rows)
+    worst = {"logits": 0.0, "gap": 0.0, "noise": 0.0, "flips": {}, "equal_codes": 0}
+
+    def rows(trace, uid, o, positions, src):
+        got = [trace.rows[(src.get((uid, p), uid), o)][p] for p in positions]
+        return (torch.stack([r[0] for r in got]), torch.stack([r[1] for r in got]),
+                torch.stack([r[2] for r in got]))
+
+    def logits_diff(uid, pos):
+        a, b = warm.logits[(uid, pos)], cold.logits[(uid, pos)]
+        worst["logits"] = max(worst["logits"], ((a - b).abs().max() / b.abs().max()).item())
+
+    for uid in sorted(prompts):
+        s = len(prompts[uid])
+        phases = [range(s)] + [range(p, p + 1) for p in range(s, s + len(streams_c[uid]) - 1)]
+        noise, flip = 0.0, None
+        for k, positions in enumerate(phases):
+            for o in range(n_ord):
+                xw, qw, gw = rows(warm, uid, o, positions, warm.source)
+                xc, qc, gc = rows(cold, uid, o, positions, {})
+                noise = max(noise, ((xw - xc).abs().amax(1) / xc.abs().amax(1)).max().item())
+                bad = (qw != qc).any(1).nonzero().flatten().tolist()
+                if bad:
+                    gap = 0.0
+                    for r in bad:
+                        c = (qw[r] != qc[r]).nonzero()[0, 0]
+                        gap = max(gap, (xw[r, c] * gw[r] - xc[r, c] * gc[r]).abs().item())
+                    flip = (k, o, len(bad), gap)
+                    break
+            if flip:
+                break
+            logits_diff(uid, positions[-1])
+        worst["noise"] = max(worst["noise"], noise)
+        if flip:
+            worst["gap"] = max(worst["gap"], flip[3])
+            worst["flips"][uid] = flip[:3]
+        else:
+            worst["equal_codes"] += 1
+            if not _same(streams_c[uid], streams_w[uid]):
+                raise AssertionError(f"request {uid}: no act-quant code differs, yet the "
+                                     "streams do")
+    return worst
+
+
+def phase_prefix(torch, params, cfg, prompts, cb_full) -> tuple[dict, dict]:
+    """Phase 16: the rest of the main path's serving on full-width
+    pquant-1.3b (packed, greedy, f32 KV, blocks of 16, the paged kernel
+    route), with phase 4's ``prompts`` and phase 8 (a)'s fault-free streams
+    ``cb_full``.  (a) ``_prefix_trace`` cold and warm; (b) the warm run
+    again with a tracer and an empty injector; (c) (a) on a 2-layer cut
+    under phase 9's rule; (d) a fixed fault schedule on phase 8 (a)'s load;
+    (e) ``BatchedServer`` at phase 4's load.  Returns ((a) warm's launches,
+    summary)."""
+    from repro_torch.serve import (
+        AllocFailure,
+        ContinuousBatchingEngine,
+        DelayArrival,
+        FaultInjector,
+        ForcePreempt,
+        ListSink,
+        PoisonLogits,
+        RequestTracer,
+        SamplerConfig,
+    )
+    from repro_torch.train.serve import BatchedServer
+
+    dev, summary = torch.device("cuda"), {}
+    every = set(range(sum(PREFIX_PLAIN) + len(PREFIX_COW_GROUPS) + PREFIX_SYSTEMS))
+
+    def once_by_length(streams, reasons, label):
+        if set(streams) != every or set(reasons.values()) != {"length"}:
+            raise AssertionError(f"{label}: requests did not each finish once by length")
+
+    def drained(eng, label):
+        a = eng.allocator
+        if a.used_count or any(a.refcount(i) for i in range(a.num_blocks)):
+            raise AssertionError(f"{label}: {a.used_count} blocks still referenced")
+
+    # (a) warm against cold at full depth
+    t0 = time.perf_counter()
+    cold, s_cold, p_cold, r_cold, _, eng = _prefix_run(torch, params, cfg, False)
+    once_by_length(s_cold, r_cold, "(a) cold")
+    del eng
+    replies = {uid: s_cold[uid] for uid in range(PREFIX_SYSTEMS)}
+    pages = []
+    warm, s_warm, p_warm, r_warm, order, eng = _prefix_run(
+        torch, params, cfg, True, replies, hook=lambda e: pages.append(_RegisteredPages(torch, e)))
+    once_by_length(s_warm, r_warm, "(a) warm")
+    drained(eng, "(a) warm")
+    if not all(_same(p_cold[u], p_warm[u]) for u in every):
+        raise AssertionError("(a): the cold and warm runs served different prompts")
+    if cold["preemptions"] or warm["preemptions"] or warm["prefix_cache_evictions_total"]:
+        raise AssertionError("(a): a preemption or an eviction; the counters cannot be derived")
+    want = _expected_prefix_counters(p_warm, s_warm, order)
+    got = {k: warm[k] for k in want}
+    log(f"[16] (a) counters {got}, derived from the trace {want}")
+    if got != want:
+        raise AssertionError("(a): the prefix-cache counters differ from the trace's")
+    held, moved = pages[0].check()
+    log(f"[16] (a) {held} registered blocks: K/V bytes at the end equal those at registration "
+        f"in {held - moved} ({len(pages[0].pools)} paged pools)")
+    if moved or not held:
+        raise AssertionError(f"(a): {moved} registered blocks changed after registration")
+    del eng, pages
+    for name, rec in (("cold", cold), ("warm", warm)):
+        log(f"[16] (a) {name}: {json.dumps({k: v for k, v in rec.items() if k != 'launches'})}")
+    log(f"[16] (a) warm launches {warm['launches']}")
+    load = [(u, p_warm[u], None, None) for u in sorted(every)]
+    summary["a"] = {"cold": cold, "warm": warm, "equal_streams": _compare_streams(
+        torch, params, cfg, load, s_cold, s_warm, "(a) warm vs cold", tag="16")}
+    log(f"[time] [16] (a) done at {time.perf_counter() - t0:.1f} s")
+
+    # (b) the warm run replayed with a tracer and an empty injector
+    sink, inj = ListSink(), FaultInjector()
+    rep, s_rep, _, r_rep, _, eng = _prefix_run(torch, params, cfg, True, replies,
+                                               tracer=RequestTracer(sink), faults=inj)
+    drained(eng, "(b)")
+    del eng
+    same = all(_same(s_rep[u], s_warm[u]) for u in every) and r_rep == r_warm
+    keys = [k for k in warm if k.startswith("prefix_cache_")] + ["launches", "host_transfers"]
+    diff = [k for k in keys if rep[k] != warm[k]]
+    if not same or diff or inj.injected:
+        raise AssertionError(f"(b): the replay differs from (a) warm (streams equal: {same}; "
+                             f"differ: {diff})")
+    recs = sink.records
+    at = collections.defaultdict(lambda: collections.defaultdict(list))
+    for i, r in enumerate(recs):
+        if "uid" in r:
+            at[r["uid"]][r["event"]].append(i)
+    for u in every:
+        e = at[u]
+        if len(e["finished"]) != 1 or not (e["submitted"][0] <= e["admitted"][0]
+                                           <= e["first_token"][0] <= e["finished"][0]):
+            raise AssertionError(f"(b): request {u}'s events are out of order: {dict(e)}")
+    total = lambda ev, f: sum(r[f] for r in recs if r["event"] == ev)
+    hits = (total("prefix_hit", "n_blocks"), total("prefix_hit", "n_tokens"),
+            sum(r["event"] == "block_cow" for r in recs))
+    balance = (total("block_alloc", "n_blocks"), total("block_free", "n_blocks"))
+    log(f"[16] (b) replay with a RequestTracer and an empty FaultInjector: streams, counters, "
+        f"launches and {rep['host_transfers']} host transfers equal (a) warm's; {len(recs)} "
+        f"events, each request submitted <= admitted <= first_token <= finished (once); "
+        f"prefix_hit blocks / tokens and block_cow {hits}; blocks allocated / freed {balance}")
+    if hits != (warm["prefix_cache_hits_total"], warm["prefix_cache_hit_tokens_total"],
+                warm["prefix_cache_cow_total"]) or balance[0] != balance[1]:
+        raise AssertionError("(b): the trace's events disagree with the counters")
+    summary["b"] = {"events": len(recs), "wall_s": rep["wall_s"]}
+    log(f"[time] [16] (b) done at {time.perf_counter() - t0:.1f} s")
+
+    # (c) a 2-layer cut under phase 9's rule
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    gpu = dict(params)
+    gpu["segments"] = [_tree(lambda t: t[:CUT_LAYERS].contiguous(), params["segments"][0])]
+    traces, runs = {}, {}
+    with contextlib.ExitStack() as stack:
+        def tracing(name):
+            return lambda e: traces.setdefault(name, stack.enter_context(_RowTrace(torch, e)))
+
+        _, runs["cold"], p_cut, _, _, _ = _prefix_run(torch, gpu, cut, False,
+                                                      hook=tracing("cold"))
+        cut_replies = {u: runs["cold"][u] for u in range(PREFIX_SYSTEMS)}
+        stack.close()
+        _, runs["warm"], _, _, _, _ = _prefix_run(torch, gpu, cut, True, cut_replies,
+                                                  hook=tracing("warm"))
+    res = _warm_against_cold(torch, traces["cold"], traces["warm"], p_cut, runs["cold"],
+                             runs["warm"])
+    log(f"[16] (c) {CUT_LAYERS}-layer cut, warm vs cold by request: {res['equal_codes']} of "
+        f"{len(every)} with no act-quant code differing; logits before a request's first "
+        f"differing code within {res['logits']:.3g} of their scale (tolerance {LOGIT_TOL}); "
+        f"first differing codes (request: phase, pass, rows) {res['flips']}, each a rounding "
+        f"tie: scaled values at most {res['gap']:.3g} apart (tolerance {BOUNDARY_TOL}), float "
+        f"inputs up to it within {res['noise']:.3g} of max|x| (tolerance {FLOAT_NOISE})")
+    if res["logits"] > LOGIT_TOL or res["gap"] > BOUNDARY_TOL or res["noise"] > FLOAT_NOISE:
+        raise AssertionError("(c): warm and cold part beyond a rounding tie")
+    load = [(u, p_cut[u], None, None) for u in sorted(every)]
+    _compare_streams(torch, gpu, cut, load, runs["cold"], runs["warm"],
+                     f"(c) warm vs cold, {CUT_LAYERS} layers", tag="16")
+    summary["c"] = {k: v for k, v in res.items() if k != "flips"}
+    del traces, gpu
+    log(f"[time] [16] (c) done at {time.perf_counter() - t0:.1f} s")
+
+    # (d) a fixed fault schedule on phase 8 (a)'s load, no prefix cache
+    inj = FaultInjector([AllocFailure(3), ForcePreempt(step=3),
+                         PoisonLogits(PREFIX_POISON_UID, PREFIX_POISON_GEN),
+                         DelayArrival(CB_FIRST_WAVE + 4, 3.0)])
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=CB_NEW[1])
+    with _PagedEnv("auto"):
+        eng = ContinuousBatchingEngine(params, cfg, CB_SLOTS, CB_MAX_LEN, greedy,
+                                       block_size=CB_BLOCK, chunk=CB_CHUNK, faults=inj,
+                                       device=dev)
+        for uid, p, new, arrival in _cb_load(cfg.vocab_size):
+            eng.submit(p, max_new_tokens=new, seed=uid, uid=uid, arrival=arrival)
+        by = {f.uid: f for f in eng.run()}
+    drained(eng, "(d)")
+    bad = by[PREFIX_POISON_UID]
+    others = [u for u in by if u != PREFIX_POISON_UID]
+    exact = sum(by[u].finish_reason == "length" and _same(by[u].tokens, cb_full[u])
+                for u in others)
+    fired = dict(inj.injected)
+    log(f"[16] (d) faults on phase 8 (a)'s load: fired {fired}; request {PREFIX_POISON_UID} "
+        f"finished {bad.finish_reason!r} with {len(bad.tokens)} tokens; {exact} of "
+        f"{len(others)} others equal the fault-free run; {eng.preemptions} preemptions")
+    if sorted(by) != list(range(CB_REQUESTS)) or bad.finish_reason != "error" \
+            or len(bad.tokens) != PREFIX_POISON_GEN \
+            or not _same(bad.tokens, cb_full[PREFIX_POISON_UID][:PREFIX_POISON_GEN]) \
+            or exact != len(others) or fired != dict.fromkeys(
+                ("alloc_failure", "force_preempt", "poison_logits", "delay_arrival"), 1):
+        raise AssertionError("(d): a fault moved a stream it did not target, or did not fire")
+    summary["d"] = {"fired": fired, "preemptions": eng.preemptions}
+    del eng
+    log(f"[time] [16] (d) done at {time.perf_counter() - t0:.1f} s")
+
+    # (e) BatchedServer at phase 4's load
+    server = BatchedServer(params, cfg, PROMPT + NEW_TOKENS, device=dev)
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=NEW_TOKENS)
+    server.generate(prompts, greedy)  # warm-up
+    walls = {"engine": [], "loop": []}
+    for _ in range(BS_TIMED_RUNS):
+        t1 = time.perf_counter()
+        out = server.generate(prompts, greedy)
+        walls["engine"].append(time.perf_counter() - t1)
+        before = server.host_transfers
+        t1 = time.perf_counter()
+        loop = server.generate_python_loop(prompts, greedy)
+        walls["loop"].append(time.perf_counter() - t1)
+        if server.host_transfers - before != NEW_TOKENS or not _same(loop, out):
+            raise AssertionError(f"(e): the loop made {server.host_transfers - before} fetches "
+                                 "or its stream differs from generate's")
+    ms = {k: statistics.median(v) / NEW_TOKENS * 1e3 for k, v in walls.items()}
+    log(f"[16] (e) BatchedServer, {BATCH} x {PROMPT} tokens, {NEW_TOKENS} new: "
+        f"generate_python_loop equals generate stream for stream with {NEW_TOKENS} fetches; "
+        f"medians of {BS_TIMED_RUNS} (prefill included): generate {ms['engine']:.2f} ms a "
+        f"token, the loop {ms['loop']:.2f}")
+    summary["e"] = {"engine_ms_per_token": ms["engine"], "loop_ms_per_token": ms["loop"]}
+    return warm["launches"], summary
+
+
+def prefix(torch) -> int:
+    """Phases 1, 2 and 16 alone, with phase 4's model and prompts (not its
+    checks) and phase 8 (a)'s run for the fault-free streams: prints one
+    JSON line of phase 16's launch counts and summary."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, _ = phase_card(torch)
+    t0 = phase_build(_cuda)
+    cfg, params, _, prompts, _ = _serving(torch)
+    _, full, _, _ = _cb_run(torch, params, cfg, "a", "paged", None, 1, "auto")
+    log(f"[time] [8] (a) done at {time.perf_counter() - t0:.1f} s")
+    launches, summary = phase_prefix(torch, params, cfg, prompts, full)
+    log(f"[time] [16] done at {time.perf_counter() - t0:.1f} s")
+    summary["card"] = smi
+    print(json.dumps({"launches": launches, "prefix": summary}, default=str))
+    return 0
 
 
 def swa(torch) -> int:
@@ -4656,6 +5335,9 @@ def main(torch) -> int:
     lap("[8]")
     phase_continuous_cut(torch, params, cfg, cb_streams)
     lap("[9]")
+    x_launches, x_summary = phase_prefix(torch, params, cfg, prompts, cb_streams["a"])
+    log(f"[16] summary: {json.dumps(x_summary, default=str)}")
+    lap("[16]")
     del params, prompts, cb_streams  # the serving phases' device memory, before training
     gc.collect()
     torch.cuda.empty_cache()
@@ -4696,7 +5378,7 @@ def main(torch) -> int:
     # [13] deepseek-moe-16b's (b) decode, (c) prefill and generate and (d)
     # kernel-route runs, [14] gemma3-27b's (b) generate and (c) kernel-route
     # run and h2o-danube-1.8b's (e) generate, [15] deepseek-v2-236b's (b)
-    # decode and (c) prefill generates and (d) paged run
+    # decode and (c) prefill generates and (d) paged run, [16] (a)'s warm run
     main_key = {
         "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
@@ -4715,7 +5397,7 @@ def main(torch) -> int:
         by_path = {"decode": launches.get(n, 0), "prefill": p_launches.get(n, 0),
                    "continuous": c_launches.get(n, 0), "experts": e_launches.get(n, 0),
                    "moe": m_launches.get(n, 0), "swa": s_launches.get(n, 0),
-                   "mla": l_launches.get(n, 0)}
+                   "mla": l_launches.get(n, 0), "prefix": x_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4750,6 +5432,9 @@ if __name__ == "__main__":
                     help="phases 1, 2 and 14 only (gemma3-27b, h2o-danube-1.8b)")
     ap.add_argument("--mla", action="store_true",
                     help="phases 1, 2 and 15 only (deepseek-v2-236b: MLA)")
+    ap.add_argument("--prefix", action="store_true",
+                    help="phases 1, 2 and 16 only (prefix caching, faults, the request "
+                    "tracer, BatchedServer)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -4769,6 +5454,8 @@ if __name__ == "__main__":
         sys.exit(swa(torch))
     if args.mla:
         sys.exit(mla(torch))
+    if args.prefix:
+        sys.exit(prefix(torch))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
         sys.exit(one_kernel(torch, args.kernel, src))

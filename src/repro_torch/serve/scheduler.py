@@ -19,6 +19,22 @@ in which every slot has its own lifecycle:
   their blocks return to the allocator, and the next queued request is
   admitted; if the pool runs dry the youngest request is preempted back to
   the queue and restarts from scratch (deterministically: same stream).
+* **prefix caching** (``prefix_cache=True``, paged layout) — every full
+  block of a stream carries a content identity (a chain hash of
+  ``(parent_hash, block_tokens)`` over the host token stream), registered
+  in the allocator once its pages are written.  Admission walks the
+  prompt's chain through the hash index, takes a reference on every
+  leading hit and prefills only the suffix: one padded ``forward_chunk``
+  slice at the cached boundary on the one-shot path, or chunked-prefill
+  slices starting there.  A released registered block parks on the
+  allocator's LRU, still hittable, until ``alloc`` reclaims it.  A
+  block-aligned, fully cached prompt copies its final shared page to a
+  private one (``kv_pool.copy_block`` in every paged layer) before the
+  last position is recomputed, so a shared page is never written.  On
+  release the chain extends over generated tokens, so a multi-turn
+  follow-up hits the whole previous conversation.  Only pure global
+  attention without routing is safe (:func:`_prefix_cache_safe`); other
+  configs decline with one log and run cold.
 
 Upstream compiles the decode chunk and the prefill slice into ``lax.scan``
 programs; here they are Python loops of eagerly launched kernels (the
@@ -33,18 +49,25 @@ Determinism contract: a request's token stream equals
 truncation.  Greedy streams therefore also equal the JAX engine's.  A
 sampled request owns a ``torch.Generator`` seeded with its ``seed`` and
 draws a (1, V) row per token in ``DecodeEngine``'s order (upstream splits a
-threefry key per slot, whose bits torch cannot reproduce).
+threefry key per slot, whose bits torch cannot reproduce).  A cache-hit
+admission draws its first token from the suffix slice's row with a fresh
+generator, as the cold admission does.
 
 Robustness, as upstream: the ``finish_reason`` lifecycle
 (:data:`FINISH_REASONS`, every request finishes exactly once), deadlines
 and TTFT budgets at chunk boundaries, a bounded queue with
-``overload_policy``, NaN/Inf quarantine riding the chunk fetch, and a
-watchdog that raises :class:`SchedulerStall`.
+``overload_policy``, NaN/Inf quarantine riding the chunk fetch, a
+watchdog that raises :class:`SchedulerStall`, and fault injection
+(``faults``, a :class:`repro_torch.serve.faults.FaultInjector`): allocator
+failures through the allocator's ``fail_hook``, forced preemptions at
+step starts, delayed arrivals at ``submit`` and poisoned logits in the one
+decode chunk a poison lands in (every other chunk runs the fault-free
+loop).  ``tracer`` (a :class:`repro_torch.serve.tracing.RequestTracer`)
+gets one event a lifecycle edge on the engine clock.  Both are host-side:
+with an empty injector or a tracer attached the engine launches the same
+kernels and makes the same fetches.
 
-Not ported yet: the prefix cache (``prefix_cache``, ``_register_blocks``,
-copy-on-write), fault injection (``faults``), the request tracer
-(``tracer``) and mesh serving (``mesh``); the constructor has none of
-those arguments.
+Not ported yet: mesh serving (``mesh``; ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -69,8 +92,9 @@ from repro_torch.serve.engine import (
     _make_checked_prefill_fn,
     sample_token,
 )
+from repro_torch.serve.faults import FaultInjector
 from repro_torch.telemetry.metrics import MetricsRegistry, resolve_clock
-from repro_torch.telemetry.tracing import annotate
+from repro_torch.telemetry.tracing import RequestTracer, annotate
 
 Tensor = torch.Tensor
 
@@ -120,7 +144,10 @@ class RequestState:
     ``prefilled`` counts prompt tokens already in the cache and
     ``n_generated == 0`` marks the slot as still admitting (inactive in
     decode chunks).  ``gen`` is the request's sampling generator (None when
-    greedy)."""
+    greedy).  With prefix caching, ``block_hashes`` holds the chain hashes
+    of the stream's full blocks (the prompt's at admission, extended over
+    generated tokens at release) and ``registered`` counts the leading
+    blocks already in the allocator's hash index."""
 
     request: Request
     slot: int
@@ -133,6 +160,8 @@ class RequestState:
     done: bool = False
     finish_reason: str = ""
     gen: Optional[torch.Generator] = None
+    block_hashes: list[int] = dataclasses.field(default_factory=list)
+    registered: int = 0
 
     @property
     def pos(self) -> int:
@@ -169,6 +198,36 @@ def _chunked_prefill_safe(cfg: ModelConfig) -> bool:
         return False
     return all(spec.mixer in ("attn", "mla") for seg in build_segments(cfg)
                for spec in seg.blocks)
+
+
+def _prefix_cache_safe(cfg: ModelConfig) -> bool:
+    """Whether shared prompt blocks may be reused across requests without
+    changing any stream: only when the paged pool holds a prefix's whole
+    state, i.e. every mixer is global attention (``window == 0``).
+    Unsafe: sliding-window rings and MLA latents (per-slot caches outside
+    the pool: a reused block would leave them empty for the hitting slot),
+    MoE / routed branches / VLM prefixes (tokens couple across a slice)."""
+    if cfg.moe or cfg.quant.num_experts > 1 or cfg.n_image_tokens > 0:
+        return False
+    return all(spec.mixer == "attn" and spec.window == 0
+               for seg in build_segments(cfg) for spec in seg.blocks)
+
+
+# configs whose prefix-cache decline was already logged: the decline is a
+# property of the config, logged once per config, not once per engine
+_PREFIX_DECLINE_LOGGED: set[tuple] = set()
+
+
+def _log_prefix_cache_decline(cfg: ModelConfig) -> None:
+    key = (cfg.name, cfg.family, bool(cfg.moe), cfg.quant.num_experts, cfg.n_image_tokens,
+           tuple((spec.mixer, spec.window) for seg in build_segments(cfg)
+                 for spec in seg.blocks))
+    if key in _PREFIX_DECLINE_LOGGED:
+        return
+    _PREFIX_DECLINE_LOGGED.add(key)
+    _log.warning("config %r: prefix caching declined (a mixer keeps per-slot state "
+                 "outside the paged pool, or routing couples tokens); admissions run cold",
+                 cfg.name)
 
 
 def _bucketed_prefill_safe(cfg: ModelConfig, max_len: int) -> bool:
@@ -234,6 +293,18 @@ def _set_tables(cfg: ModelConfig, big, slot: int, table_row: Tensor) -> None:
             c["table"][..., slot, :] = table_row
 
 
+def _copy_block(cfg: ModelConfig, big, src: int, dst: int) -> None:
+    """Copy one pool page ``src`` -> ``dst`` in every paged layer's K and V
+    pools (``kv_pool.copy_block``): the engine's copy-on-write, so a slot
+    about to write inside a shared block writes a private copy."""
+    for stacked, c in _cache_dicts(cfg, big):
+        if "table" not in c:
+            continue
+        for name in ("kpool", "vpool"):
+            for pool in (c[name] if stacked else (c[name],)):
+                kv_pool.copy_block(pool, src, dst)
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
@@ -258,6 +329,13 @@ class ContinuousBatchingEngine:
     prefill_chunk : token budget per engine step for admission prefill;
         ``None`` admits with one-shot prefill.  Configs where slicing would
         change streams (:func:`_chunked_prefill_safe`) fall back to one-shot.
+    prefix_cache : automatic prefix caching (paged layout only; with
+        ``layout="dense"`` it raises): admission reuses every leading
+        cached block of the prompt and prefills only the suffix; a fully
+        cached prompt copies its final shared page on write.  Configs that
+        fail :func:`_prefix_cache_safe` decline with one log and run cold.
+        Hits, misses, reused tokens and copies land on the
+        ``prefix_cache_*_total`` counters and the trace.
     clock : optional clock — a callable returning seconds, or an object
         with ``now()`` and optionally ``sleep(dt)`` (``ManualClock``).  By
         default a virtual clock advances one tick per decode chunk and
@@ -267,8 +345,15 @@ class ContinuousBatchingEngine:
         oldest queued one (``"shed_oldest"``) with reason ``"shed"``.
     watchdog_steps : consecutive no-progress steps (while work is ready)
         tolerated before ``step`` raises :class:`SchedulerStall`.
+    faults : optional :class:`~repro_torch.serve.faults.FaultInjector`;
+        ``None`` runs exactly the fault-free engine.
     metrics : optional :class:`MetricsRegistry` to record into; by default
         the engine owns a private one.
+    tracer : optional :class:`~repro_torch.serve.tracing.RequestTracer`:
+        one event a lifecycle edge (submitted, block_alloc, admitted,
+        prefill_chunk, first_token, decode_chunk, finished, block_free,
+        preempted, stall, prefix_hit, block_cow, fault_*), stamped with the
+        engine clock; may be attached later (``eng.tracer = ...``).
     device : the device the params live on (default: the CUDA device).
     """
 
@@ -285,11 +370,14 @@ class ContinuousBatchingEngine:
         num_blocks: Optional[int] = None,
         chunk: int = 8,
         prefill_chunk: Optional[int] = None,
+        prefix_cache: bool = False,
         clock: Optional[Callable[[], float]] = None,
         max_queue: Optional[int] = None,
         overload_policy: str = "reject",
         watchdog_steps: int = 256,
+        faults: Optional[FaultInjector] = None,
         metrics: Optional[MetricsRegistry] = None,
+        tracer: Optional[RequestTracer] = None,
         device=None,
     ):
         if cfg.family == "encdec":
@@ -300,6 +388,9 @@ class ContinuousBatchingEngine:
             raise ValueError("max_len must be a multiple of block_size")
         if overload_policy not in ("reject", "shed_oldest"):
             raise ValueError(f"unknown overload policy {overload_policy!r}")
+        if prefix_cache and layout != "paged":
+            raise ValueError("prefix_cache requires the paged layout (content-hash identity "
+                             "lives on pool blocks)")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -311,6 +402,7 @@ class ContinuousBatchingEngine:
         self.layout, self.block_size, self.chunk = layout, block_size, chunk
         self.max_blocks = kv_pool.blocks_for(max_len, block_size)
         self.num_blocks = num_blocks or num_slots * self.max_blocks
+        self.faults, self.tracer = faults, tracer
         # every engine owns a registry; all instrumentation is host-side
         # Python at chunk boundaries over data already fetched
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -336,11 +428,23 @@ class ContinuousBatchingEngine:
         self._m_ttft = m.histogram("ttft_seconds")
         self._m_itl = m.histogram("itl_seconds")
         self._m_latency = m.histogram("request_latency_seconds")
+        # registered whether or not caching is on, so every snapshot has them
+        self._m_pc_hits = m.counter("prefix_cache_hits_total")
+        self._m_pc_misses = m.counter("prefix_cache_misses_total")
+        self._m_pc_hit_tokens = m.counter("prefix_cache_hit_tokens_total")
+        self._m_pc_cow = m.counter("prefix_cache_cow_total")
         self.allocator = (
-            kv_pool.BlockAllocator(self.num_blocks, metrics=m) if layout == "paged" else None
+            kv_pool.BlockAllocator(self.num_blocks,
+                                   fail_hook=faults.on_alloc if faults is not None else None,
+                                   metrics=m)
+            if layout == "paged" else None
         )
         self._clock, self._sleep = resolve_clock(clock)
         self._now = 0.0  # virtual clock (chunk ticks) when clock is None
+        if faults is not None:
+            # fired faults land on the trace (checked at fire time, so a
+            # tracer attached later still sees them)
+            faults.on_fire = self._on_fault
         self.max_queue, self.overload_policy = max_queue, overload_policy
         self.watchdog_steps = watchdog_steps
         self._admitted_uids: set[int] = set()  # restart detection
@@ -377,6 +481,9 @@ class ContinuousBatchingEngine:
         if prefill_chunk is not None and self.prefill_chunk is None:
             _log.warning("config %r: chunked admission prefill would change streams; "
                          "admitting with one-shot prefill", cfg.name)
+        self.prefix_cache = bool(prefix_cache) and _prefix_cache_safe(cfg)
+        if prefix_cache and not self.prefix_cache:
+            _log_prefix_cache_decline(cfg)
         self._prefill = _make_checked_prefill_fn(cfg, max_len, self.scfg)
         self._prefill_bucketed = (
             _make_bucketed_prefill_fn(cfg, max_len, self.scfg)
@@ -418,6 +525,10 @@ class ContinuousBatchingEngine:
         """The engine's metrics snapshot (``MetricsRegistry.snapshot``)."""
         return self.metrics.snapshot()
 
+    def _on_fault(self, kind: str, info: dict) -> None:
+        if self.tracer is not None:
+            self.tracer.emit(f"fault_{kind}", t=self.now(), **info)
+
     def _emit_finished(self, fr: FinishedRequest) -> FinishedRequest:
         """The single finish chokepoint: every FinishedRequest passes here
         exactly once, so per-reason totals conserve requests and the
@@ -428,11 +539,22 @@ class ContinuousBatchingEngine:
             self._m_ttft.observe(max(0.0, fr.first_token_at - fr.arrival))
             self._m_itl.observe(max(0.0, fr.finished_at - fr.first_token_at) / max(1, n - 1))
         self._m_latency.observe(max(0.0, fr.finished_at - fr.arrival))
+        if self.tracer is not None:
+            self.tracer.emit("finished", t=fr.finished_at, uid=fr.uid,
+                             reason=fr.finish_reason, n_tokens=n)
         return fr
 
-    def _release_blocks(self, blocks: list[int]) -> None:
+    def _trace(self, event: str, uid: Optional[int] = None, **fields) -> None:
+        if self.tracer is not None:
+            self.tracer.emit(event, t=self.now(), uid=uid, **fields)
+
+    def _release_blocks(self, blocks: list[int], uid: int) -> None:
+        """Drop a request's references on its blocks (the one release
+        path).  With prefix caching a registered block whose last
+        reference drops parks on the allocator's LRU, still hittable."""
         if blocks:
             self.allocator.unref(blocks)
+            self._trace("block_free", uid=uid, n_blocks=len(blocks))
 
     # -- construction -------------------------------------------------------
 
@@ -496,10 +618,13 @@ class ContinuousBatchingEngine:
         if uid is None:
             uid = self._uid_counter
         self._uid_counter = max(self._uid_counter, uid + 1)
+        if self.faults is not None:
+            arrival += self.faults.arrival_delay(uid)
         req = Request(uid, prompt, budget, seed=seed, arrival=arrival, deadline=deadline,
                       ttft_budget=ttft_budget)
         # counted only once validation passed, so submitted == finished
         self._m_submitted.inc()
+        self._trace("submitted", uid=uid, arrival=req.arrival, prompt_len=len(prompt))
         if (deadline is not None and deadline <= arrival) or (
             ttft_budget is not None and ttft_budget <= 0
         ):
@@ -557,12 +682,15 @@ class ContinuousBatchingEngine:
         else:
             self._stall_steps += 1
             if self._stall_steps >= self.watchdog_steps:
-                raise SchedulerStall(self._stall_report())
+                report = self._stall_report()
+                self._trace("stall", steps=self._stall_steps, report=report)
+                raise SchedulerStall(report)
         return finished
 
     def _step_body(self) -> list[FinishedRequest]:
         finished = self._drain_pending()
         finished.extend(self._expire_deadlines())
+        self._injected_preemptions()
         finished.extend(self._admit_arrived())
         finished.extend(self._prefill_tick())
         if not any(rs.n_generated > 0 for rs in self._live()):
@@ -580,6 +708,8 @@ class ContinuousBatchingEngine:
             packed = self._fetch(self._run_chunk())
         if self._clock is None:
             self._now += 1.0
+        self._trace("decode_chunk", step=self._step_idx,
+                    n_decoding=sum(1 for rs in self._live() if rs.n_generated > 0))
         finished.extend(self._process_chunk(packed))
         return finished
 
@@ -603,6 +733,21 @@ class ContinuousBatchingEngine:
             f"{len(self._queue)}, live slots [{', '.join(live) or 'none'}], "
             f"{alloc}, preemptions={self.preemptions}"
         )
+
+    def _injected_preemptions(self) -> None:
+        """Apply the injector's preemptions for this step (a chunk
+        boundary), through the path pool pressure takes."""
+        if self.faults is None:
+            return
+        for uid in self.faults.preempt_uids(self._step_idx):
+            live = self._live()
+            if not live:
+                return
+            rs = (max(live, key=lambda r: r.admitted_at) if uid is None
+                  else next((r for r in live if r.request.uid == uid), None))
+            if rs is not None:
+                self.faults.fire("force_preempt", uid=rs.request.uid, step=self._step_idx)
+                self._preempt(rs)
 
     def _deadline_missed(self, req: Request, now: float, has_first: bool) -> bool:
         if req.deadline is not None and now > req.deadline:
@@ -633,7 +778,8 @@ class ContinuousBatchingEngine:
             self.deadline_misses += 1
             if rs.n_generated > 0:  # admitting slots were never activated
                 self._state["active"][rs.slot] = False
-            self._release_blocks(rs.blocks)
+            self._register_blocks(rs)
+            self._release_blocks(rs.blocks, req.uid)
             self._slots[rs.slot] = None
             finished.append(self._emit_finished(FinishedRequest(
                 req.uid, np.asarray(rs.tokens, np.int32), "deadline", len(req.prompt),
@@ -670,24 +816,107 @@ class ContinuousBatchingEngine:
             if req is None:
                 break
             blocks: list[int] = []
+            prefilled0, hashes, n_hit = 0, [], 0
             if self.allocator is not None:
-                got = self.allocator.alloc(kv_pool.blocks_for(len(req.prompt), self.block_size))
-                if got is None:
+                res = self._alloc_prompt_blocks(req)
+                if res is None:
                     # pool full: requeue at the head, wait for evictions
                     self._queue.appendleft(req)
                     break
-                blocks = got
+                blocks, prefilled0, hashes, n_hit = res
+                self._trace("block_alloc", uid=req.uid, n_blocks=len(blocks))
             self.admissions += 1
             if req.uid in self._admitted_uids:
                 self._m_restarts.inc()  # re-admission after preemption
             self._admitted_uids.add(req.uid)
+            self._trace("admitted", uid=req.uid, slot=free[0], n_blocks=len(blocks))
             if self.prefill_chunk is not None:
-                self._admit_chunked(req, free[0], blocks)
+                self._admit_chunked(req, free[0], blocks, prefilled0, hashes, n_hit)
+                continue
+            if prefilled0 > 0:
+                done = self._admit_cached(req, free[0], blocks, prefilled0, hashes, n_hit)
             else:
-                done = self._admit(req, free[0], blocks)
-                if done is not None:
-                    finished.append(done)
+                done = self._admit(req, free[0], blocks, hashes)
+            if done is not None:
+                finished.append(done)
         return finished
+
+    def _alloc_prompt_blocks(self, req: Request):
+        """The blocks covering an admitting prompt, or None if the pool
+        cannot give them now (nothing changes then beyond LRU recency).
+
+        With prefix caching this is the admission hit walk: every leading
+        block of the prompt's chain found in the hash index is referenced
+        (before the tail is allocated, so the tail's alloc cannot evict a
+        hit) and only the rest is allocated.  A block-aligned, fully cached
+        prompt still recomputes its last position, inside the final shared
+        block: that block is copied to a private page first.
+
+        Returns ``(blocks, prefilled0, hashes, n_hit)``: the slot's blocks,
+        how many leading prompt tokens are already resident, the prompt's
+        full-block chain hashes and how many leading blocks were hits."""
+        s = len(req.prompt)
+        nb = kv_pool.blocks_for(s, self.block_size)
+        if not self.prefix_cache:
+            got = self.allocator.alloc(nb)
+            return (got, 0, [], 0) if got is not None else None
+        hashes = kv_pool.prompt_block_hashes(req.prompt, self.block_size)
+        hits: list[int] = []
+        for h in hashes:
+            b = self.allocator.lookup(h)
+            if b is None:
+                break
+            hits.append(b)
+        for b in hits:
+            self.allocator.ref(b)
+        cached = len(hits) * self.block_size
+        cow = cached == s  # fully cached: the last position lies in a hit block
+        got = self.allocator.alloc(nb - len(hits) + (1 if cow else 0))
+        if got is None:
+            self.allocator.unref(hits)
+            return None
+        self._m_pc_hits.inc(len(hits))
+        self._m_pc_misses.inc(len(hashes) - len(hits))
+        blocks = hits + got
+        prefilled0 = min(cached, s - 1)
+        self._m_pc_hit_tokens.inc(prefilled0)
+        if cow:
+            src, dst = blocks[len(hits) - 1], blocks.pop()
+            with annotate("serve/prefix_cow"):
+                _copy_block(self.cfg, self._caches, src, dst)
+            blocks[len(hits) - 1] = dst
+            self.allocator.unref([src])
+            self._m_pc_cow.inc()
+            self._trace("block_cow", uid=req.uid, src=src, dst=dst)
+        if hits:
+            self._trace("prefix_hit", uid=req.uid, n_blocks=len(hits), n_tokens=prefilled0)
+        return blocks, prefilled0, hashes, len(hits)
+
+    def _register_blocks(self, rs: RequestState) -> None:
+        """Register every full block whose pages are written (and take no
+        more writes) in the allocator's hash index, so later admissions hit
+        them.  On release the chain extends over generated tokens; the last
+        sampled token's KV is written only when it is fed, so decode
+        coverage stops one short of ``n_generated``."""
+        if not self.prefix_cache:
+            return
+        bs = self.block_size
+        req = rs.request
+        s = len(req.prompt)
+        covered = s + rs.n_generated - 1 if rs.n_generated > 0 else rs.prefilled
+        n_full = min(covered // bs, len(rs.blocks))
+        if rs.registered >= n_full:
+            return
+        h = rs.block_hashes
+        if len(h) < n_full:  # extend the chain over generated tokens
+            stream = np.concatenate([req.prompt, np.asarray(rs.tokens, np.int32)])
+            while len(h) < n_full:
+                i = len(h)
+                h.append(kv_pool.hash_block_tokens(h[i - 1] if i else None,
+                                                   stream[i * bs : (i + 1) * bs]))
+        while rs.registered < n_full:
+            self.allocator.register(rs.blocks[rs.registered], h[rs.registered])
+            rs.registered += 1
 
     def _pop_ready(self) -> Optional[Request]:
         """Pop the first queued request that has arrived."""
@@ -700,76 +929,95 @@ class ContinuousBatchingEngine:
                 return r
         return None
 
-    def _admit_chunked(self, req: Request, slot: int, blocks: list[int]) -> None:
+    def _admit_chunked(self, req: Request, slot: int, blocks: list[int], prefilled0: int = 0,
+                       hashes=(), n_hit: int = 0) -> None:
         """Occupy a slot without running prefill: install its block table
-        (paged) and let :meth:`_prefill_tick` stream the prompt in."""
+        (paged) and let :meth:`_prefill_tick` stream the prompt in.  A
+        prefix-cache hit starts the slice cursor at the cached boundary
+        ``prefilled0``."""
         if blocks:
             _set_tables(self.cfg, self._caches, slot, self._table_row(blocks))
         self._slots[slot] = RequestState(
             request=req, slot=slot, blocks=blocks, tokens=[], n_generated=0,
-            admitted_at=self.now(),
+            admitted_at=self.now(), prefilled=prefilled0, block_hashes=list(hashes),
+            registered=n_hit,
         )
+
+    def _prefill_slice(self, slot: int, tokens: np.ndarray, start: int, t: int) -> Tensor:
+        """One ``t``-token ``forward_chunk`` slice of one slot's prompt
+        tokens at position ``start``, straight into the big caches (every
+        other slot masked out, a ragged slice right-padded and gated by
+        ``lengths``).  Returns the slot's (1, V) logits at its last token."""
+        n, b = len(tokens), self.num_slots
+        toks = np.zeros((b, t), np.int64)
+        toks[slot, :n] = tokens
+        pos = np.zeros((b,), np.int32)
+        pos[slot] = start
+        active = np.zeros((b,), bool)
+        active[slot] = True
+        lengths = np.zeros((b,), np.int32)
+        lengths[slot] = n
+        lengths_d = self._to_device(lengths)
+        logits, _ = api.forward_chunk(
+            self.params, self._to_device(toks), self._caches, self._to_device(pos),
+            self.cfg, active=self._to_device(active), lengths=lengths_d,
+            logits_at=torch.clamp(lengths_d - 1, min=0),
+        )
+        return logits[slot : slot + 1]
+
+    def _first_token(self, row: Tensor, gen) -> tuple[Tensor, int, bool]:
+        """Sample the first token from a prompt's last logits row and fetch
+        it with its finite bit: the admission's one packed ``[tok0, ok]``
+        fetch.  Returns (the token on the device, tok0, ok)."""
+        tok0 = sample_token(gen, row, self.scfg)
+        ok = torch.isfinite(row).all(dim=-1)
+        tok_d = torch.stack([tok0[0], ok[0].to(torch.int32)])
+        arr = self._fetch(tok_d)
+        return tok_d[0], int(arr[0]), bool(arr[1])
 
     def _prefill_tick(self) -> list[FinishedRequest]:
         """Advance at most ONE admitting request's prompt by one
-        ``prefill_chunk``-token ``forward_chunk`` slice, straight into the
-        big caches (every other slot masked out, a ragged final slice
-        right-padded and gated by ``lengths``).  The slice that completes
-        the prompt samples the first token with the request's fresh
-        generator — the one-shot path's draw."""
+        ``prefill_chunk``-token slice.  The slice that completes the prompt
+        samples the first token with the request's fresh generator — the
+        one-shot path's draw."""
         if self.prefill_chunk is None:
             return []
         pending = [rs for rs in self._live() if rs.prefilled < len(rs.request.prompt)]
         if not pending:
             return []
         rs = min(pending, key=lambda r: (r.admitted_at, r.slot))
-        t = self.prefill_chunk
         req = rs.request
         s = len(req.prompt)
-        n = min(t, s - rs.prefilled)
-        b = self.num_slots
-        toks = np.zeros((b, t), np.int64)
-        toks[rs.slot, :n] = req.prompt[rs.prefilled : rs.prefilled + n]
-        pos = np.zeros((b,), np.int32)
-        pos[rs.slot] = rs.prefilled
-        active = np.zeros((b,), bool)
-        active[rs.slot] = True
-        lengths = np.zeros((b,), np.int32)
-        lengths[rs.slot] = n
-        lengths_d = self._to_device(lengths)
+        n = min(self.prefill_chunk, s - rs.prefilled)
         with annotate("serve/chunked_prefill"):
-            logits, _ = api.forward_chunk(
-                self.params, self._to_device(toks), self._caches, self._to_device(pos),
-                self.cfg, active=self._to_device(active), lengths=lengths_d,
-                logits_at=torch.clamp(lengths_d - 1, min=0),
-            )
+            row = self._prefill_slice(rs.slot, req.prompt[rs.prefilled : rs.prefilled + n],
+                                      rs.prefilled, self.prefill_chunk)
         rs.prefilled += n
         self.prefill_tokens += n
+        # blocks this slice finished filling become hittable (their writes
+        # are issued; stream order makes every later reader safe)
+        self._register_blocks(rs)
+        self._trace("prefill_chunk", uid=req.uid, prefilled=rs.prefilled, total=s)
         if rs.prefilled < s:
             return []
-        row = logits[rs.slot : rs.slot + 1]
         rs.gen = self._generator(req.seed)
-        tok0 = sample_token(rs.gen, row, self.scfg)
-        ok = torch.isfinite(row).all(dim=-1)
-        tok_d = torch.stack([tok0[0], ok[0].to(torch.int32)])
-        # one packed [tok0, finite] fetch per admission
-        arr = self._fetch(tok_d)
-        tok0, ok = int(arr[0]), bool(arr[1])
+        tok_d, tok0, ok = self._first_token(row, rs.gen)
         now = self.now()
         if not ok:
             self.quarantined += 1
-            self._release_blocks(rs.blocks)
+            self._release_blocks(rs.blocks, req.uid)
             self._slots[rs.slot] = None
             return [self._emit_finished(FinishedRequest(
                 req.uid, np.zeros((0,), np.int32), "error", s, req.arrival, rs.admitted_at,
                 now, now,
             ))]
         self.tokens_generated += 1
+        self._trace("first_token", uid=req.uid)
         done = self._finish_at_admission(req, tok0, rs.blocks, rs.admitted_at)
         if done is not None:
             self._slots[rs.slot] = None
             return [done]
-        self._admit_state(rs.slot, tok_d[0], s, req.max_new_tokens)
+        self._admit_state(rs.slot, tok_d, s, req.max_new_tokens)
         rs.tokens = [tok0]
         rs.n_generated = 1
         rs.first_token_at = now
@@ -783,7 +1031,7 @@ class ContinuousBatchingEngine:
         if tok0 not in self._stop_set and req.max_new_tokens != 1:
             return None
         reason = "stop" if tok0 in self._stop_set else "length"
-        self._release_blocks(blocks)
+        self._release_blocks(blocks, req.uid)
         now = self.now()
         return self._emit_finished(FinishedRequest(
             req.uid, np.asarray([tok0], np.int32), reason, len(req.prompt), req.arrival,
@@ -807,7 +1055,49 @@ class ContinuousBatchingEngine:
             return self._prefill_bucketed(self.params, self._to_device(padded), s, gen)
         return self._prefill(self.params, self._to_device(req.prompt[None].astype(np.int64)), gen)
 
-    def _admit(self, req: Request, slot: int, blocks: list[int]) -> Optional[FinishedRequest]:
+    def _admit_cached(self, req: Request, slot: int, blocks: list[int], prefilled0: int,
+                      hashes: list[int], n_hit: int) -> Optional[FinishedRequest]:
+        """One-shot admission on a prefix-cache hit: the first
+        ``prefilled0`` prompt tokens are resident in the reused blocks, so
+        only the suffix runs, as ONE ``forward_chunk`` slice padded to a
+        power-of-two bucket, the chunked-prefill machinery.  The first
+        token is drawn from the slice's row with a fresh generator, as the
+        cold admission draws it."""
+        s = len(req.prompt)
+        _set_tables(self.cfg, self._caches, slot, self._table_row(blocks))
+        n = s - prefilled0
+        with annotate("serve/admission_prefill"):
+            row = self._prefill_slice(slot, req.prompt[prefilled0:], prefilled0,
+                                      self._bucket_len(n))
+        self.prefill_tokens += n
+        gen = self._generator(req.seed)
+        tok_d, tok0, ok = self._first_token(row, gen)
+        now = self.now()
+        if not ok:
+            self.quarantined += 1
+            self._release_blocks(blocks, req.uid)
+            return self._emit_finished(FinishedRequest(
+                req.uid, np.zeros((0,), np.int32), "error", s, req.arrival, now, now, now,
+            ))
+        # the slice wrote every miss block; registered only after the finite
+        # check, so a poisoned page is never indexed
+        for i in range(n_hit, len(hashes)):
+            self.allocator.register(blocks[i], hashes[i])
+        self.tokens_generated += 1
+        self._trace("first_token", uid=req.uid)
+        done = self._finish_at_admission(req, tok0, blocks, now)
+        if done is not None:
+            return done
+        self._admit_state(slot, tok_d, s, req.max_new_tokens)
+        self._slots[slot] = RequestState(
+            request=req, slot=slot, blocks=blocks, tokens=[tok0], n_generated=1,
+            admitted_at=now, prefilled=s, first_token_at=now, gen=gen,
+            block_hashes=list(hashes), registered=len(hashes),
+        )
+        return None
+
+    def _admit(self, req: Request, slot: int, blocks: list[int],
+               hashes=()) -> Optional[FinishedRequest]:
         gen = self._generator(req.seed)
         with annotate("serve/admission_prefill"):
             tok0_d, small, pos0 = self._admission_prefill(req, gen)
@@ -817,21 +1107,27 @@ class ContinuousBatchingEngine:
         now = self.now()
         if not ok:
             self.quarantined += 1
-            self._release_blocks(blocks)
+            self._release_blocks(blocks, req.uid)
             return self._emit_finished(FinishedRequest(
                 req.uid, np.zeros((0,), np.int32), "error", len(req.prompt), req.arrival,
                 now, now, now,
             ))
         self.tokens_generated += 1
+        self._trace("first_token", uid=req.uid)
         done = self._finish_at_admission(req, tok0, blocks, now)
         if done is not None:
+            # nothing was installed into the blocks, so nothing registers
             return done
         table_row = self._table_row(blocks) if blocks else None
         _install(self.cfg, self._caches, small, slot, table_row, len(blocks))
         self._admit_state(slot, tok0_d[0], pos0, req.max_new_tokens)
+        # the install span-wrote every prompt page: full blocks are hittable
+        for i, h in enumerate(hashes):
+            self.allocator.register(blocks[i], h)
         self._slots[slot] = RequestState(
             request=req, slot=slot, blocks=blocks, tokens=[tok0], n_generated=1,
             admitted_at=now, prefilled=len(req.prompt), first_token_at=now, gen=gen,
+            block_hashes=list(hashes), registered=len(hashes),
         )
         return None
 
@@ -875,6 +1171,7 @@ class ContinuousBatchingEngine:
                         break  # the requester itself was youngest: requeued
                     continue
                 rs.blocks.extend(got)
+                self._trace("block_alloc", uid=rs.request.uid, n_blocks=len(got))
                 _set_tables(self.cfg, self._caches, rs.slot, self._table_row(rs.blocks))
 
     def _pick_victim(self) -> Optional[RequestState]:
@@ -887,8 +1184,12 @@ class ContinuousBatchingEngine:
         """Return a request to the queue head; its blocks are reclaimed and
         it restarts from scratch on re-admission (same seed, same stream)."""
         self.preemptions += 1
+        self._trace("preempted", uid=rs.request.uid, n_generated=rs.n_generated)
         self._state["active"][rs.slot] = False
-        self._release_blocks(rs.blocks)
+        # a preempted stream's blocks stay hittable: its restart walks the
+        # same chain and resumes from the cached prefix
+        self._register_blocks(rs)
+        self._release_blocks(rs.blocks, rs.request.uid)
         self._slots[rs.slot] = None
         self._queue.appendleft(rs.request)
 
@@ -903,14 +1204,31 @@ class ContinuousBatchingEngine:
             nxt[rs.slot] = sample_token(rs.gen, logits[rs.slot : rs.slot + 1], self.scfg)[0]
         return nxt
 
+    def _poison_steps(self, decoding: list[RequestState]) -> Optional[Tensor]:
+        """The (B,) step inside the coming chunk at which each slot's logits
+        are made NaN (-1: never), on the device, or None when the injector
+        lands no poison in this chunk (the fault-free chunk)."""
+        if self.faults is None or not self.faults.has_poison:
+            return None
+        spec = np.full((self.num_slots,), -1, np.int32)
+        hit = False
+        for rs in decoding:
+            g = self.faults.poison_rel_step(rs.request.uid, rs.n_generated, self.chunk)
+            if g is not None:
+                spec[rs.slot], hit = g, True
+        return self._to_device(spec) if hit else None
+
     def _run_chunk(self) -> Tensor:
         """``chunk`` decode steps over the slot batch, all on the device:
         per-slot positions, budgets, stop masks and the NaN/Inf quarantine
         column (``chunk`` = untouched, else the step whose logits went
         non-finite).  Returns the packed (B, chunk + 2) int32 matrix
-        ``[tokens | active | quarantine]`` for the chunk's one fetch."""
+        ``[tokens | active | quarantine]`` for the chunk's one fetch.  Only
+        a chunk a scheduled poison lands in overwrites that slot's logits
+        with NaN at its step."""
         length = self.chunk
         decoding = [rs for rs in self._live() if not rs.done and rs.n_generated > 0]
+        poison = self._poison_steps(decoding)
         st = self._state
         tok, pos, active, ngen = st["tok"], st["pos"], st["active"], st["ngen"]
         quar = torch.full(tok.shape, length, dtype=torch.int32, device=tok.device)
@@ -920,6 +1238,8 @@ class ContinuousBatchingEngine:
                 logits, _ = api.decode_step(self.params, tok[:, None].long(), self._caches, pos,
                                             self.cfg, active=active)
             logits = logits[:, -1]
+            if poison is not None:
+                logits = torch.where((poison == i)[:, None], float("nan"), logits)
             finite = torch.isfinite(logits).all(dim=-1)
             ok = active & finite
             with annotate("serve/sample"):
@@ -968,7 +1288,11 @@ class ContinuousBatchingEngine:
                 )
             if not rs.done:
                 continue
-            self._release_blocks(rs.blocks)
+            if rs.finish_reason != "error":
+                # extend the chain over the generated tokens so a multi-turn
+                # follow-up hits; a quarantined stream's pages are suspect
+                self._register_blocks(rs)
+            self._release_blocks(rs.blocks, rs.request.uid)
             self._slots[rs.slot] = None
             req = rs.request
             finished.append(self._emit_finished(FinishedRequest(

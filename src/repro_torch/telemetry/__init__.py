@@ -6,8 +6,8 @@ Layout
 ``metrics``   Counter / Gauge / fixed-bucket Histogram, MetricsRegistry
               (snapshot + Prometheus text), validate_snapshot, clocks.
 ``tracing``   annotate (profiler spans), maybe_profile (REPRO_PROFILE_DIR
-              capture), JsonlSink / ListSink, TrainTracer (training
-              lifecycle).  RequestTracer and fault_hook are not ported yet.
+              capture), JsonlSink / ListSink, RequestTracer and fault_hook
+              (serving lifecycle), TrainTracer (training lifecycle).
 ``probes``    QAT health probes: an ambient collector that forward-pass tap
               sites record into, the param-side probes and the cadenced
               democratization snapshot.
@@ -23,6 +23,7 @@ Serving (wired by the engines, the scheduler and kv_pool):
   ``tokens_generated_total``, ``prefill_chunks_total``, ``decode_chunks_total``
   ``queue_depth``, ``batch_occupancy``, ``pool_blocks_used``
   ``ttft_seconds``, ``itl_seconds``, ``request_latency_seconds``
+  ``prefix_cache_{hits,misses,hit_tokens,cow,evictions}_total``
 
 Training (wired by ``repro_torch.train.trainer.Trainer``):
   counters   ``train_steps_total``, ``train_recoveries_total``,

@@ -11,13 +11,20 @@ the training run's lifecycle trace.
    nothing) and best-effort: a broken profiler never breaks the run.
 3. **Sinks** — :class:`JsonlSink` (one compact JSON object a line,
    flushed a record) and :class:`ListSink` (in memory, for tests).
-4. **Training lifecycle tracing** — :class:`TrainTracer`: per-step
+4. **Request tracing** — :class:`RequestTracer`: one structured event a
+   serving lifecycle edge (submitted, block_alloc, admitted,
+   prefill_chunk, first_token, decode_chunk, finished, plus block_free,
+   preempted, stall, prefix_hit, block_cow and fault_* events), stamped by
+   the caller with the engine clock; :func:`fault_hook` lands a
+   ``FaultInjector``'s fired faults on the same timeline.
+5. **Training lifecycle tracing** — :class:`TrainTracer`: per-step
    records plus checkpoint / restore / recovery / heartbeat events through
    a sink, stamped with run-relative seconds by its own clock.  The event
    vocabulary and a reader are in ``repro_torch.telemetry``.
 
-Everything here but the spans runs on the host.  Not ported yet:
-``RequestTracer`` and ``fault_hook`` (the serving lifecycle).
+Everything here but the spans runs on the host: a tracer reads only what
+the engine already fetched, so attaching one adds no device op and no
+sync.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import json
 import logging
 import os
 import time
-from typing import IO, Optional, Union
+from typing import IO, Callable, Optional, Union
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -121,6 +128,30 @@ class JsonlSink:
             self._f.close()
 
 
+class RequestTracer:
+    """Emit serving lifecycle events through a sink: ``{"t", "event",
+    "uid"?, **fields}`` (fields that are None are dropped).  It holds no
+    per-request state and stamps nothing itself (callers pass ``t`` from
+    the one engine clock); ``events`` counts what it emitted."""
+
+    def __init__(self, sink):
+        self.sink = sink
+        self.events = 0
+
+    def emit(self, event: str, *, t: float, uid: Optional[int] = None, **fields) -> None:
+        record = {"t": float(t), "event": str(event)}
+        if uid is not None:
+            record["uid"] = int(uid)
+        for k, v in fields.items():
+            if v is not None:
+                record[k] = v
+        self.events += 1
+        self.sink.write(record)
+
+    def close(self) -> None:
+        self.sink.close()
+
+
 class TrainTracer:
     """Training-run lifecycle tracer: every event is ``{"t": run-relative
     seconds, "event": ..., "step": ..., **fields}`` (fields that are None
@@ -147,3 +178,13 @@ class TrainTracer:
 
     def close(self) -> None:
         self.sink.close()
+
+
+def fault_hook(tracer: RequestTracer, now: Callable[[], float]) -> Callable[[str, dict], None]:
+    """A ``FaultInjector.on_fire`` callback that lands every fired fault on
+    the request timeline (event ``fault_<kind>``), stamped by ``now``."""
+
+    def on_fire(kind: str, info: dict) -> None:
+        tracer.emit(f"fault_{kind}", t=now(), **info)
+
+    return on_fire
