@@ -5,9 +5,9 @@ Ported so far: the paper's own decoder family, the ``pquant-<size>``
 entries (which take ``quant_mode=`` like upstream) and, as named
 shorthands for the same family under another quantization mode,
 ``bitnet-<size>``, ``bitnet158-<size>`` and ``none-<size>``;
-``deepseek-moe-16b`` and the MLA MoE ``deepseek-v2-236b``; and the
+``deepseek-moe-16b`` and the MLA MoE ``deepseek-v2-236b``; the
 sliding-window configs ``gemma3-27b`` (5 local : 1 global) and
-``h2o-danube-1.8b``.  The other architectures of the JAX registry raise
+``h2o-danube-1.8b``; and the Mamba-2 SSM ``mamba2-780m``.  The other architectures of the JAX registry raise
 ``NotImplementedError``.
 """
 
@@ -21,6 +21,7 @@ from repro_torch.configs import (
     deepseek_v2_236b,
     gemma3_27b,
     h2o_danube_1_8b,
+    mamba2_780m,
     pquant_paper,
 )
 from repro_torch.configs.base import ModelConfig
@@ -40,6 +41,7 @@ ARCHS["deepseek-moe-16b"] = deepseek_moe_16b.make
 ARCHS["deepseek-v2-236b"] = deepseek_v2_236b.make
 ARCHS["gemma3-27b"] = gemma3_27b.make
 ARCHS["h2o-danube-1.8b"] = h2o_danube_1_8b.make
+ARCHS["mamba2-780m"] = mamba2_780m.make
 
 # architectures the JAX registry serves that this package has not ported yet
 NOT_PORTED = (
@@ -47,7 +49,6 @@ NOT_PORTED = (
     "deepseek-coder-33b",
     "whisper-large-v3",
     "phi-3-vision-4.2b",
-    "mamba2-780m",
     "recurrentgemma-2b",
 )
 

@@ -6,8 +6,9 @@ contribution (paper §3.2, Eq. 11).
 §3.3 scaling: the 8-bit branch is replicated ``N`` times and a top-1
 softmax router (``repro_torch.core.routing``) picks one branch per token;
 the 1-bit branch acts as the always-active shared expert.  Active
-parameter count is constant in N.  ``decoupled_proj`` (the SSM family's
-projection) is not ported yet.
+parameter count is constant in N.  ``decoupled_proj`` is the same split
+for layers that are plain projections (the SSM family's in/out
+projections): a 1-bit (d_in, d_out) trunk plus an r-wide 8-bit bottleneck.
 """
 
 from __future__ import annotations
@@ -274,6 +275,103 @@ def _tap_branch_norms(y1_scaled: Tensor, y8_scaled: Tensor) -> None:
     (``qat_branch_share8``, paper §3.2's allocation claim, live)."""
     probes.add("branch1_sq", torch.sum(torch.square(y1_scaled.detach().float())))
     probes.add("branch8_sq", torch.sum(torch.square(y8_scaled.detach().float())))
+
+
+# ---------------------------------------------------------------------------
+# Decoupled projection — the FFN-free adaptation (SSM family)
+# ---------------------------------------------------------------------------
+
+
+def init_decoupled_proj(
+    gen: torch.Generator,
+    d_in: int,
+    d_out: int,
+    r: int,
+    num_experts: int = 1,
+    lead: tuple = (),
+    device=None,
+    alpha_init: float = 2.0,
+    beta_init: float = 0.2,
+):
+    """Decoupled single linear, leaf for leaf upstream's: the dominant
+    1-bit ``w1`` (d_in, d_out) plus a compact 8-bit bottleneck ``w8_a``
+    (N, d_in, r), ``w8_b`` (N, r, d_out) with feature scaling alpha, beta;
+    with N > 1 the router {"w": (d_in, N)}.  ``lead`` prepends stack axes."""
+    n = num_experts
+
+    def tn(shape, scale):
+        return truncated_normal(gen, lead + shape, device=device) * scale
+
+    params = {
+        "w1": tn((d_in, d_out), d_in**-0.5),
+        "w8_a": tn((n, d_in, r), d_in**-0.5),
+        "w8_b": tn((n, r, d_out), r**-0.5),
+        "alpha": torch.full(lead, alpha_init, device=device),
+        "beta": torch.full(lead, beta_init, device=device),
+    }
+    if n > 1:
+        params["router"] = routing.init_router(
+            gen, d_in, RouterConfig(num_experts=n, top_k=1), lead, device)
+    return params
+
+
+def decoupled_proj(params, x: Tensor, qcfg: QuantConfig,
+                   router_cfg: RouterConfig | None = None):
+    """Apply a decoupled projection over (..., d_in).  Returns (y, aux).
+
+    Serving weights with one 8-bit branch run the kernel tier: the fused
+    dual-branch first GEMM with alpha = beta = 1, the INT8 bottleneck
+    matmul on its r-wide rows, and only then ``beta * y1 + alpha * y8``
+    (upstream's order: the f32 outputs stay JAX's).  A packed trunk with a
+    routed (N > 1) 8-bit branch runs the trunk through ``bit_linear_infer``
+    and the routed branch in float, as upstream."""
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    dt = x.dtype
+
+    if (is_packed_1bit(params["w1"]) and is_stored_int8(params["w8_a"])
+            and is_stored_int8(params["w8_b"]) and params["w8_a"]["q"].shape[0] == 1):
+        from repro_torch.kernels import ops  # deferred: kernels are serving-only
+
+        one = torch.ones((), dtype=torch.float32, device=x.device)
+        qa, sa = _int8_kernel_view(params["w8_a"])
+        y1, h8 = ops.decoupled_first_gemm(xf, params["w1"]["packed"], qa, params["w1"]["scale"],
+                                          sa, one, one, out_dtype=dt)
+        qb, sb = _int8_kernel_view(params["w8_b"])
+        y8 = ops.int8_linear_infer(h8, qb, sb, out_dtype=dt)
+        y = params["beta"].to(dt) * y1 + params["alpha"].to(dt) * y8
+        return y.reshape(*lead, -1), aux
+
+    if is_packed_1bit(params["w1"]):
+        from repro_torch.kernels import ops
+
+        y1 = ops.bit_linear_infer(xf, params["w1"]["packed"], params["w1"]["scale"],
+                                  out_dtype=dt)
+    else:
+        y1 = maybe_quant_acts(xf, qcfg) @ fake_quant_linear_weights(params["w1"], qcfg).to(dt)
+    y1s = params["beta"].to(dt) * y1
+
+    def w8q(w):
+        return (w if qcfg.mode == "none" else quantize_weights_int8_stacked(w)[0]).to(dt)
+
+    def branch(xe: Tensor) -> Tensor:  # xe: (N, C, d_in)
+        h = torch.einsum("ncd,ndr->ncr", maybe_quant_acts(xe, qcfg), w8q(params["w8_a"]))
+        return torch.einsum("ncr,nrd->ncd", maybe_quant_acts(h, qcfg), w8q(params["w8_b"]))
+
+    w8a = params["w8_a"]
+    n = (w8a["q"] if isinstance(w8a, dict) else w8a).shape[0]
+    if n == 1:
+        y8 = branch(xf[None])[0]
+    else:
+        if router_cfg is None or router_cfg.num_experts != n:
+            raise ValueError(f"{n} experts need a RouterConfig with num_experts={n}, "
+                             f"got {router_cfg}")
+        y8, aux = routing.route_and_apply(params["router"], xf, router_cfg, branch)
+    y8s = params["alpha"].to(dt) * y8
+    if probes.active():
+        _tap_branch_norms(y1s, y8s)
+    return (y1s + y8s).reshape(*lead, -1), aux
 
 
 def decoupled_ffn_flops(d_model: int, d_ff_1bit: int, r: int, glu: bool, tokens: int) -> int:

@@ -27,15 +27,19 @@ layer windowed) and gemma3's local/global interleave (``global_every``:
 period segments of ``global_every - 1`` local blocks and one global,
 then a remainder segment); and MLA (``attn_type="mla"``, DeepSeek-V2:
 the same plans with ``mixer="mla"``, ``models/attention.py``'s
-``mla_*``).  A windowed layer keeps a dense RING cache of
-``min(window, max_len)`` positions in both cache layouts, and rotates at
+``mla_*``); and Mamba-2 (``family="ssm"``: one segment of ``n_layers``
+SSD blocks without an FFN, ``models/ssm.py``).  A windowed layer keeps a
+dense RING cache of ``min(window, max_len)`` positions in both cache
+layouts, and rotates at
 ``rope_theta_local`` under ``global_every``; an MLA layer keeps its dense
 latent cache ``{"ckv", "krope"}`` in both layouts (no MLA layer goes on
 the paged pool) and rotates its ``qk_rope_dim`` slice.  Upstream scans a
 stacked segment with per-layer metadata as scanned arrays; the port's
-loop reads each layer's window and theta as Python values.  Other
-segment plans (SSM, hybrids, enc-dec) are not ported yet and raise
-``NotImplementedError``.
+loop reads each layer's window and theta as Python values.  An SSM
+layer keeps a dense cache {"conv" (serving dtype), "state" (f32)} in both
+layouts, rewritten in place after each chunk; inactive slots keep theirs
+bit for bit (upstream's ``_freeze_inactive``).  Other segment plans
+(hybrids, enc-dec) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_ffn,
     cross_entropy_loss,
@@ -72,8 +77,8 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    mixer: str  # attn | mla
-    ffn: str  # dense | moe
+    mixer: str  # attn | mla | ssm
+    ffn: str | None  # dense | moe | None (an SSM block has no FFN)
     # static sliding window of this block (0 = full attention); a windowed
     # layer keeps a RING cache of exactly min(window, max_len) positions
     window: int = 0
@@ -87,17 +92,21 @@ class Segment:
 
 
 def build_segments(cfg: ModelConfig) -> list[Segment]:
-    """The decoder's segments: one segment of ``n_layers`` attention +
-    dense-FFN blocks (windowed under ``attn_type="swa"``); with
+    """The model's segments: for the SSM family one segment of
+    ``n_layers`` Mamba-2 blocks without an FFN; for the decoder one segment
+    of ``n_layers`` attention + dense-FFN blocks (windowed under
+    ``attn_type="swa"``); with
     ``cfg.moe``, one segment of ``first_k_dense`` dense blocks (one repeat),
     then ``n_layers - first_k_dense`` repeats of an MoE block; with
     ``global_every`` g, ``n_layers // g`` repeats of (g - 1 local blocks,
     one global), then one repeat of the remaining local blocks.  Every
     block's mixer is ``"mla"`` under ``attn_type="mla"``."""
+    if cfg.family == "ssm":
+        return [Segment(cfg.n_layers, (BlockSpec("ssm", None),), 0)]
     if cfg.family != "decoder" or cfg.attn_type not in ("full", "swa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: only the full-attention, sliding-window and MLA decoder (dense or "
-            "MoE) is ported"
+            "MoE) and the SSM are ported"
         )
     mixer = "mla" if cfg.attn_type == "mla" else "attn"
     if cfg.moe:
@@ -142,6 +151,11 @@ def _local_rope(cfg: ModelConfig, spec: BlockSpec) -> bool:
     return cfg.global_every > 0 and spec.window > 0
 
 
+def _uses_rope(cfg: ModelConfig) -> bool:
+    """Whether any layer rotates: an SSM has no attention to rotate."""
+    return cfg.pos_embedding == "rope" and cfg.family != "ssm"
+
+
 def _rope_dim(cfg: ModelConfig) -> int:
     """The rotated width: MLA rotates its ``qk_rope_dim`` slice, other
     attention the whole head."""
@@ -183,8 +197,12 @@ def _init_block(gen, spec: BlockSpec, cfg: ModelConfig, lead: tuple, device):
     params: dict[str, Any] = {"pre_norm": init_rmsnorm(cfg.d_model, lead, device)}
     if spec.mixer == "mla":
         params["mixer"] = attn_mod.init_mla(gen, cfg, lead, device)
+    elif spec.mixer == "ssm":
+        params["mixer"] = ssm_mod.init_mamba_block(gen, cfg, lead, device)
     else:
         params["mixer"] = attn_mod.init_attention(gen, cfg, lead, device)
+    if spec.ffn is None:
+        return params
     params["ffn_norm"] = init_rmsnorm(cfg.d_model, lead, device)
     if spec.ffn == "moe":
         params["ffn"] = moe_mod.init_moe_ffn(gen, cfg, lead, device)
@@ -224,9 +242,13 @@ def _ffn(bparams, spec: BlockSpec, h: Tensor, cfg: ModelConfig):
     return apply_ffn(bparams["ffn"], h, cfg)
 
 
-def _apply_block(bparams, spec: BlockSpec, x: Tensor, cfg: ModelConfig, sin: Tensor,
-                 cos: Tensor):
+def _apply_block(bparams, spec: BlockSpec, x: Tensor, cfg: ModelConfig, sin, cos):
+    """Pre-norm residual block.  Returns (x, aux): an SSM block's aux is its
+    projections' (routed ones'), an attention block's its FFN's."""
     h = rmsnorm(bparams["pre_norm"], x)
+    if spec.mixer == "ssm":  # no FFN
+        y, aux = ssm_mod.mamba_block(bparams["mixer"], h, cfg)
+        return x + y, aux
     if spec.mixer == "mla":
         x = x + attn_mod.mla_attention(bparams["mixer"], h, cfg, sin, cos)
     else:
@@ -260,7 +282,9 @@ def forward(params, batch: dict, cfg: ModelConfig):
     backward pass and runs again there; the values are the same."""
     x = embed(params["embed"], batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    tabs = _rope_tabs(cfg, lambda theta: rope_table(positions, _rope_dim(cfg), theta))
+    tabs = {False: (None, None)}
+    if _uses_rope(cfg):
+        tabs = _rope_tabs(cfg, lambda theta: rope_table(positions, _rope_dim(cfg), theta))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for si, seg in enumerate(build_segments(cfg)):
@@ -292,6 +316,8 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
 def _init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int, dtype,
                       lead: tuple, device, layout: str, block_size: int,
                       num_blocks: int | None):
+    if spec.mixer == "ssm":  # constant-size recurrent state, dense in both layouts
+        return ssm_mod.init_mamba_cache(cfg, batch, dtype, lead, device)
     if spec.mixer == "mla":  # the dense latent cache in both layouts
         return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, lead, device)
     if spec.window > 0:
@@ -317,8 +343,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     ``layout="paged"`` swaps the attention layers to the shared block pool
     of ``num_blocks`` blocks (default: full occupancy) with per-slot
     tables (``repro_torch.serve.kv_pool``) — interchangeable at every call
-    site.  A sliding-window layer keeps its dense ring, and an MLA layer
-    its dense latent cache, in both layouts."""
+    site.  A sliding-window layer keeps its dense ring, an MLA layer its
+    dense latent cache and an SSM layer its conv tail and state, in both
+    layouts."""
     if layout not in ("dense", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     dev = resolve_device(device)
@@ -333,10 +360,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return caches
 
 
+def _recurrent_chunk(mparams, x: Tensor, cache: dict, cfg: ModelConfig, active=None,
+                     lengths=None):
+    """An SSM layer's T-token chunk from its cached state: the step form
+    at T = 1 (``mamba_decode``), the block form for T > 1 (``mamba_block``);
+    they are the same recurrence in different float associations.  The new
+    conv tail and state are written into the cache's tensors; an inactive
+    slot's rows keep their bits (upstream's ``_freeze_inactive``)."""
+    if lengths is not None:
+        raise NotImplementedError(
+            "ragged chunk lengths are attention-family only (recurrent state would "
+            "integrate the pad tail); chunked admission prefill gates on "
+            "_chunked_prefill_safe accordingly")
+    if x.shape[1] == 1:
+        y, new = ssm_mod.mamba_decode(mparams, x, cache, cfg)
+    else:
+        y, _, new = ssm_mod.mamba_block(mparams, x, cfg, return_cache=True, cache=cache)
+    for name, t in new.items():
+        old = cache[name]
+        if active is not None:
+            t = torch.where(active.reshape(active.shape + (1,) * (t.ndim - 1)), t,
+                            old.to(t.dtype))
+        old.copy_(t)
+    return y, cache
+
+
 def _chunk_block(bparams, spec, x, cache, pos, cfg, rope, active=None, lengths=None,
                  read_to=None):
     h = rmsnorm(bparams["pre_norm"], x)
-    if spec.mixer == "mla":
+    if spec.mixer == "ssm":
+        y, cache = _recurrent_chunk(bparams["mixer"], h, cache, cfg, active, lengths)
+    elif spec.mixer == "mla":
         y, cache = attn_mod.mla_chunk(bparams["mixer"], h, cache, pos, cfg, rope,
                                       active=active, lengths=lengths, read_to=read_to)
     else:
@@ -345,6 +399,8 @@ def _chunk_block(bparams, spec, x, cache, pos, cfg, rope, active=None, lengths=N
             active=active, lengths=lengths, read_to=read_to, ring=spec.window > 0,
         )
     x = x + y
+    if spec.ffn is None:  # an SSM block
+        return x, cache
     h = rmsnorm(bparams["ffn_norm"], x)
     y, _ = _ffn(bparams, spec, h, cfg)  # serving drops the aux loss, as upstream
     return x + y, cache
@@ -355,7 +411,7 @@ def _forward_chunk_x(params, x: Tensor, caches, pos, cfg: ModelConfig,
     """Walk the layers over embedded inputs x (B, T, D), extending the caches
     in place.  Returns (hidden (B, T, D), caches)."""
     tabs = {False: None, True: None}
-    if cfg.pos_embedding == "rope":  # one pair of tables a theta, for every layer
+    if _uses_rope(cfg):  # one pair of tables a theta, for every layer
         tabs = _rope_tabs(cfg, lambda theta: attn_mod.rope_at(pos, x.shape[1], _rope_dim(cfg),
                                                               theta, x.device))
     for si, seg in enumerate(build_segments(cfg)):

@@ -200,6 +200,22 @@ def _chunked_prefill_safe(cfg: ModelConfig) -> bool:
                for spec in seg.blocks)
 
 
+# configs whose chunked-prefill decline was already logged: the fallback is
+# a property of the config, logged once per config, not once per engine
+_CHUNK_DECLINE_LOGGED: set[tuple] = set()
+
+
+def _log_chunked_prefill_decline(cfg: ModelConfig) -> None:
+    key = (cfg.name, cfg.family, bool(cfg.moe), cfg.quant.num_experts, cfg.n_image_tokens,
+           tuple(spec.mixer for seg in build_segments(cfg) for spec in seg.blocks))
+    if key in _CHUNK_DECLINE_LOGGED:
+        return
+    _CHUNK_DECLINE_LOGGED.add(key)
+    _log.warning("config %r: chunked admission prefill declined (recurrent mixer / MoE / "
+                 "routed branches / VLM prefix would change streams across slice "
+                 "boundaries); falling back to one-shot admission prefill", cfg.name)
+
+
 def _prefix_cache_safe(cfg: ModelConfig) -> bool:
     """Whether shared prompt blocks may be reused across requests without
     changing any stream: only when the paged pool holds a prefix's whole
@@ -479,8 +495,7 @@ class ContinuousBatchingEngine:
             prefill_chunk if (prefill_chunk is not None and _chunked_prefill_safe(cfg)) else None
         )
         if prefill_chunk is not None and self.prefill_chunk is None:
-            _log.warning("config %r: chunked admission prefill would change streams; "
-                         "admitting with one-shot prefill", cfg.name)
+            _log_chunked_prefill_decline(cfg)
         self.prefix_cache = bool(prefix_cache) and _prefix_cache_safe(cfg)
         if prefix_cache and not self.prefix_cache:
             _log_prefix_cache_decline(cfg)

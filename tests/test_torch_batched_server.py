@@ -28,6 +28,7 @@ from repro_torch.configs import registry
 from repro_torch.convert import params_from_numpy
 from repro_torch.train.serve import BatchedServer, SamplerConfig, make_prefill_step, \
     make_serve_step
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]

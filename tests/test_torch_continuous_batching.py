@@ -47,6 +47,7 @@ from repro_torch.serve import (
     validate_snapshot,
 )
 from repro_torch.serve import scheduler
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 _KW = dict(name="t", family="decoder", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
@@ -90,7 +91,8 @@ def packed():
     jcfg = jregistry.reduced(jregistry.get_config("pquant-100m"))
     cfg = registry.reduced(registry.get_config("pquant-100m"))
     params, axes = japi.init_model(jax.random.PRNGKey(11), jcfg)
-    qparams, _ = jquantize(params, axes, jcfg, packed=True)
+    # one compiled export: op by op, each leaf's shapes compile anew (seconds an export)
+    qparams = jax.jit(lambda p: jquantize(p, axes, jcfg, packed=True)[0])(params)
     tq = params_from_numpy(jax.tree.map(np.asarray, qparams), CPU)
     prompts = {0: 5, 1: 3, 2: 7}
     return cfg, tq, prompts, _jax_streams(qparams, jcfg, prompts, NEW, cfg.vocab_size)

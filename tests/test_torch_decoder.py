@@ -27,6 +27,7 @@ from repro_torch.configs import registry
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import api
 from repro_torch.train.quantized_serving import quantize_params_for_serving
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 ATOL_FLIP = 5e-2

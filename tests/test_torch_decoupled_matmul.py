@@ -33,6 +33,7 @@ import torch
 
 from repro.kernels.decoupled_matmul import decoupled_matmul as pallas_decoupled_matmul
 from repro_torch.kernels.decoupled_matmul import decoupled_matmul_plain
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 BM, BK, BN8, CONSUMERS = 128, 128, 128, 2
 SMS = 132  # an H100's SMs: the persistent grid's width

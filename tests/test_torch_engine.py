@@ -20,6 +20,7 @@ from repro_torch.configs import registry
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import _cuda
 from repro_torch.serve.engine import DecodeEngine, SamplerConfig, sample_token
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 MAX_LEN = 24

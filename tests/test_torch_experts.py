@@ -48,6 +48,7 @@ from repro_torch.telemetry import probes
 from repro_torch.train import trainer
 from test_torch_probes import _port_replay
 from test_torch_train import _flips, _jax_recording, _port_recording
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 from test_torch_trainer import _data_iter, _state_arrays, _trainer
 
 CPU = torch.device("cpu")
@@ -162,7 +163,7 @@ def _choice_flips(a, b) -> int:
 
 def test_init_tree_matches_jax():
     jcfg, cfg = _cfgs(4)
-    jparams, _ = japi.init_model(jax.random.PRNGKey(0), jcfg)
+    jparams = jax.eval_shape(lambda: japi.init_model(jax.random.PRNGKey(0), jcfg)[0])
     tparams = api.init_model(0, cfg, device=CPU)
     got = [("/".join(map(str, p)), tuple(t.shape)) for p, t in adamw.tree_paths(tparams)]
     want = [("/".join(str(getattr(e, "key", getattr(e, "idx", ""))) for e in p), v.shape)
@@ -302,8 +303,7 @@ def test_model_gradients_match_jax(grads):
 
 
 def _run_jax_steps(jcfg, params, batches, probes_on=False):
-    state, _ = jtrainer.init_train_state(jax.random.PRNGKey(0), jcfg)
-    state = state._replace(params=params)
+    state = jtrainer.TrainState(params=params, opt=jadamw.init_adamw(params))
     step = jax.jit(jtrainer.make_train_step(jcfg, TOTAL, probes=probes_on))
     mets, acts, choices = [], [], []
     with _jax_recording(acts), _jax_choices(choices):
@@ -401,7 +401,8 @@ def test_router_entropy_tap_matches_jax_summaries():
     params, _ = japi.init_model(jax.random.PRNGKey(5), jcfg)
     batch = _batch(2, 16, cfg.vocab_size, seed=3)
     with jprobes.collect():
-        _, jm = japi.loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+        _, jm = jax.jit(lambda p, b: japi.loss_fn(p, b, jcfg))(
+            params, {k: jnp.asarray(v) for k, v in batch.items()})
     with probes.collect():
         _, tm = api.loss_fn(_t(params), _tbatch(batch), cfg)
     ent = tm["qat_router_entropy"].item()
@@ -451,7 +452,7 @@ def test_checkpoint_keys_jax_restore_and_resume_with_experts(tmp_path):
     tkw = dict(total_steps=4, probes=True, ckpt_dir=ck, heartbeat_path=None)
     first = trainer.Trainer(cfg, trainer.TrainerConfig(**tkw), _data_iter(cfg, 2), device=CPU)
     first.run()
-    jstate, _ = jtrainer.init_train_state(jax.random.PRNGKey(0), jcfg)
+    jstate = jax.eval_shape(lambda: jtrainer.init_train_state(jax.random.PRNGKey(0), jcfg)[0])
     jkeys = [k for k, _ in jckpt._flatten(jstate._asdict())[0] if k.startswith("params/")]
     keys = json.loads((tmp_path / "ck" / "step_2" / "manifest.json").read_text())["keys"]
     assert [k for k in keys if k.startswith("params/")] == jkeys

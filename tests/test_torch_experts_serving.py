@@ -32,13 +32,15 @@ from repro_torch.models.layers import apply_ffn
 from repro_torch.serve import ContinuousBatchingEngine, DecodeEngine, SamplerConfig
 from repro_torch.train.quantized_serving import quantize_params_for_serving
 from test_torch_experts import ATOL, ATOL_FLIP, CPU, MAX_LEN, NEW, _cfgs, _count_drops, _leaves, _t
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", params=[2, 4])
 def served(request):
     jcfg, cfg = _cfgs(request.param)
     params, axes = japi.init_model(jax.random.PRNGKey(11), jcfg)
-    qparams, _ = jquantize(params, axes, jcfg, packed=True)
+    # one compiled export: op by op, each leaf's shapes compile anew (seconds an export)
+    qparams = jax.jit(lambda p: jquantize(p, axes, jcfg, packed=True)[0])(params)
     return request.param, jcfg, cfg, params, qparams, _t(qparams)
 
 

@@ -36,6 +36,7 @@ from repro_torch.serve import (
     PoisonLogits,
     SamplerConfig,
 )
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 _KW = dict(name="t", family="decoder", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,

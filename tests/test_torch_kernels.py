@@ -43,6 +43,7 @@ from repro_torch.kernels.w1a8_gemv import (
     w1a8_gemv_plain,
 )
 from repro_torch.kernels.w1a8_matmul import w1a8_matmul, w1a8_matmul_plain, w1a8_matmul_route
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-6
 ROWS = [1, 5, 8, 32]

@@ -16,6 +16,7 @@ from repro.serve.metrics import MetricsRegistry as JaxRegistry
 from repro_torch.models import attention
 from repro_torch.serve import kv_pool
 from repro_torch.serve.metrics import MetricsRegistry
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

@@ -57,13 +57,14 @@ from test_torch_experts import (
 from test_torch_moe import _jax_choices
 from test_torch_probes import _port_replay
 from test_torch_train import _flips, _jax_recording, _port_recording
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 from test_torch_trainer import _data_iter
 
 ARCH = "deepseek-v2-236b"
 TOTAL = 40
-# the six archs of the JAX registry the port has still not ported
+# the five archs of the JAX registry the port has still not ported
 OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b",
-          "mamba2-780m", "recurrentgemma-2b")
+          "recurrentgemma-2b")
 MODES = ("none", "bitnet", "bitnet158", "pquant")
 
 

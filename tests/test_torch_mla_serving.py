@@ -42,6 +42,7 @@ from repro_torch.train.quantized_serving import quantize_params_for_serving
 from test_torch_experts import ATOL, ATOL_FLIP, CPU, MAX_LEN, NEW, _leaves, _t
 from test_torch_experts_serving import _cb_streams
 from test_torch_mla import _cfgs
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 # uid -> prompt length: ragged, but two lengths, so that JAX's engine
 # (exact-length admission for an MoE config) compiles two prefills

@@ -35,6 +35,7 @@ from repro_torch.train.quantized_serving import quantize_params_for_serving
 from test_torch_experts import ATOL, ATOL_FLIP, CPU, MAX_LEN, NEW, _leaves, _t
 from test_torch_experts_serving import _cb_streams
 from test_torch_moe import _cfgs
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 GROUP = 16  # the einsum arm's group: every row count below is a multiple
 # uid -> prompt length: ragged, but two lengths, so that JAX's engine
@@ -46,7 +47,8 @@ CB_PROMPTS = {0: 5, 1: 3, 2: 5, 3: 3, 4: 5}
 def _export(arm: str):
     jcfg, cfg = _cfgs(moe_dispatch=arm, moe_group_size=GROUP)
     params, axes = japi.init_model(jax.random.PRNGKey(11), jcfg)
-    qparams, _ = jquantize(params, axes, jcfg, packed=True)
+    # one compiled export: op by op, each leaf's shapes compile anew (seconds an export)
+    qparams = jax.jit(lambda p: jquantize(p, axes, jcfg, packed=True)[0])(params)
     return arm, jcfg, cfg, params, qparams, _t(qparams)
 
 

@@ -43,6 +43,7 @@ from repro_torch.kernels.paged_attention import (
     split_ranges,
 )
 from repro_torch.models import api
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 ATOL = 2e-6

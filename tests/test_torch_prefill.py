@@ -47,6 +47,7 @@ from repro_torch.kernels.rmsnorm_quant import rmsnorm_quant, rmsnorm_quant_plain
 from repro_torch.kernels.w1a8_matmul import w1a8_matmul, w1a8_matmul_plain
 from repro_torch.models import api
 from repro_torch.serve.engine import DecodeEngine, SamplerConfig
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-6
 PREFILL_ROWS = [33, 40, 136]  # 136 > 128 takes upstream's bm = 128 path

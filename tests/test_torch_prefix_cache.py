@@ -34,6 +34,7 @@ from repro_torch.core.quantization import QuantConfig
 from repro_torch.models import api
 from repro_torch.serve import ContinuousBatchingEngine, SamplerConfig
 from repro_torch.serve import scheduler
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 _KW = dict(name="t", family="decoder", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,

@@ -33,6 +33,7 @@ import torch
 from repro.configs import registry as jregistry
 from repro.core import sensitivity as jsens
 from repro.models import api as japi
+from repro.optim import adamw as jadamw
 from repro.telemetry import probes as jprobes
 from repro.train import trainer as jtrainer
 from repro_torch.configs import registry
@@ -44,6 +45,7 @@ from repro_torch.optim import adamw
 from repro_torch.telemetry import probes
 from repro_torch.train import trainer
 from test_torch_train import _jax_recording, _replaying
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 SENS_RTOL = 1e-5
 PROBE_RTOL = 1e-6
@@ -209,8 +211,7 @@ def _port_replay(decisions):
 def _run_jax(jcfg, params, batches, probes_on=True):
     """JAX's jitted step over ``batches``: each step's metrics and
     act-quant decisions."""
-    state, _ = jtrainer.init_train_state(jax.random.PRNGKey(0), jcfg)
-    state = state._replace(params=params)
+    state = jtrainer.TrainState(params=params, opt=jadamw.init_adamw(params))
     step = jax.jit(jtrainer.make_train_step(jcfg, 40, probes=probes_on))
     mets, record = [], []
     with _jax_recording(record):

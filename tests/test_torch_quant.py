@@ -16,6 +16,7 @@ from repro.core import quantization as jquant
 from repro.train import quantized_serving as jserve
 from repro_torch.core import packing, quantization
 from repro_torch.train import quantized_serving as serve
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-6
 

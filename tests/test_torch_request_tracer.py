@@ -40,6 +40,7 @@ from repro_torch.serve import (
     fault_hook,
 )
 from repro_torch.serve import faults as pfaults
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 _KW = dict(name="t", family="decoder", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,

@@ -35,6 +35,7 @@ from repro_torch.kernels.rmsnorm_quant import (
     rmsnorm_quant_route,
     row_warps,
 )
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 RMS_RTOL, RMS_CODE_SHARE = 1e-5, 1e-3
 LANES = 32

@@ -21,6 +21,7 @@ from repro.core import routing as jrouting
 from repro.telemetry import probes as jprobes
 from repro_torch.core import routing
 from repro_torch.telemetry import probes
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 FLOAT_TOL = 1e-6
 GRAD_RTOL = 1e-5

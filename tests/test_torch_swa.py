@@ -44,12 +44,13 @@ from repro_torch.models import api, attention, layers, transformer
 from repro_torch.optim import adamw
 from repro_torch.train import trainer
 from test_torch_experts import ATOL, ATOL_FLIP, CPU, FLIP_RATE, GRAD_RTOL, _leaves, _t, _tbatch
-from test_torch_train import (
+from test_torch_train import (  # noqa: F401  (_torch_one_thread: an autouse fixture)
     _batch,
     _flips,
     _jax_recording,
     _port_loss_grads,
     _port_recording,
+    _torch_one_thread,
 )
 from test_torch_trainer import _data_iter
 

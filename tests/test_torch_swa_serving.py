@@ -35,6 +35,7 @@ from repro_torch.serve import ContinuousBatchingEngine, DecodeEngine, SamplerCon
 from repro_torch.train.quantized_serving import quantize_params_for_serving
 from test_torch_experts import ATOL, ATOL_FLIP, CPU, _leaves, _t
 from test_torch_swa import ARCHS, _cfgs
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 MAX_LEN, NEW = 32, 8
 # uid -> prompt length: 20 wraps the reduced window of 16 in the prefill,
@@ -51,7 +52,8 @@ def _prompt(uid, n, vocab):
 def _export(arch: str):
     jcfg, cfg = _cfgs(arch)
     params, axes = japi.init_model(jax.random.PRNGKey(11), jcfg)
-    qparams, _ = jquantize(params, axes, jcfg, packed=True)
+    # one compiled export: op by op, each leaf's shapes compile anew (seconds an export)
+    qparams = jax.jit(lambda p: jquantize(p, axes, jcfg, packed=True)[0])(params)
     return jcfg, cfg, params, qparams, _t(qparams)
 
 

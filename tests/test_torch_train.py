@@ -42,6 +42,7 @@ Tolerances:
 
 import contextlib
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +74,19 @@ ATOL_FLIP = 5e-2
 FLIP_RATE = 1e-4
 TIE_NOISE = 1e-3
 GRAD_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """Runs a module's torch ops on one intra-op thread, then restores the
+    count.  Once JAX has run in a process, XLA's worker threads and torch's
+    intra-op pool contend, and a port step at the reduced sizes runs many
+    times slower on many threads than on one.  Other modules import this
+    fixture to take it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 OPT_RTOL = 1e-6
 GNORM_RTOL = 1e-5
 STEP_RTOL = 1e-3
@@ -511,10 +525,10 @@ def test_model_gradients_match_jax(model, grads):
         _assert_grads_close(got[2], ref[2], paths)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_remat_gives_the_same_gradients_bit_for_bit(mode):
-    jcfg, cfg = _cfgs(mode)
-    tparams = _to_torch(japi.init_model(jax.random.PRNGKey(3), jcfg)[0])
+def test_remat_gives_the_same_gradients_bit_for_bit(model):
+    """On each mode's weights of the ``model`` fixture (shared: no JAX init
+    of its own)."""
+    _, _, cfg, _, tparams = model
     batch = _batch(BATCH, SEQ, cfg.vocab_size, seed=2)
     on = _port_loss_grads(dataclasses.replace(cfg, remat=True), tparams, batch)
     off = _port_loss_grads(dataclasses.replace(cfg, remat=False), tparams, batch)
@@ -643,8 +657,7 @@ TOTAL = 40  # warm-up of 10 steps: lr 0, then 1.5e-4, 3e-4 (3e-5, 6e-5 for "none
 def _run_jax(jcfg, params, batches, accum):
     """JAX's jitted step over ``batches`` from a fresh AdamW state: the
     state, each step's metrics and each step's act-quant decisions."""
-    state, _ = jtrainer.init_train_state(jax.random.PRNGKey(0), jcfg)
-    state = state._replace(params=params)
+    state = jtrainer.TrainState(params=params, opt=jadamw.init_adamw(params))
     step = jax.jit(jtrainer.make_train_step(jcfg, TOTAL, accum=accum))
     mets, record = [], []
     with _jax_recording(record):  # the program traced once records every step's sites
@@ -683,6 +696,13 @@ def _assert_update_close(got, want, before, lr_sum, path):
     assert err.max() <= 2 * lr_sum * STEP_MAX_RATIO, (path, err.max())
 
 
+@functools.cache
+def _step_params(mode):
+    """JAX's weights of the step tests, one init a mode (both accumulations
+    of "pquant" share it)."""
+    return japi.init_model(jax.random.PRNGKey(11), _cfgs(mode, remat=False)[0])[0]
+
+
 # the paper's mode at both accumulations and the FP baseline on its cosine
 # schedule (every mode's gradients: (d) above; every mode's update: (e))
 @pytest.mark.parametrize("mode,accum", [("pquant", 1), ("pquant", 4), ("none", 1)])
@@ -690,7 +710,7 @@ def test_train_step_matches_jax(mode, accum):
     """Three steps of ``make_train_step`` against JAX's jitted step, the
     port replaying JAX's act-quant decisions (remat off on both sides)."""
     jcfg, cfg = _cfgs(mode, remat=False)
-    params, _ = japi.init_model(jax.random.PRNGKey(11), jcfg)
+    params = _step_params(mode)
     tparams = _to_torch(params)
     batches = [_batch(8, SEQ, cfg.vocab_size, seed=10 + i) for i in range(STEPS)]
     jstate, jm, records = _run_jax(jcfg, params, batches, accum)

@@ -47,6 +47,7 @@ from repro_torch.train import trainer
 from repro_torch.train.trainer import Trainer, TrainerConfig, _write_atomic
 from test_torch_probes import _port_replay
 from test_torch_train import _jax_recording
+from test_torch_train import _torch_one_thread  # noqa: F401  (autouse)
 
 HIST_TOL = 1e-5
 CPU = "cpu"
@@ -310,7 +311,7 @@ def test_checkpoint_keys_and_jax_collision(tmp_path):
     JAX's key builder names no NamedTuple field, so its ``mu`` and ``nu``
     leaves share keys (a reference caveat)."""
     jcfg, cfg = _cfgs()
-    jstate, _ = jtrainer.init_train_state(jax.random.PRNGKey(0), jcfg)
+    jstate = jax.eval_shape(lambda: jtrainer.init_train_state(jax.random.PRNGKey(0), jcfg)[0])
     jkeys = [k for k, _ in jckpt._flatten(jstate._asdict())[0]]
     state = trainer.init_train_state(0, cfg, device=CPU)
     Checkpointer(str(tmp_path)).save(0, {"params": state.params, "opt": state.opt}, blocking=True)
