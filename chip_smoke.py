@@ -166,14 +166,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (a) the packed export built on the card one layer at a time (16.4e9
    f32 latents do not fit), held leaf for leaf, bit for bit, to the
    one-shot export of the same latents on a 3-layer cut; its GB.  (b)
-   ``DecodeEngine`` on the first 8 layers (``MOE_SERVE_LAYERS``; all 28
-   until PR 28), 4 requests of 8 tokens, 8 new: finite logits, one
-   transfer, exactly 8 x 5 + 7 x 64 x 3 = 1384 ``w1a8_gemv``, 16
-   ``decoupled_gemv`` and 8 ``int8_matmul`` launches a forward and no
+   ``DecodeEngine`` on the first 4 layers (``MOE_SERVE_LAYERS``; all 28
+   until PR 28, 8 until PR 29), 4 requests of 8 tokens, 8 new: finite
+   logits, one transfer, exactly 4 x 5 + 3 x 64 x 3 = 596 ``w1a8_gemv``,
+   8 ``decoupled_gemv`` and 4 ``int8_matmul`` launches a forward and no
    other kernel; TTFT, ms/step, tokens/s (medians of 2), busy share.
-   (c) on the same 8 layers, 16 requests of 256 tokens (4096 prefill
+   (c) on the same 4 layers, 16 requests of 256 tokens (4096 prefill
    rows, capacity 480 an expert), 8 new: the prefill's launches exactly
-   1384 ``w1a8_matmul``, 16 ``decoupled_matmul`` and 8 ``int8_matmul``,
+   596 ``w1a8_matmul``, 8 ``decoupled_matmul`` and 4 ``int8_matmul``,
    the generate's with
    7 decode forwards on the GEMVs; TTFT and the routings dropped by
    capacity.  (d) ``ContinuousBatchingEngine`` on a 4-layer cut of the
@@ -202,10 +202,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (28.0e9 f32 latents do not fit), held leaf for leaf, bit for bit, to
    the one-shot export on a 12-layer cut (its segment stacked over two
    repeats, no ``lm_head``); its GB.  (b) ``DecodeEngine`` on the first
-   12 layers (2 periods; ``SWA_DECODE_LAYERS``), 4 requests of 1100 tokens
-   (every ring wraps in the prefill), 16 new: one transfer, exactly 60
-   ``w1a8_matmul``, 24 ``decoupled_matmul`` and 12 ``int8_matmul`` launches
-   in the prefill and 60 / 24 / 12 decode-tier launches a decode forward, no ``paged_attention`` (dense layout), no
+   6 layers (1 period; ``SWA_DECODE_LAYERS``; 12 until PR 29), 4 requests
+   of 1100 tokens (every ring wraps in the prefill), 16 new: one
+   transfer, exactly 30 ``w1a8_matmul``, 12 ``decoupled_matmul`` and 6
+   ``int8_matmul`` launches in the prefill and 30 / 12 / 6 decode-tier
+   launches a decode forward, no ``paged_attention`` (dense layout), no
    plain version called; TTFT (the prefill, synchronized where it ends)
    and ms/step from that generate, a second generate repeating the
    stream, the busy share of 3 decode steps.  (c)
@@ -229,7 +230,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    untied) on its first 4 layers, ``DecodeEngine`` on 2 requests of 4160
    tokens, 8 new: the launches (4 x (5, 2, 1) a forward, no
    ``paged_attention``), TTFT and ms/step.  (f) ``make_train_step`` on
-   its first 12 layers at full width (all 24 until PR 28; bf16,
+   its first 6 layers at full width (all 24 until PR 28, 12 until PR 29; bf16,
    remat) at 1 x 6144 tokens (past the window): finite losses, the first
    within ln V +- 1.5, step 0 (lr 0) moves nothing watched and step 1
    does, no host sync; ms a step, tokens/s, peak memory, busy share.
@@ -243,18 +244,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the card one block at a time (236e9 f32 latents, one MoE block 15.1
    GB), held leaf for leaf, bit for bit, to the one-shot export on a
    3-layer cut (1 dense + 2 MoE); its GB by kind, the device memory held.
-   (b) ``DecodeEngine`` on the first 16 layers (``MLA_DECODE_LAYERS``: the
-   dense one and 15 MoE; 30 until PR 28), 4 requests of 32 tokens, 8 new:
-   one transfer, no plain version called, exactly the launches
-   ``_mla_launches`` derives (a decode forward 16 x 5 + 15 x 160 x 3 =
-   7280 ``w1a8_gemv``, 16 ``w1a8_matmul``: the latent expansion over 4 x
-   40 cache rows, 32 ``decoupled_gemv``, 16 ``int8_matmul``; the 128-row
+   (b) ``DecodeEngine`` on the first 8 layers (``MLA_DECODE_LAYERS``: the
+   dense one and 7 MoE; 30 until PR 28, 16 until PR 29), 4 requests of 32
+   tokens, 8 new: one transfer, no plain version called, exactly the
+   launches ``_mla_launches`` derives (a decode forward 8 x 5 + 7 x 160 x
+   3 = 3400 ``w1a8_gemv``, 8 ``w1a8_matmul``: the latent expansion over 4
+   x 40 cache rows, 16 ``decoupled_gemv``, 8 ``int8_matmul``; the 128-row
    prefill on the
    GEMMs but its experts' 8-row buffers); TTFT (synchronized where the
    prefill ends) and ms/step of two generates (the second repeating the
    stream); finite logits of a prefill and a decode step; the busy share
-   of one decode step.  (c) on the same first 16 layers
-   (``MLA_PREFILL_LAYERS``; all 60 until PR 28), 8 requests of 256 tokens
+   of one decode step.  (c) on the same first 8 layers
+   (``MLA_PREFILL_LAYERS``; all 60 until PR 28, 16 until PR 29), 8 requests of 256 tokens
    (2048 prefill rows, capacity 96 an expert), one new token, twice: the launches exactly
    ``w1a8_matmul``, ``decoupled_matmul`` and ``int8_matmul``; TTFT and
    the routings dropped by capacity.  (d) ``ContinuousBatchingEngine`` on
@@ -325,9 +326,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the same, beside (b)'s.  (d) ``ContinuousBatchingEngine``, 4 slots of
    416 positions, 8 requests from ``SEED`` (prompts 16-384, 8-32 new;
    ``SSM_CB``), paged and dense, chunked prefill and (paged) the prefix
-   cache requested: both declined with one log line each, each request
-   finished once by length, no chunked slice and no ``paged_attention``,
-   the pool drained, dense equal to paged; then phase 16 (c)'s rule on a
+   cache requested, on the first 24 layers: both declined with one log
+   line each, each request finished once by length, no chunked slice and
+   no ``paged_attention``, the pool drained, dense equal to paged
+   (``_declined_cb``); then phase 16 (c)'s rule on a
    2-layer cut, the 4-slot engine against a 1-slot engine (whose streams
    equal ``DecodeEngine``'s batch-1 streams).  (e) phase 5's checks on a
    2-layer cut at 4 x 8 tokens at N = 1 and at N = 8 routed experts (the
@@ -335,13 +337,42 @@ Phases, in order; any failure ends the run with a non-zero exit:
    leaf to the CPU's; then an 8-token ``forward_chunk`` against 8
    one-token steps from one prefill's cache: the first layer's conv tail
    bit for bit, the states and logits within ``LOGIT_TOL`` of their
-   largest.  (f) ``make_train_step`` at full depth
+   largest.  (f) ``make_train_step`` on the first 24 layers
    (bf16, remat, 4 x 2048 tokens): finite losses, step 0 moves nothing
    watched and step 1 every mixer leaf of the first layer, no host sync;
    ms a step, tokens/s, peak memory, model TFLOP/s (6 N T: the SSD's own
    matmuls not counted); then [10]'s card vs CPU gradient check on a
    2-layer f32 cut, a leaf that misses judged against an f64 run as in
    phase 14's cut.
+
+18. The RG-LRU hybrid (``models/rglru.py``): recurrentgemma-2b at full
+   width and depth (26 layers: 8 x (rec, rec, attn) + (rec, rec);
+   d_model 2560, lru_width 2560, conv 4; MQA 10 heads over 1 of 256
+   windowed at 2048 on dense rings; GeGLU d_ff 7680, r 384; vocab 256000
+   tied) from ``SEED``, packed, greedy, f32 caches.  (a) the export block
+   by block, held leaf for leaf, bit for bit, to the one-shot export;
+   its GB by kind (the tied f32 embedding, the f32 RG-LRU gates, packed,
+   int8).  (b) ``DecodeEngine``, 4 requests of 256 tokens, 32 new: one
+   transfer, no plain version called, exactly 112 ``w1a8_matmul`` + 52
+   ``decoupled_matmul`` + 26 ``int8_matmul`` launches in the prefill and
+   112 ``w1a8_gemv`` + 52 ``decoupled_gemv`` + 26 ``int8_matmul`` a
+   decode forward, no ``paged_attention``; TTFT and ms/step of two
+   generates (the second repeating the stream); the busy share of one
+   decode step, kernels by name, the cache's bytes a request by kind.
+   (c) one prompt of 4100 tokens (every ring wraps twice), 16 new, on the
+   first (rec, rec, attn) group: the same; and the full-depth cache a
+   request allocated at 4116 and at 2064 positions, equal.  (d) phase
+   17 (d)'s ``_declined_cb`` on the first two groups.  (e) phase 5's
+   checks on a 4-layer cut ((rec, rec, attn) + (rec)) at 4 x 8 tokens,
+   its export on the card held leaf for leaf to the CPU's; then an
+   8-token chunk against 8 one-token steps (``_hybrid_chunk_vs_steps``):
+   the first layer's mixer on the same inputs (conv tail bit for bit, h
+   within ``FLOAT_NOISE``), and the model from a prefill's cache (act-quant
+   codes compared site by site and token by token, the first that
+   differs a rounding tie; the first layer's h within ``FLOAT_NOISE``).
+   (f) ``make_train_step`` at full depth (bf16, remat, 1 x 2048 tokens):
+   as phase 17 (f), model TFLOP/s with the 8 attention layers' term; then
+   the card vs CPU gradient check on (e)'s cut, judged as phase 14's.
 
 Phase 3 also holds ``paged_attention`` at phase 16's longest suffix
 slice (T 128 at 256 over 16 slots of 512).  It holds the kernels at
@@ -371,6 +402,11 @@ past every tile, and out_proj (3072, 1536, 128), at every decode row (timed
 at 4 and 32) and at (b)'s 1024 and (c)'s 4100 prefill rows, the tail
 columns held on their own too; ``int8_matmul`` at its bottlenecks (128,
 6448) and (128, 1536), held at every M and timed at 4, 1024 and 4100.
+And at phase 18's (tagged "rg"): recurrentgemma-2b's W1A8 linears (2560,
+2560), (2560, 256) (one KV head of 256) and (7680, 2560) and its fused
+pair (2560, 7680, 384) at (b)'s 4 decode rows and at 32, and on the GEMMs
+at (b)'s 1024 and (c)'s 4100 prefill rows; ``int8_matmul`` at (384,
+2560), held at 4, 32, 1024 and 4100 and timed at the last two.
 Phase 3 also holds
 ``paged_attention`` against its plain version at phase 8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
 a 64-token chunked slice) within ``PA_ATOL``, beside its bound and the
@@ -429,6 +465,11 @@ launch counts and summary.
     python3 chip_smoke.py --ssm
 
 runs phases 1, 2 and 17 alone and prints one JSON line of phase 17's
+launch counts and summary.
+
+    python3 chip_smoke.py --hybrid
+
+runs phases 1, 2 and 18 alone and prints one JSON line of phase 18's
 launch counts and summary.
 
     python3 chip_smoke.py --prefix
@@ -526,6 +567,15 @@ SSM_PROJ_SHAPES = ((1536, 6448, 128), (3072, 1536, 128))
 SSM_INT8_SHAPES = ((128, 6448), (128, 1536))
 SSM_DECODE_ROWS, SSM_PREFILL_ROWS = 4, (1024, 4100)
 SSM_TAIL = 48  # in_proj's columns past its last 256-column cluster
+# recurrentgemma-2b's shapes (phase 18): the W1A8 linears (K, N): wx, wy,
+# wout, wq and wo (2560, 2560), wk and wv (2560, 256: one KV head of 256),
+# the FFN's w1_down (7680, 2560); the up/gate pair (K, N, r) and w8_down
+# (K, N); the rows of [18]: (b)'s 4 requests and 32 beside _int_mm, (b)'s
+# 4 x 256 prefill rows and (c)'s 4100
+RG_W1A8_SHAPES = ((2560, 2560), (2560, 256), (7680, 2560))
+RG_DECOUPLED_SHAPE = (2560, 7680, 384)
+RG_INT8_SHAPE = (384, 2560)
+RG_DECODE_ROWS, RG_PREFILL_ROWS = (4, 32), (1024, 4100)
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
 SLOT_ROWS = 16  # decode rows of the continuous-batching path (16 slots)
 BF16_GEMV_ROWS = (MAIN_ROWS, SLOT_ROWS, 32)  # the GEMV rows also timed in bf16
@@ -859,6 +909,27 @@ def phase_kernels(torch, peaks, only=None):
             del ws
         log("[3] int8_matmul routes (M, K, N) at [17]'s shapes: " + ", ".join(
             f"{(m,) + s} {int8_matmul_route(m, *s)}" for s in SSM_INT8_SHAPES for m in timed))
+        # recurrentgemma-2b's w8_down (K 384, N 2560): held in f32 and bf16
+        # at [18]'s decode and prefill rows, timed in f32 at its prefill rows
+        k, n = RG_INT8_SHAPE
+        ws = [int8(k, n) for _ in range(_copies(k * n))]
+        for m in RG_DECODE_ROWS + RG_PREFILL_ROWS:
+            x, gamma = int8(m, k), scales(m)
+            err = max(_close(int8_matmul(x, ws[0], gamma, wscale, dt).float(),
+                             int8_matmul_plain(x, ws[0], gamma, wscale, dt).float())
+                      for dt in dtypes)
+            held("int8_matmul", err)
+            if m not in RG_PREFILL_ROWS:
+                continue
+            b = bound(m * k + k * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("int8_matmul", m, (k, n), err,
+                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale),
+                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale), b,
+                   lambda i: torch._int_mm(x, ws[i % len(ws)]), tag="rg")
+        del ws
+        log("[3] int8_matmul routes (M, K, N) at [18]'s shapes: " + ", ".join(
+            f"{(m, k, n)} {int8_matmul_route(m, k, n)}"
+            for m in RG_DECODE_ROWS + RG_PREFILL_ROWS))
 
     def rows_w1a8_gemv():
         # decode tier: fused act-quant GEMV (M <= 32); held exactly for x
@@ -958,6 +1029,25 @@ def phase_kernels(torch, peaks, only=None):
                        lambda i: wg.w1a8_gemv_plain(x, ws[0], lam), b,
                        (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
                        tag="mla")
+            del ws, w_lib
+        # [18]'s shapes (recurrentgemma-2b: wk / wv's N 256, w1_down's K
+        # 7680): held in f32 and bf16, timed in f32 at (b)'s 4 rows and at
+        # 32 beside _int_mm
+        for k, n in RG_W1A8_SHAPES:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            for m in RG_DECODE_ROWS:
+                x = torch.randn((m, k), generator=gen, **f32)
+                err = max(_close(wg.w1a8_gemv(x.to(dt), ws[0], lam, dt).float(),
+                                 wg.w1a8_gemv_plain(x.to(dt), ws[0], lam, dt).float())
+                          for dt in dtypes)
+                x_lib = int8(m, k)
+                b = bound(m * k * 4 + k // 8 * n + 4 + m * n * 4, 2 * m * k * n)
+                record("w1a8_gemv", m, (k, n), err,
+                       lambda i: wg.w1a8_gemv(x, ws[i % len(ws)], lam),
+                       lambda i: wg.w1a8_gemv_plain(x, ws[0], lam), b,
+                       (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                       tag="rg")
             del ws, w_lib
 
     def rows_decoupled_gemv():
@@ -1099,6 +1189,29 @@ def phase_kernels(torch, peaks, only=None):
             del w1s, w8s, w_lib
         log(f"[3] decoupled_gemv at [17]'s shapes {SSM_PROJ_SHAPES}: held exactly at M {ROWS} x "
             f"f32, bf16, in_proj's last {SSM_TAIL} columns max|err| {tail_err:.3g}")
+        # [18]'s up/gate pair (N 7680, r 384): held in f32 and bf16, timed
+        # in f32 at (b)'s 4 rows and at 32 beside _int_mm
+        k, n, r = RG_DECOUPLED_SHAPE
+        w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+        w8s = [int8(k, r) for _ in w1s]
+        w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+        for m in RG_DECODE_ROWS:
+            x = torch.randn((m, k), generator=gen, **f32)
+            err = 0.0
+            for dt in dtypes:
+                got = wg.decoupled_gemv(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                want = wg.decoupled_gemv_plain(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                err = max(err, _close(got[0].float(), want[0].float()),
+                          _close(got[1].float(), want[1].float()))
+            x_lib = int8(m, k)
+            b = bound(m * k * 4 + k // 8 * n + k * r + 16 + m * (n + r) * 4,
+                      2 * m * k * (n + r))
+            record("decoupled_gemv", m, (k, n, r), err,
+                   lambda i: wg.decoupled_gemv(x, w1s[i % len(w1s)], w8s[i % len(w8s)], *sc),
+                   lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b,
+                   (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                   tag="rg")
+        del w1s, w8s, w_lib
 
     def rows_w1a8_matmul():
         # prefill tier on pre-quantized rows (M > 32): held exactly in f32
@@ -1207,6 +1320,24 @@ def phase_kernels(torch, peaks, only=None):
             del ws, w_lib
         log("[3] w1a8_matmul routes (M, K, N) at [15]'s shapes: " + ", ".join(
             f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s, m in mla_rows))
+        # [18]'s shapes at (b)'s and (c)'s prefill rows: held exactly in f32
+        # and bf16, timed in f32 beside _int_mm
+        rg_rows = [(s, m) for s in RG_W1A8_SHAPES for m in RG_PREFILL_ROWS]
+        for (k, n), m in rg_rows:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            x, gamma = int8(m, k), scales(m)
+            err = max(_close(wm.w1a8_matmul(x, ws[0], gamma, lam, dt).float(),
+                             wm.w1a8_matmul_plain(x, ws[0], gamma, lam, dt).float())
+                      for dt in dtypes)
+            b = bound(m * k + k // 8 * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("w1a8_matmul", m, (k, n), err,
+                   lambda i: wm.w1a8_matmul(x, ws[i % len(ws)], gamma, lam),
+                   lambda i: wm.w1a8_matmul_plain(x, ws[0], gamma, lam), b,
+                   lambda i: torch._int_mm(x, w_lib), tag="rg", nops=2 * m * k * n)
+            del ws, w_lib
+        log("[3] w1a8_matmul routes (M, K, N) at [18]'s shapes: " + ", ".join(
+            f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s, m in rg_rows))
 
     def rows_decoupled_matmul():
         # held exactly in f32 and bf16 and timed in f32 at every M (the
@@ -1348,6 +1479,30 @@ def phase_kernels(torch, peaks, only=None):
         log(f"[3] decoupled_matmul at [17]'s shapes: in_proj's last {SSM_TAIL} columns max|err| "
             f"{tail_err:.3g}; routes (M, K, N, r): " + ", ".join(
                 f"{(m,) + s} {route(m, *s)}" for s in SSM_PROJ_SHAPES for m in SSM_PREFILL_ROWS))
+        # [18]'s up/gate pair (N 7680, r 384) at (b)'s and (c)'s prefill
+        # rows: held exactly in f32 and bf16, timed in f32 beside _int_mm
+        k, n, r = RG_DECOUPLED_SHAPE
+        w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+        w8s = [int8(k, r) for _ in w1s]
+        w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+        for m in RG_PREFILL_ROWS:
+            x, gamma = int8(m, k), scales(m)
+            err = 0.0
+            for dt in dtypes:
+                got = decoupled_matmul(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                want = decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                err = max(err, _close(got[0].float(), want[0].float()),
+                          _close(got[1].float(), want[1].float()))
+            b = bound(m * k + k // 8 * n + k * r + m * 4 + 16 + m * (n + r) * 4,
+                      2 * m * k * (n + r))
+            record("decoupled_matmul", m, (k, n, r), err,
+                   lambda i: decoupled_matmul(x, w1s[i % len(w1s)], w8s[i % len(w8s)], gamma,
+                                              *sc),
+                   lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
+                   lambda i: torch._int_mm(x, w_lib), tag="rg", nops=2 * m * k * (n + r))
+        del w1s, w8s, w_lib
+        log("[3] decoupled_matmul routes (M, K, N, r) at [18]'s shapes: " + ", ".join(
+            f"{(m, k, n, r)} {route(m, k, n, r)}" for m in RG_PREFILL_ROWS))
 
     def rows_rmsnorm_quant():
         # timed on bf16 and f32 rows of d_model at the prefill rows, x
@@ -1663,24 +1818,19 @@ def _profile(torch, eng, prompts, greedy, wall, tag: str = "4") -> float:
 
 
 def _device_time(torch, fn, wall, tag: str, what: str, top: int = 8) -> float:
-    """torch.profiler's device time of every kernel of one ``fn()``, summed
-    by name, the GEMMs' part of it, and the device's busy share of an
+    """torch.profiler's device time of every kernel, copy and set of one
+    ``fn()``, summed by name (``_trace_rows``: a device-only profile read
+    through its exported trace; a host-event profile of a generate or a
+    training step records tens of thousands of host ops and takes up to a
+    minute), the GEMMs' part of it, and the device's busy share of an
     unprofiled run's wall time ``wall`` (the profiler slows the host, not
     the kernels)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = {}
-    for e in prof.events():
-        # device-side kernels only: not CPU ops, not the annotate() spans
-        if e.device_type != DeviceType.CUDA or e.name.startswith(("serve/", "kernels/", "train/")):
-            continue
-        us, n = rows.get(e.name, (0.0, 0))
-        rows[e.name] = (us + e.device_time_total, n + 1)
-    return _log_device_rows(rows, wall, tag, what, top)
+    return _log_device_rows(_trace_rows(prof), wall, tag, what, top)
 
 
 def _log_device_rows(rows: dict, wall, tag: str, what: str, top: int) -> float:
@@ -1714,19 +1864,6 @@ def _trace_rows(prof) -> dict:
     if not rows:
         raise AssertionError("the profiler recorded no device activity")
     return rows
-
-
-def _device_trace_time(torch, fn, wall, tag: str, what: str, top: int = 8) -> float:
-    """:func:`_device_time` from a device-only profile read through its
-    exported trace (as ``_cb_busy``): phase 12's routed generate and step
-    hold tens of thousands of host ops, which the host-event profile takes
-    a minute to record."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _log_device_rows(_trace_rows(prof), wall, tag, what, top)
 
 
 def _tree_paths(tree, prefix=""):
@@ -2652,12 +2789,19 @@ def _train_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
     t = b * s
     tables = cfg.vocab_size * cfg.d_model
     d_qk, d_v = _attn_widths(cfg)
-    attn = 2 * b * s * s * cfg.n_heads * (d_qk + d_v) * cfg.n_layers
-    if cfg.family == "ssm":  # no attention; the SSD's own matmuls are not counted
-        attn = 0
+    attn = 2 * b * s * s * cfg.n_heads * (d_qk + d_v) * _attn_layers(cfg)
     model = 6 * (n_params - (0 if cfg.tie_embeddings else tables)) * t + 3 * attn
     layer_params = n_params - tables * (1 if cfg.tie_embeddings else 2)
     return model, model + 2 * layer_params * t + attn
+
+
+def _attn_layers(cfg) -> int:
+    """The layers that attend: none in an SSM (the SSD's own matmuls are
+    not counted), a hybrid's "attn" blocks (its RG-LRU scans are not
+    counted either), else every layer."""
+    if cfg.family == "ssm":
+        return 0
+    return _n_blocks(cfg, "attn") if cfg.family == "hybrid" else cfg.n_layers
 
 
 def _attn_widths(cfg) -> tuple[int, int]:
@@ -2675,9 +2819,10 @@ def _flops_formula(cfg, n_params: int, b: int, s: int) -> str:
         return (f"6 x N x tokens, N the matmul parameters = 6 x {n} x {b * s} (no attention; "
                 "the SSD's own matmuls, the chunked scan's C B^T, states and outputs, are not "
                 "counted)")
-    return (f"6 x N x tokens + 6 x layers x batch x seq^2 x heads x (d_qk + d_v), N the "
-            f"matmul parameters (without an untied input embedding) = 6 x {n} x {b * s} + 6 x "
-            f"{cfg.n_layers} x {b} x {s}^2 x {cfg.n_heads} x ({d_qk} + {d_v})")
+    return (f"6 x N x tokens + 6 x attention layers x batch x seq^2 x heads x (d_qk + d_v), N "
+            f"the matmul parameters (without an untied input embedding) = 6 x {n} x {b * s} + 6 "
+            f"x {_attn_layers(cfg)} x {b} x {s}^2 x {cfg.n_heads} x ({d_qk} + {d_v})"
+            + (" (the RG-LRU scans not counted)" if cfg.family == "hybrid" else ""))
 
 
 @contextlib.contextmanager
@@ -3372,7 +3517,7 @@ def phase_experts_serving(torch, cfg, params) -> tuple[dict, dict]:
         *_layer_launches(cfg, dict(none, w1a8_gemv=7), greedy.max_new_tokens), "12")
     ttft, t_gen, line = _time_generate(eng, prompts, greedy, stream)
     log(f"[12] (a) decode tier, {BATCH} x {PROMPT} tokens, {NEW_TOKENS} new: {line}")
-    busy = _device_trace_time(torch, lambda: eng.generate(prompts, greedy), t_gen, "12",
+    busy = _device_time(torch, lambda: eng.generate(prompts, greedy), t_gen, "12",
                               "generate")
     summary["decode"] = {"ttft_ms": ttft * 1e3,
                          "ms_per_step": (t_gen - ttft) / (NEW_TOKENS - 1) * 1e3,
@@ -3515,7 +3660,7 @@ def _train_cell(torch, smi: str, cfg, tag: str, part: str, batch: int, seq: int,
     syncs = _syncs(torch, lambda: step(state, batches[-2]))
     if syncs:
         raise AssertionError(f"{len(syncs)} host syncs in a step, the first: {syncs[0]}")
-    busy = _device_trace_time(torch, lambda: step(state, batches[-1]), wall, tag, "step",
+    busy = _device_time(torch, lambda: step(state, batches[-1]), wall, tag, "step",
                               top=14)
     peak = torch.cuda.max_memory_allocated()
     vals = {k: torch.stack([m[k] for m in mets]).tolist() for k in mets[0]}
@@ -3617,9 +3762,9 @@ MOE_EXPORT_CHECK_LAYERS = 3
 # and 2 runs, not 16 and 3: the whole run keeps room for [15])
 MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 8, 8
 MOE_P_BATCH, MOE_P_PROMPT, MOE_P_NEW = 16, 256, 8  # (c) the prefill tier: 4096 rows
-# (b) and (c) on the dense layer and the first 7 MoE layers (all 28 before
-# PR 28: room for [17])
-MOE_SERVE_LAYERS = 8
+# (b) and (c) on the dense layer and the first 3 MoE layers (all 28 before
+# PR 28, 8 before PR 29: room for [17] and [18])
+MOE_SERVE_LAYERS = 4
 MOE_TIMED_RUNS = 2
 # (b)'s busy share: a generate of this many new tokens, profiled (a trace
 # of the full generate's 87k launches takes the profiler about half a
@@ -3815,7 +3960,7 @@ def phase_moe_serving(torch, cfg, params) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     eng.generate(prompts, short)
     t_short = time.perf_counter() - t0
-    busy = _device_trace_time(torch, lambda: eng.generate(prompts, short), t_short, "13",
+    busy = _device_time(torch, lambda: eng.generate(prompts, short), t_short, "13",
                               f"generate of {MOE_PROFILED_NEW} new tokens", top=10)
     summary["decode"] = {"ttft_ms": ttft * 1e3,
                          "ms_per_step": (t_gen - ttft) / (MOE_NEW - 1) * 1e3,
@@ -3967,9 +4112,9 @@ SWA_ARCH, DANUBE_ARCH = "gemma3-27b", "h2o-danube-1.8b"
 # latents on a cut of two repeats of (5 local + 1 global): its segment stacked
 SWA_EXPORT_CHECK_LAYERS = 12
 SWA_BATCH, SWA_PROMPT, SWA_NEW = 4, 1100, 16  # (b): every ring (1024) wraps in the prefill
-# (b) on the first 2 of the 10 periods (10 local, 2 global layers; 62
-# before PR 27, 30 before PR 28: room for [16] and [17]); (c) on the first
-SWA_DECODE_LAYERS = 12
+# (b) on the first of the 10 periods (5 local, 1 global layer; 62 before
+# PR 27, 30 before PR 28, 12 before PR 29: room for [16]-[18]); (c) on the first
+SWA_DECODE_LAYERS = 6
 SWA_BUSY_STEPS = 3  # (b)'s busy share: decode steps profiled
 # (c): 4 slots of 1280 positions, 8 requests (4 at tick 0, then one a
 # tick), prompts of 64-256 tokens but the last, of 1100, whose rings wrap in
@@ -3991,8 +4136,9 @@ DANUBE_BATCH, DANUBE_PROMPT, DANUBE_NEW, DANUBE_MAX_LEN = 2, 4160, 8, 4224
 DANUBE_SERVE_LAYERS = 4
 # (f): positions past the 4096 window in one sequence
 DANUBE_TRAIN_BATCH, DANUBE_TRAIN_SEQ, DANUBE_TRAIN_TIMED = 1, 6144, 2
-# (f) on the first 12 of the 24 layers (all 24 until PR 28: room for [17])
-DANUBE_TRAIN_LAYERS = 12
+# (f) on the first 6 of the 24 layers (all 24 until PR 28, 12 until PR 29:
+# room for [17] and [18])
+DANUBE_TRAIN_LAYERS = 6
 
 
 class _PlainCalls:
@@ -4106,7 +4252,7 @@ def _swa_decode_busy(torch, cfg, params, batch: int, pos: int, max_len: int) -> 
     steps(SWA_BUSY_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    busy = _device_trace_time(torch, lambda: steps(SWA_BUSY_STEPS), wall, "14",
+    busy = _device_time(torch, lambda: steps(SWA_BUSY_STEPS), wall, "14",
                               f"{SWA_BUSY_STEPS} decode steps", top=8)
     return busy / wall
 
@@ -4293,11 +4439,11 @@ MLA_EXPORT_CHECK_LAYERS = 3
 # (b) the decode tier: the prefill's 128 rows run the prefill GEMMs, each
 # decode step's 4 rows the GEMVs, its latent expansion the 4 x 40 cache rows
 MLA_BATCH, MLA_PROMPT, MLA_NEW = 4, 32, 8
-# (b) on the dense layer and the first 15 MoE layers (60 before PR 27, 30
-# before PR 28: room for [16] and [17])
-MLA_DECODE_LAYERS = 16
+# (b) on the dense layer and the first 7 MoE layers (60 before PR 27, 30
+# before PR 28, 16 before PR 29: room for [16]-[18])
+MLA_DECODE_LAYERS = 8
 MLA_P_BATCH, MLA_P_PROMPT = 8, 256  # (c) the prefill tier: 2048 rows
-# (c) on the same 16 layers (all 60 until PR 28: room for [17])
+# (c) on the same 8 layers (all 60 until PR 28, 16 until PR 29: room for [17] and [18])
 MLA_PREFILL_LAYERS = MLA_DECODE_LAYERS
 # (d): a 4-layer cut (1 dense + 3 MoE) of the export, 4 slots of 272
 # positions, 5 requests (4 at tick 0), prompts of 16-256 tokens, 4-8 new
@@ -4535,7 +4681,7 @@ def phase_mla_serving(torch, cfg, params) -> tuple[dict, dict]:
         api.decode_step(params, tok, caches, MLA_PROMPT, cfg)
         torch.cuda.synchronize()
         t_step = time.perf_counter() - t0
-        busy = _device_trace_time(torch, lambda: api.decode_step(params, tok, caches, MLA_PROMPT,
+        busy = _device_time(torch, lambda: api.decode_step(params, tok, caches, MLA_PROMPT,
                                                                  cfg),
                                   t_step, "15", "decode step", top=10)
     if plain.calls:
@@ -5292,6 +5438,9 @@ SSM_CB = CBLoad(4, 416, 8, 4, (16, 384), (8, 32))
 SSM_CUT_LAYERS, SSM_CUT_EXPERTS = 2, 8  # (e): the first 2 layers, at N = 1 and N = 8
 SSM_STEPS_T = 8  # (e): a chunk of 8 tokens against 8 one-token steps
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_TIMED = 4, 2048, 2  # (f)
+# (d)'s engines and (f)'s step on the first 24 of the 48 layers (all 48
+# until PR 29: room for [18])
+SSM_CB_LAYERS = SSM_TRAIN_LAYERS = 24
 
 
 def _ssm_launches(cfg, rows: int) -> dict:
@@ -5305,13 +5454,17 @@ def _ssm_launches(cfg, rows: int) -> dict:
 
 
 def _bytes_by_kind(torch, tree) -> tuple[int, dict]:
-    leaves = dict(_tree_paths(tree))
-    by_kind = {}
-    for t in leaves.values():
+    """An export's bytes, in all and by kind: packed 1-bit, int8, the
+    embedding table(s), an RG-LRU model's f32 gates ``wa`` and ``wi``, and
+    the other floats (norms, scales, conv and SSD or RG-LRU parameters)."""
+    by_kind = collections.Counter()
+    for k, t in _tree_paths(tree):
         kind = ("packed 1-bit" if t.dtype == torch.uint8 else "int8" if t.dtype == torch.int8
-                else "float")
-        by_kind[kind] = by_kind.get(kind, 0) + t.numel() * t.element_size()
-    return sum(by_kind.values()), by_kind
+                else "f32 embedding" if k.startswith(("/embed/", "/lm_head/"))
+                else "f32 RG-LRU gates" if "/mixer/wa/" in k or "/mixer/wi/" in k
+                else "other float")
+        by_kind[kind] += t.numel() * t.element_size()
+    return sum(by_kind.values()), dict(by_kind)
 
 
 def _equal_trees(torch, a, b, what: str) -> int:
@@ -5333,10 +5486,11 @@ def _equal_trees(torch, a, b, what: str) -> int:
     return len(a)
 
 
-def phase_ssm_export(torch, cfg):
-    """[17] (a): the export block by block, held leaf for leaf, bit for
-    bit, to the one-shot export of the same latents at full depth (its f32
-    latents fit on the card).  Returns (params, bytes, by kind)."""
+def _export_checked(torch, cfg) -> tuple:
+    """The export block by block, held leaf for leaf, bit for bit, to the
+    one-shot export of the same latents at full depth (the f32 latents of
+    [17]'s and [18]'s models fit on the card).  Returns (params, seconds
+    of the block-by-block export, its peak device memory, leaves)."""
     t0 = time.perf_counter()
     params = _block_export(torch, cfg)
     torch.cuda.synchronize()
@@ -5350,9 +5504,17 @@ def phase_ssm_export(torch, cfg):
     if differ:
         raise AssertionError(f"the block-by-block export differs from the one-shot export at "
                              f"{differ}")
+    leaves = len(a)
     del one, a, b
     gc.collect()
     torch.cuda.empty_cache()
+    return params, t_block, peak_block, leaves
+
+
+def phase_ssm_export(torch, cfg):
+    """[17] (a): ``_export_checked``.  Returns (params, bytes, by kind)."""
+    t0 = time.perf_counter()
+    params, t_block, peak_block, leaves = _export_checked(torch, cfg)
     nbytes, by_kind = _bytes_by_kind(torch, params)
     d_in = cfg.ssm_expand * cfg.d_model
     log(f"[17] (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner {d_in}, "
@@ -5362,22 +5524,41 @@ def phase_ssm_export(torch, cfg):
         f"s (peak device memory {peak_block / 1e9:.2f} GB): {nbytes / 1e9:.3f} GB (" + ", ".join(
             f"{k} {v / 1e9:.3f} GB" for k, v in by_kind.items())
         + f"); equal leaf for leaf, bit for bit, to the one-shot export of the same latents "
-        f"({len(dict(_tree_paths(params)))} leaves); {time.perf_counter() - t0:.1f} s")
+        f"({leaves} leaves); {time.perf_counter() - t0:.1f} s")
     return params, nbytes, by_kind
 
 
-def _ssm_decode(torch, cfg, params, prompts, new: int, part: str) -> tuple[dict, dict]:
+def _cache_kind(path: str) -> str:
+    """A recurrent model's cache leaf by kind: the f32 recurrent state
+    (Mamba-2's "state", RG-LRU's "h"), a conv tail, an attention ring."""
+    name = path.rsplit("/", 1)[-1]
+    return {"state": "state", "h": "state", "conv": "conv tails"}.get(name, "rings")
+
+
+def _cache_bytes(caches, batch: int) -> dict:
+    """A cache tree's bytes a request, by kind (``_cache_kind``)."""
+    by_kind = collections.Counter()
+    for k, t in _tree_paths(caches):
+        by_kind[_cache_kind(k)] += t.numel() * t.element_size() / batch
+    return dict(by_kind)
+
+
+def _recurrent_decode(torch, cfg, params, prompts, new: int, part: str, tag: str = "17",
+                      launches_of=None) -> tuple[dict, dict]:
     """A counted, repeated ``DecodeEngine`` generate (``_mla_generate``),
     then the busy share of one decode step after the prompt, and the
-    recurrent cache's bytes."""
+    cache's bytes a request by kind (``_cache_kind``).  ``launches_of(cfg,
+    rows)``: one forward's kernel launches over ``rows`` token rows
+    (default Mamba-2's, ``_ssm_launches``)."""
     from repro_torch.models import api
 
     dev = torch.device("cuda")
     b, s = prompts.shape
-    prefill, decode = _ssm_launches(cfg, b * s), _ssm_launches(cfg, b)
+    launches_of = launches_of or _ssm_launches
+    prefill, decode = launches_of(cfg, b * s), launches_of(cfg, b)
     launches, summary, eng = _mla_generate(
         torch, cfg, params, prompts, new, _add(prefill, decode, new - 1),
-        f"1 prefill forward x {prefill} + {new - 1} decode forwards x {decode}", part, tag="17")
+        f"1 prefill forward x {prefill} + {new - 1} decode forwards x {decode}", part, tag=tag)
     del eng
     with _PlainCalls() as plain:
         logits, caches = api.prefill(params, {"tokens": prompts.to(dev)}, cfg, s + new)
@@ -5390,52 +5571,37 @@ def _ssm_decode(torch, cfg, params, prompts, new: int, part: str) -> tuple[dict,
         api.decode_step(params, tok, caches, s, cfg)
         torch.cuda.synchronize()
         t_step = time.perf_counter() - t0
-        busy = _device_trace_time(torch, lambda: api.decode_step(params, tok, caches, s, cfg),
-                                  t_step, "17", f"{part} decode step", top=8)
+        busy = _device_time(torch, lambda: api.decode_step(params, tok, caches, s, cfg),
+                                  t_step, tag, f"{part} decode step", top=8)
     if plain.calls:
         raise AssertionError(f"{part}: plain versions called on the card: {dict(plain.calls)}")
-    cache_bytes = sum(t.numel() * t.element_size() for _, t in _tree_paths(caches))
-    state_bytes = sum(t.numel() * t.element_size() for k, t in _tree_paths(caches)
-                      if k.endswith("/state"))
+    by_kind = _cache_bytes(caches, b)
+    cache_bytes = sum(by_kind.values())
     summary.update(decode_step_ms=t_step * 1e3, device_busy_share=busy / t_step,
-                   cache_bytes_per_request=cache_bytes / b,
-                   state_bytes_per_request=state_bytes / b,
+                   cache_bytes_per_request=cache_bytes, cache_bytes_by_kind=by_kind,
                    launches_a_forward={"prefill": prefill, "decode": decode})
-    log(f"[17] {part} launches a forward: prefill {prefill}, decode {decode}; one decode step "
+    log(f"[{tag}] {part} launches a forward: prefill {prefill}, decode {decode}; one decode step "
         f"after {s} tokens {t_step * 1e3:.2f} ms ({100 * busy / t_step:.1f}% busy); the cache "
-        f"{cache_bytes / b / 1e6:.2f} MB a request ({state_bytes / b / 1e6:.2f} MB of f32 state, "
-        f"the rest the conv tails), whatever the prompt's length")
+        f"{cache_bytes / 1e6:.2f} MB a request (" + ", ".join(
+            f"{k} {v / 1e6:.2f} MB" for k, v in by_kind.items())
+        + "; f32 state, conv tails and rings of min(window, max_len) positions: whatever the "
+        "prompt's length)")
     del logits, caches, step_logits
     return launches, summary
 
 
-def _ssm_continuous(torch, cfg, params) -> tuple[dict, dict]:
-    """[17] (d): the continuous batcher, paged and dense, chunked prefill
-    and (paged) the prefix cache requested: each declined, with one log
-    line each; dense equal to paged (the same computation: no layer on the
-    pool).  Then [16] (c)'s rule against batch 1 on a SSM_CUT_LAYERS-layer
-    cut: a 1-slot engine (its streams equal to ``DecodeEngine``'s,
-    checked) and the 4-slot paged engine, every act-quant row traced to
-    its request (``_RowTrace``), held by ``_warm_against_cold``.  (At
-    full depth 1 of the 8 streams equalled batch 1's in PR 28 call 2, the
-    others parting after act-quant ties, as [16] (a)'s do; those batch-1
-    references were dropped for time: PERF.md, PR 28.)"""
+def _declined_cb(torch, params, cfg, load: CBLoad, tag: str) -> tuple[dict, dict, dict]:
+    """(d) of [17] and [18]: the continuous batcher serving ``load``, paged
+    and dense, chunked prefill and (paged) the prefix cache requested:
+    each declined, with one log line each over both engines; every request
+    finished once by length, every block back in the pool, no chunked
+    slice and no ``paged_attention`` launch; dense equal to paged (the
+    same computation: no layer on the pool).  Returns ({kernel: launches
+    of the paged run}, summary, the streams by layout)."""
     import logging
 
-    from repro_torch.serve.engine import DecodeEngine, SamplerConfig
-
     t0 = time.perf_counter()
-    load = _cb_load(cfg.vocab_size, SSM_CB)
-    prompts = {uid: p for uid, p, _, _ in load}
-
-    def batch1(params, cfg):
-        out = {}
-        for uid, p, new, _ in load:
-            eng = DecodeEngine(params, cfg, max_len=len(p) + new, device=torch.device("cuda"))
-            out[uid] = eng.generate(p[None], SamplerConfig(temperature=0.0, top_k=0,
-                                                           max_new_tokens=new))[0]
-        return out
-
+    prompts = {uid: p for uid, p, _, _ in _cb_load(cfg.vocab_size, load)}
     streams, summary, launches = {}, {}, {}
 
     class Declines(logging.Handler):
@@ -5453,20 +5619,20 @@ def _ssm_continuous(torch, cfg, params) -> tuple[dict, dict]:
         for name in ("paged", "dense"):
             with _PlainCalls() as plain:
                 rec, streams[name], reasons, _ = _cb_run(
-                    torch, params, cfg, name, name, CB_PREFILL_CHUNK, 1, "auto", SSM_CB,
+                    torch, params, cfg, name, name, CB_PREFILL_CHUNK, 1, "auto", load,
                     prefix_cache=name == "paged")
             rec.pop("step_walls")
             if plain.calls:
                 raise AssertionError(f"(d) {name}: plain versions called: {dict(plain.calls)}")
-            if sorted(streams[name]) != list(range(SSM_CB.requests)) \
-                    or set(reasons) != {"length"} or len(reasons) != SSM_CB.requests:
+            if sorted(streams[name]) != list(range(load.requests)) \
+                    or set(reasons) != {"length"} or len(reasons) != load.requests:
                 raise AssertionError(f"(d) {name}: requests did not each finish once by length")
             if rec["free_blocks"] is not None and rec["free_blocks"] != rec["num_blocks"]:
                 raise AssertionError(f"(d) {name}: blocks left allocated after the run")
             if rec["chunked_slices"] or rec["launches"].get("paged_attention", 0):
                 raise AssertionError(f"(d) {name}: {rec['chunked_slices']} chunked slices, "
                                      f"launches {rec['launches']}")
-            log(f"[17] (d) {name}: wall {rec['wall_s']:.2f} s, {rec['tokens_per_s']:.1f} "
+            log(f"[{tag}] (d) {name}: wall {rec['wall_s']:.2f} s, {rec['tokens_per_s']:.1f} "
                 f"tokens/s, TTFT p50 {rec['ttft_ms_p50']:.1f} / p99 {rec['ttft_ms_p99']:.1f} ms, "
                 f"{rec['engine_steps']} engine steps, {rec['decode_steps']} decode steps, "
                 f"launches {rec['launches']}")
@@ -5479,19 +5645,50 @@ def _ssm_continuous(torch, cfg, params) -> tuple[dict, dict]:
         sched_log.removeHandler(caught)
     chunk_lines = [m for m in caught.lines if "chunked admission prefill declined" in m]
     prefix_lines = [m for m in caught.lines if "prefix caching declined" in m]
-    log(f"[17] (d) declines logged over both engines: {len(chunk_lines)} chunked prefill, "
+    log(f"[{tag}] (d) declines logged over both engines: {len(chunk_lines)} chunked prefill, "
         f"{len(prefix_lines)} prefix cache")
     if len(chunk_lines) != 1 or len(prefix_lines) != 1:
         raise AssertionError(f"(d) each decline must be logged once: {caught.lines}")
     equal = sum(_same(streams["paged"][u], streams["dense"][u]) for u in prompts)
-    log(f"[17] (d) dense vs paged: {equal} of {len(load)} streams equal")
-    if equal != len(load):
+    log(f"[{tag}] (d) dense vs paged: {equal} of {len(prompts)} streams equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if equal != len(prompts):
         raise AssertionError("(d) the dense layout's streams differ from the paged layout's")
+    return launches, summary, streams
+
+
+def _ssm_continuous(torch, cfg, params) -> tuple[dict, dict]:
+    """[17] (d): ``_declined_cb`` on SSM_CB.  Then [16] (c)'s rule against
+    batch 1 on a SSM_CUT_LAYERS-layer cut: a 1-slot engine (its streams
+    equal to ``DecodeEngine``'s, checked) and the 4-slot paged engine,
+    every act-quant row traced to its request (``_RowTrace``), held by
+    ``_warm_against_cold``.  (At full depth 1 of the 8 streams equalled
+    batch 1's in PR 28 call 2, the others parting after act-quant ties, as
+    [16] (a)'s do; those batch-1 references were dropped for time:
+    PERF.md, PR 28.)"""
+    from repro_torch.serve.engine import DecodeEngine, SamplerConfig
+
+    t0 = time.perf_counter()
+    load = _cb_load(cfg.vocab_size, SSM_CB)
+    prompts = {uid: p for uid, p, _, _ in load}
+
+    def batch1(params, cfg):
+        out = {}
+        for uid, p, new, _ in load:
+            eng = DecodeEngine(params, cfg, max_len=len(p) + new, device=torch.device("cuda"))
+            out[uid] = eng.generate(p[None], SamplerConfig(temperature=0.0, top_k=0,
+                                                           max_new_tokens=new))[0]
+        return out
+
+    def first(n):  # (params, cfg) of the first n layers
+        gpu = dict(params)
+        gpu["segments"] = [_tree(lambda t: t[:n].contiguous(), params["segments"][0])]
+        return gpu, dataclasses.replace(cfg, n_layers=n)
+
+    launches, summary, _ = _declined_cb(torch, *first(SSM_CB_LAYERS), SSM_CB, "17")
 
     # [16] (c)'s rule on the first SSM_CUT_LAYERS layers
-    cut = dataclasses.replace(cfg, n_layers=SSM_CUT_LAYERS)
-    gpu = dict(params)
-    gpu["segments"] = [_tree(lambda t: t[:SSM_CUT_LAYERS].contiguous(), params["segments"][0])]
+    gpu, cut = first(SSM_CUT_LAYERS)
     traces, cut_streams = {}, {"batch1": batch1(gpu, cut)}
 
     def tracing(name):
@@ -5593,7 +5790,7 @@ def phase_ssm(torch, smi: str) -> tuple[dict, dict]:
     """Phase 17: mamba2-780m at full width and depth, exported block by
     block ((a)), served by ``DecodeEngine`` ((b), (c)) and the continuous
     batcher ((d)); cut to 2 layers on the card and the CPU at N = 1 and 8,
-    and a chunk against decode steps ((e)); trained at full depth, and a
+    and a chunk against decode steps ((e)); trained on SSM_TRAIN_LAYERS layers, and a
     2-layer cut's gradients held card vs CPU ((f)).  Returns ({kernel:
     launches of the counted runs}, summary)."""
     from repro_torch.configs.registry import get_config
@@ -5606,11 +5803,11 @@ def phase_ssm(torch, smi: str) -> tuple[dict, dict]:
     log(f"[time] [17] (a) done at {time.perf_counter() - t0:.1f} s")
     prompts = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
                             generator=torch.Generator().manual_seed(SEED))
-    launches, summary["decode"] = _ssm_decode(torch, cfg, params, prompts, SSM_NEW, "(b)")
+    launches, summary["decode"] = _recurrent_decode(torch, cfg, params, prompts, SSM_NEW, "(b)")
     log(f"[time] [17] (b) done at {time.perf_counter() - t0:.1f} s")
     long = torch.randint(0, cfg.vocab_size, (1, SSM_LONG),
                          generator=torch.Generator().manual_seed(SEED + 1))
-    got, summary["long"] = _ssm_decode(torch, cfg, params, long, SSM_LONG_NEW, "(c)")
+    got, summary["long"] = _recurrent_decode(torch, cfg, params, long, SSM_LONG_NEW, "(c)")
     launches = _add(launches, got)
     d, c = summary["decode"], summary["long"]
     log(f"[17] (c) 1 x {SSM_LONG} tokens ({SSM_LONG // cfg.ssm_chunk} chunks of "
@@ -5644,7 +5841,9 @@ def phase_ssm(torch, smi: str) -> tuple[dict, dict]:
         got["gate_norm"] = mixer["gate_norm"]["scale"]
         return got, ()
 
-    summary["train"] = _train_cell(torch, smi, cfg, "17", "(f)", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
+    summary["train"] = _train_cell(torch, smi,
+                                   dataclasses.replace(cfg, n_layers=SSM_TRAIN_LAYERS),
+                                   "17", "(f)", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
                                    SSM_TRAIN_TIMED, watch, lambda n: (n, "every parameter"))
     # each SSD leaf's gradient (A_log, dt_bias, D) sums B x S x P x N terms
     # through the chunked scan: each device's own f32 noise reaches
@@ -5655,6 +5854,323 @@ def phase_ssm(torch, smi: str) -> tuple[dict, dict]:
                                                cfg, n_layers=SSM_CUT_LAYERS, dtype="float32",
                                                remat=False))
     log(f"[time] [17] (f) done at {time.perf_counter() - t0:.1f} s")
+    summary["card"] = smi
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the RG-LRU hybrid (recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+
+HYB_ARCH = "recurrentgemma-2b"
+HYB_BATCH, HYB_PROMPT, HYB_NEW = 4, 256, 32  # (b): 1024 prefill rows, then 4 a step
+# (c): one prompt of 4100 tokens, past the 2048-position window twice, on
+# the first HYB_LONG_LAYERS layers (whole (rec, rec, attn) groups: one):
+# the ring prefill is host-bound, one step a token and attention layer
+HYB_LONG, HYB_LONG_NEW, HYB_LONG_LAYERS = 4100, 16, 3
+# (d): 4 slots of 416 positions, 8 requests (4 at tick 0, then one a tick),
+# prompts of 16-384 tokens, 8-32 new; chunked prefill and the prefix cache
+# requested (both declined: the RG-LRU state and the rings are per slot);
+# on the first HYB_CB_LAYERS layers (two groups), for the run's time
+HYB_CB = CBLoad(4, 416, 8, 4, (16, 384), (8, 32))
+HYB_CB_LAYERS = 6
+# (e) and (f)'s gradient cut: the first 4 layers, the reduced configs'
+# pattern: one (rec, rec, attn) repeat and the remainder segment (rec)
+HYB_CUT_LAYERS = 4
+HYB_STEPS_T = 8  # (e): a chunk of 8 tokens against 8 one-token steps
+HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB_TRAIN_TIMED = 1, 2048, 2  # (f), at full depth
+
+
+def _n_blocks(cfg, mixer: str) -> int:
+    """How many of a hybrid's layers have ``mixer``."""
+    pat = cfg.block_pattern
+    return sum(pat[i % len(pat)] == mixer for i in range(cfg.n_layers))
+
+
+def _hybrid_launches(cfg, rows: int) -> dict:
+    """Kernel launches of one packed hybrid forward over ``rows`` token
+    rows: an RG-LRU layer's ``wx``, ``wy`` and ``wout`` and an attention
+    layer's q/k/v/o on the W1A8 kernel (the decode GEMV at most 32 rows,
+    else the prefill GEMM), every layer's FFN as the decoder's (its 1-bit
+    down projection on the W1A8 kernel, its two up/gate pairs on the fused
+    kernel, its 8-bit down projection on ``int8_matmul``); the gates
+    ``wa`` and ``wi`` are f32 products; no layer on the paged pool."""
+    one, two = (("w1a8_gemv", "decoupled_gemv") if rows <= 32
+                else ("w1a8_matmul", "decoupled_matmul"))
+    n_rec = _n_blocks(cfg, "rec")
+    return dict({k: 0 for k in MOE_KERNELS}, paged_attention=0, **{
+        one: 4 * n_rec + 5 * (cfg.n_layers - n_rec), two: 2 * cfg.n_layers,
+        "int8_matmul": cfg.n_layers})
+
+
+def _hybrid_groups(params, cfg, n: int):
+    """(params, cfg) of the first ``n`` layers, whole groups of the
+    stacked segment (a segment of one repeat is stored unstacked)."""
+    reps = n // len(cfg.block_pattern)
+    seg = params["segments"][0]
+    return ({"embed": params["embed"], "final_norm": params["final_norm"],
+             "segments": [_tree(lambda t: t[0].contiguous() if reps == 1 else t[:reps], seg)]},
+            dataclasses.replace(cfg, n_layers=n))
+
+
+def _allocated_cache(torch, cfg, max_len: int) -> dict:
+    """One request's f32 cache at ``max_len`` positions, allocated on the
+    card at ``cfg``'s depth: its bytes by kind (``_cache_bytes``)."""
+    from repro_torch.models import api
+
+    return _cache_bytes(api.init_cache(cfg, 1, max_len, torch.float32,
+                                       device=torch.device("cuda")), 1)
+
+
+def _chunk_step_codes(torch, chunk_passes, step_passes, t: int) -> dict:
+    """The act-quant codes of a T-token chunk (``_ActQuantTrace`` passes:
+    rows (b, i) of each site) against those of T one-token steps (each
+    step's passes, rows b), site by site and token by token: how many
+    differ, and the first (by site) with its scaled values x * gamma in
+    both runs."""
+    n = len(chunk_passes)
+    if len(step_passes) != t * n:
+        raise AssertionError(f"{len(step_passes)} act-quant passes over {t} steps, {n} in the "
+                             "chunk")
+    differ, first = 0, None
+    for j, (xc, qc, gc) in enumerate(chunk_passes):
+        k = xc.shape[-1]
+        xc, qc, gc = xc.reshape(-1, t, k), qc.reshape(-1, t, k), gc.reshape(-1, t)
+        for i in range(t):
+            xs, qs, gs = step_passes[i * n + j]
+            xs, qs, gs = xs.reshape(-1, k), qs.reshape(-1, k), gs.reshape(-1)
+            bad = (qc[:, i] != qs).nonzero()
+            differ += len(bad)
+            if first is None and len(bad):
+                b, c = bad[0].tolist()
+                first = (j, i, (xc[b, i, c] * gc[b, i]).item(), (xs[b, c] * gs[b]).item())
+    return {"differ": differ, "first": first, "sites": n}
+
+
+def _codes_rule(codes: dict, what: str) -> None:
+    """The first act-quant code that differs between two runs
+    (``_chunk_step_codes``), if any, must be a rounding tie: its scaled
+    values within BOUNDARY_TOL."""
+    if codes["first"] and abs(codes["first"][2] - codes["first"][3]) > BOUNDARY_TOL:
+        raise AssertionError(f"{what} part at an act-quant code that is not a rounding tie: "
+                             f"{codes['first']}")
+
+
+def _hybrid_chunk_vs_steps(torch, params, cfg) -> dict:
+    """[18] (e): a HYB_STEPS_T-token chunk against as many one-token steps
+    from the same cache on the card, on the packed HYB_CUT_LAYERS-layer cut
+    (the same recurrence in another float association: the scan doubles,
+    the steps recur); every act-quant code of the two runs compared site
+    by site and token by token (``_chunk_step_codes``), the first that
+    differs, if any, a rounding tie.
+
+    * The first layer's RG-LRU mixer on the same inputs from a cache of
+      noise (``transformer._recurrent_chunk``): the conv tail bit for bit
+      (both read the same ``wx`` rows), the state ``h`` within FLOAT_NOISE
+      of its largest, the outputs too where no code differs.
+    * The model (``forward_chunk`` from a prefill's cache): the first
+      layer's ``h`` within FLOAT_NOISE of its largest; where no code
+      differs, every layer's ``h`` and the logits too.  The first layer's
+      conv tail is bit for bit wherever its pre-norm is: the norm's f32
+      reduction over T x B rows and over B rows may round apart, which
+      then moves the ``wx`` rows' scales (both are reported).
+    No plain version is called."""
+    from repro_torch.models import api, rglru, transformer
+    from repro_torch.models.layers import embed, rmsnorm
+
+    t, b = HYB_STEPS_T, HYB_BATCH
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rel(a, ref):
+        return ((a - ref).abs().max() / ref.abs().max()).item()
+
+    def both(run):  # (outputs of the chunk, of the steps, their codes)
+        with _ActQuantTrace() as in_chunk:
+            y = run(0, t)
+        with _ActQuantTrace() as in_steps:
+            ys = torch.cat([run(i, i + 1) for i in range(t)], dim=1)
+        return y, ys, _chunk_step_codes(torch, in_chunk.passes, in_steps.passes, t)
+
+    with _PlainCalls() as plain:
+        # the first layer's mixer alone, on the same inputs
+        mp = params["segments"][0]["b0"]["mixer"]
+        x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+        noise = rglru.init_rglru_cache(cfg, b, torch.float32, device=dev)
+        for v in noise.values():
+            v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        caches = {"chunk": _tree(torch.clone, noise), "steps": _tree(torch.clone, noise)}
+        ym, yms, mcodes = both(lambda i, j: transformer._recurrent_chunk(
+            mp, x[:, i:j], caches["chunk" if j - i == t else "steps"], cfg, mixer="rec")[0])
+        mixer = {"conv_bitwise": torch.equal(caches["chunk"]["conv"], caches["steps"]["conv"]),
+                 "h_rel_diff": rel(caches["chunk"]["h"], caches["steps"]["h"]),
+                 "out_rel_diff": rel(ym, yms), "codes_differ": mcodes["differ"],
+                 "first_code": mcodes["first"]}
+        # the model from a prefill's cache
+        toks = torch.randint(0, cfg.vocab_size, (b, 2 * t),
+                             generator=torch.Generator().manual_seed(SEED + 3)).cuda()
+        _, chunked = api.prefill(params, {"tokens": toks[:, :t]}, cfg, 2 * t)
+        model_caches = {"chunk": chunked, "steps": _tree(torch.clone, chunked)}
+        y, ys, codes = both(lambda i, j: api.forward_chunk(
+            params, toks[:, t + i:t + j], model_caches["chunk" if j - i == t else "steps"],
+            t + i, cfg)[0])
+        e = embed(params["embed"], toks[:, t:], cfg)
+        pre = params["segments"][0]["b0"]["pre_norm"]
+        norm_bitwise = torch.equal(rmsnorm(pre, e), torch.cat(
+            [rmsnorm(pre, e[:, i:i + 1]) for i in range(t)], dim=1))
+    if plain.calls:
+        raise AssertionError(f"(e) chunk vs steps: plain versions called: {dict(plain.calls)}")
+    if not (torch.isfinite(y).all() and torch.isfinite(ys).all()):
+        raise AssertionError("(e) chunk vs steps: non-finite logits")
+    chunked, stepped = model_caches["chunk"], model_caches["steps"]
+    h = {f"{si}/b{bi}": rel(chunked[si][f"b{bi}"]["h"], stepped[si][f"b{bi}"]["h"])
+         for si, seg in enumerate(transformer.build_segments(cfg))
+         for bi, spec in enumerate(seg.blocks) if spec.mixer == "rec"}
+    model = {"logits_rel_diff": rel(y, ys), "h_rel_diff": h, "norm_bitwise": norm_bitwise,
+             "conv_bitwise": torch.equal(chunked[0]["b0"]["conv"], stepped[0]["b0"]["conv"]),
+             "conv_rel_diff": rel(chunked[0]["b0"]["conv"], stepped[0]["b0"]["conv"]),
+             "codes_differ": codes["differ"], "first_code": codes["first"]}
+    log(f"[18] (e) the first layer's RG-LRU mixer on the card, a {t}-token chunk against {t} "
+        f"one-token steps from a cache of noise: conv tail bit for bit {mixer['conv_bitwise']}; "
+        f"h {mixer['h_rel_diff']:.3g} and outputs {mixer['out_rel_diff']:.3g} of their largest "
+        f"apart; act-quant codes differing {mcodes['differ']} over {mcodes['sites']} sites x {t} "
+        f"tokens (first, as (site, token, scaled chunk, scaled step): {mcodes['first']}); "
+        f"tolerance {FLOAT_NOISE}")
+    log(f"[18] (e) {cfg.n_layers}-layer cut, a {t}-token forward_chunk against {t} one-token "
+        f"steps from a {t}-token prefill's cache on the card: h max |diff| / max |h| by layer "
+        f"{h}; logits {model['logits_rel_diff']:.3g} of their largest; act-quant codes "
+        f"differing {codes['differ']} over {codes['sites']} sites x {t} tokens (first: "
+        f"{codes['first']}); the first layer's pre-norm over {b * t} rows and over {b} rows bit "
+        f"for bit {norm_bitwise}, its conv tail bit for bit {model['conv_bitwise']} "
+        f"({model['conv_rel_diff']:.3g} of its largest); tolerance {FLOAT_NOISE}")
+    _codes_rule(mcodes, "(e) the mixer's chunk and its steps")
+    _codes_rule(codes, "(e) the model's chunk and its steps")
+    if not mixer["conv_bitwise"] or mixer["h_rel_diff"] > FLOAT_NOISE \
+            or (mcodes["differ"] == 0 and mixer["out_rel_diff"] > FLOAT_NOISE):
+        raise AssertionError("(e) the mixer's chunk and its one-token steps disagree")
+    if (norm_bitwise and not model["conv_bitwise"]) or h["0/b0"] > FLOAT_NOISE or (
+            codes["differ"] == 0 and max(max(h.values()), model["logits_rel_diff"]) > FLOAT_NOISE):
+        raise AssertionError("(e) the model's chunk and its one-token steps disagree")
+    return {"mixer": mixer, "model": model}
+
+
+def _plan(cfg) -> str:
+    """A model's segment plan as text: repeats x (mixers)."""
+    from repro_torch.models import transformer
+
+    return " + ".join(f"{s.repeats} x ({', '.join(b.mixer for b in s.blocks)})"
+                      for s in transformer.build_segments(cfg))
+
+
+def _hybrid_cut(torch):
+    """[18] (e): the HYB_CUT_LAYERS-layer cut's latents from SEED on the
+    card, exported there and on the CPU, held leaf for leaf; then phase
+    5's comparison of logits and greedy streams, card vs CPU (the decode
+    tier may part at a rounding tie, as [17] (e)'s)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.quantized_serving import quantize_params_for_serving as export
+
+    cfg = dataclasses.replace(get_config(HYB_ARCH), n_layers=HYB_CUT_LAYERS)
+    latent = _block_export(torch, cfg, latent=True)
+    card = export(latent, cfg, packed=True)
+    cpu = export(_tree(lambda t: t.cpu(), latent), cfg, packed=True)
+    del latent
+    leaves = _equal_trees(torch, card, cpu, "(e) export, card vs CPU")
+    log(f"[18] (e) the {cfg.n_layers}-layer export ({_plan(cfg)}) on the card equals the CPU's "
+        f"leaf for leaf ({leaves} leaves; integers bit for bit, scales within {RTOL})")
+    del cpu
+    prompts = torch.randint(0, cfg.vocab_size, (HYB_BATCH, 8),
+                            generator=torch.Generator().manual_seed(SEED))
+    phase_cut(torch, None, cfg, prompts, tag="18", decode_may_part=True, cut=(card, cfg),
+              prefill_tier=False)
+    return card, cfg
+
+
+def phase_hybrid(torch, smi: str) -> tuple[dict, dict]:
+    """Phase 18: recurrentgemma-2b at full width and depth, exported block
+    by block ((a)), served by ``DecodeEngine`` ((b); (c) on the first
+    HYB_LONG_LAYERS layers) and the continuous batcher ((d), on
+    HYB_CB_LAYERS layers); a
+    HYB_CUT_LAYERS-layer cut on the card and the CPU and a chunk against
+    decode steps ((e)); trained at full depth, and the cut's gradients held
+    card vs CPU ((f)).  Returns ({kernel: launches of the counted runs},
+    summary)."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(HYB_ARCH)
+    params, t_block, peak_block, leaves = _export_checked(torch, cfg)
+    nbytes, by_kind = _bytes_by_kind(torch, params)
+    log(f"[18] (a) {cfg.name}: {cfg.n_layers} layers ({_plan(cfg)}), d_model {cfg.d_model}, "
+        f"lru_width {cfg.lru_width}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV head of "
+        f"{cfg.head_dim}, window {cfg.window_size}, d_ff {cfg.d_ff} GeGLU, r {cfg.quant.r}, "
+        f"vocab {cfg.vocab_size} tied; exported block by block in {t_block:.1f} s (peak device "
+        f"memory {peak_block / 1e9:.2f} GB): {nbytes / 1e9:.3f} GB (" + ", ".join(
+            f"{k} {v / 1e9:.3f} GB" for k, v in by_kind.items())
+        + f"); equal leaf for leaf, bit for bit, to the one-shot export of the same latents "
+        f"({leaves} leaves)")
+    summary = {"export_gb": nbytes / 1e9,
+               "export_gb_by_kind": {k: v / 1e9 for k, v in by_kind.items()}}
+    log(f"[time] [18] (a) done at {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (HYB_BATCH, HYB_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED))
+    launches, summary["decode"] = _recurrent_decode(torch, cfg, params, prompts, HYB_NEW, "(b)",
+                                                    "18", _hybrid_launches)
+    log(f"[time] [18] (b) done at {time.perf_counter() - t0:.1f} s")
+    long = torch.randint(0, cfg.vocab_size, (1, HYB_LONG),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    lp, lcfg = _hybrid_groups(params, cfg, HYB_LONG_LAYERS)
+    got, summary["long"] = _recurrent_decode(torch, lcfg, lp, long, HYB_LONG_NEW, "(c)", "18",
+                                             _hybrid_launches)
+    del lp
+    launches = _add(launches, got)
+    full = {n: _allocated_cache(torch, cfg, n) for n in (cfg.window_size + HYB_LONG_NEW,
+                                                     HYB_LONG + HYB_LONG_NEW)}
+    if len({tuple(sorted(v.items())) for v in full.values()}) != 1:
+        raise AssertionError(f"(c) a request's cache grows past the window: {full}")
+    long_bytes = full[HYB_LONG + HYB_LONG_NEW]
+    summary["long"]["full_depth_cache_bytes_by_kind"] = long_bytes
+    d, c = summary["decode"], summary["long"]
+    log(f"[18] (c) 1 x {HYB_LONG} tokens on {lcfg.n_layers} layers (its "
+        f"{_n_blocks(lcfg, 'attn')} ring(s) of {cfg.window_size} wrap twice): TTFT "
+        f"{c['ttft_ms']:.1f} ms, decode {c['ms_per_step']:.2f} ms/step ({c['decode_step_ms']:.2f} "
+        f"ms a step after {HYB_LONG} tokens) beside (b)'s {HYB_BATCH} x {HYB_PROMPT} at "
+        f"{cfg.n_layers} layers: TTFT {d['ttft_ms']:.1f} ms, {d['ms_per_step']:.2f} ms/step; "
+        f"at full depth a request's f32 cache is {sum(long_bytes.values()) / 1e6:.2f} MB ("
+        + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in long_bytes.items())
+        + f") at max_len {HYB_LONG + HYB_LONG_NEW} as at {cfg.window_size + HYB_LONG_NEW}")
+    log(f"[time] [18] (c) done at {time.perf_counter() - t0:.1f} s")
+    got, summary["continuous"], _ = _declined_cb(
+        torch, *_hybrid_groups(params, cfg, HYB_CB_LAYERS), HYB_CB, "18")
+    launches = _add(launches, got)
+    log(f"[time] [18] (d) done at {time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    card, cut = _hybrid_cut(torch)
+    summary["chunk_vs_steps"] = _hybrid_chunk_vs_steps(torch, card, cut)
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] [18] (e) done at {time.perf_counter() - t0:.1f} s")
+
+    def watch(p):
+        b0 = p["segments"][0]["b0"]
+        got = {name: b0["mixer"][name]["w"] for name in ("wx", "wy", "wout", "wa", "wi")}
+        got.update({name: b0["mixer"][name] for name in ("lam", "conv_w")})
+        got.update({f"ffn/{name}": b0["ffn"][name] for name in ("w1_gate", "w8_down")})
+        return got, ()
+
+    summary["train"] = _train_cell(torch, smi, cfg, "18", "(f)", HYB_TRAIN_BATCH,
+                                   HYB_TRAIN_SEQ, HYB_TRAIN_TIMED, watch,
+                                   lambda n: (n, "every parameter"))
+    # the cut at full width: each device's own f32 noise reaches GRAD_RTOL
+    # on the wide leaves, so a miss is judged against an f64 run on the
+    # card, as [14]'s and [17]'s cuts
+    summary["train_cut"] = phase_train_cut(
+        torch, tag="18", cfg=dataclasses.replace(cut, dtype="float32", remat=False),
+        init_on_card=True, f32_noise=True)
+    log(f"[time] [18] (f) done at {time.perf_counter() - t0:.1f} s")
     summary["card"] = smi
     return launches, summary
 
@@ -5689,6 +6205,20 @@ def ssm(torch) -> int:
     launches, summary = phase_ssm(torch, smi)
     log(f"[time] [17] done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"launches": launches, "ssm": summary}, default=str))
+    return 0
+
+
+def hybrid(torch) -> int:
+    """Phases 1, 2 and 18 alone: prints one JSON line of phase 18's launch
+    counts and summary."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, _ = phase_card(torch)
+    t0 = phase_build(_cuda)
+    launches, summary = phase_hybrid(torch, smi)
+    log(f"[time] [18] done at {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches": launches, "hybrid": summary}, default=str))
     return 0
 
 
@@ -5931,6 +6461,9 @@ def main(torch) -> int:
     y_launches, y_summary = phase_ssm(torch, smi)
     log(f"[17] summary: {json.dumps(y_summary, default=str)}")
     lap("[17]")
+    h_launches, h_summary = phase_hybrid(torch, smi)
+    log(f"[18] summary: {json.dumps(h_summary, default=str)}")
+    lap("[18]")
     c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
@@ -5950,7 +6483,8 @@ def main(torch) -> int:
     # kernel-route runs, [14] gemma3-27b's (b) generate and (c) kernel-route
     # run and h2o-danube-1.8b's (e) generate, [15] deepseek-v2-236b's (b)
     # decode and (c) prefill generates and (d) paged run, [16] (a)'s warm run,
-    # [17] mamba2-780m's (b) and (c) generates and (d) paged run
+    # [17] mamba2-780m's (b) and (c) generates and (d) paged run, [18]
+    # recurrentgemma-2b's (b) and (c) generates and (d) paged run
     main_key = {
         "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
@@ -5970,7 +6504,7 @@ def main(torch) -> int:
                    "continuous": c_launches.get(n, 0), "experts": e_launches.get(n, 0),
                    "moe": m_launches.get(n, 0), "swa": s_launches.get(n, 0),
                    "mla": l_launches.get(n, 0), "prefix": x_launches.get(n, 0),
-                   "ssm": y_launches.get(n, 0)}
+                   "ssm": y_launches.get(n, 0), "hybrid": h_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -6010,6 +6544,8 @@ if __name__ == "__main__":
                     "tracer, BatchedServer)")
     ap.add_argument("--ssm", action="store_true",
                     help="phases 1, 2 and 17 only (mamba2-780m: Mamba-2)")
+    ap.add_argument("--hybrid", action="store_true",
+                    help="phases 1, 2 and 18 only (recurrentgemma-2b: the RG-LRU hybrid)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -6033,6 +6569,8 @@ if __name__ == "__main__":
         sys.exit(prefix(torch))
     if args.ssm:
         sys.exit(ssm(torch))
+    if args.hybrid:
+        sys.exit(hybrid(torch))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
         sys.exit(one_kernel(torch, args.kernel, src))

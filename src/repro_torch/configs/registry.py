@@ -7,8 +7,9 @@ shorthands for the same family under another quantization mode,
 ``bitnet-<size>``, ``bitnet158-<size>`` and ``none-<size>``;
 ``deepseek-moe-16b`` and the MLA MoE ``deepseek-v2-236b``; the
 sliding-window configs ``gemma3-27b`` (5 local : 1 global) and
-``h2o-danube-1.8b``; and the Mamba-2 SSM ``mamba2-780m``.  The other architectures of the JAX registry raise
-``NotImplementedError``.
+``h2o-danube-1.8b``; the Mamba-2 SSM ``mamba2-780m``; and the RG-LRU
+hybrid ``recurrentgemma-2b``.  The other architectures of the JAX
+registry raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.configs import (
     h2o_danube_1_8b,
     mamba2_780m,
     pquant_paper,
+    recurrentgemma_2b,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -42,6 +44,7 @@ ARCHS["deepseek-v2-236b"] = deepseek_v2_236b.make
 ARCHS["gemma3-27b"] = gemma3_27b.make
 ARCHS["h2o-danube-1.8b"] = h2o_danube_1_8b.make
 ARCHS["mamba2-780m"] = mamba2_780m.make
+ARCHS["recurrentgemma-2b"] = recurrentgemma_2b.make
 
 # architectures the JAX registry serves that this package has not ported yet
 NOT_PORTED = (
@@ -49,7 +52,6 @@ NOT_PORTED = (
     "deepseek-coder-33b",
     "whisper-large-v3",
     "phi-3-vision-4.2b",
-    "recurrentgemma-2b",
 )
 
 

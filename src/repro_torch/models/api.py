@@ -1,5 +1,6 @@
-"""Port of ``repro.models.api`` for the decoder and SSM families: the entry
-points the server calls.  Other families raise ``NotImplementedError``.
+"""Port of ``repro.models.api`` for the decoder, SSM and hybrid families:
+the entry points the server calls.  Other families raise
+``NotImplementedError``.
 
     init_model(seed, cfg, device)                 -> params
     loss_fn(params, batch, cfg)                   -> (loss, {"nll", "aux"})
@@ -21,7 +22,7 @@ from repro_torch.telemetry import probes
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family not in ("decoder", "ssm"):
+    if cfg.family not in ("decoder", "ssm", "hybrid"):
         raise NotImplementedError(f"the {cfg.family} family is not yet ported")
     return transformer
 

@@ -27,8 +27,12 @@ layer windowed) and gemma3's local/global interleave (``global_every``:
 period segments of ``global_every - 1`` local blocks and one global,
 then a remainder segment); and MLA (``attn_type="mla"``, DeepSeek-V2:
 the same plans with ``mixer="mla"``, ``models/attention.py``'s
-``mla_*``); and Mamba-2 (``family="ssm"``: one segment of ``n_layers``
-SSD blocks without an FFN, ``models/ssm.py``).  A windowed layer keeps a
+``mla_*``); Mamba-2 (``family="ssm"``: one segment of ``n_layers``
+SSD blocks without an FFN, ``models/ssm.py``); and the RG-LRU hybrid
+(``family="hybrid"``, RecurrentGemma: ``n_layers // len(block_pattern)``
+repeats of the pattern, then one repeat of its first ``n_layers %
+len(block_pattern)`` blocks; an RG-LRU block, ``models/rglru.py``, keeps
+its FFN, and every block's window is ``layer_window``'s).  A windowed layer keeps a
 dense RING cache of ``min(window, max_len)`` positions in both cache
 layouts, and rotates at
 ``rope_theta_local`` under ``global_every``; an MLA layer keeps its dense
@@ -36,10 +40,11 @@ latent cache ``{"ckv", "krope"}`` in both layouts (no MLA layer goes on
 the paged pool) and rotates its ``qk_rope_dim`` slice.  Upstream scans a
 stacked segment with per-layer metadata as scanned arrays; the port's
 loop reads each layer's window and theta as Python values.  An SSM
-layer keeps a dense cache {"conv" (serving dtype), "state" (f32)} in both
-layouts, rewritten in place after each chunk; inactive slots keep theirs
-bit for bit (upstream's ``_freeze_inactive``).  Other segment plans
-(hybrids, enc-dec) are not ported yet and raise ``NotImplementedError``.
+layer keeps a dense cache {"conv" (serving dtype), "state" (f32)} and an
+RG-LRU layer {"h" (f32), "conv" (serving dtype)} in both layouts,
+rewritten in place after each chunk; inactive slots keep theirs bit for
+bit (upstream's ``_freeze_inactive``).  The enc-dec plan is not ported
+yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_ffn,
@@ -77,7 +83,7 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    mixer: str  # attn | mla | ssm
+    mixer: str  # attn | mla | ssm | rec
     ffn: str | None  # dense | moe | None (an SSM block has no FFN)
     # static sliding window of this block (0 = full attention); a windowed
     # layer keeps a RING cache of exactly min(window, max_len) positions
@@ -93,7 +99,10 @@ class Segment:
 
 def build_segments(cfg: ModelConfig) -> list[Segment]:
     """The model's segments: for the SSM family one segment of
-    ``n_layers`` Mamba-2 blocks without an FFN; for the decoder one segment
+    ``n_layers`` Mamba-2 blocks without an FFN; for the hybrid family
+    ``n_layers // g`` repeats of ``block_pattern`` (g blocks, each with a
+    dense FFN and ``layer_window``'s window), then one repeat of the
+    pattern's first ``n_layers % g`` blocks; for the decoder one segment
     of ``n_layers`` attention + dense-FFN blocks (windowed under
     ``attn_type="swa"``); with
     ``cfg.moe``, one segment of ``first_k_dense`` dense blocks (one repeat),
@@ -103,10 +112,23 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
     block's mixer is ``"mla"`` under ``attn_type="mla"``."""
     if cfg.family == "ssm":
         return [Segment(cfg.n_layers, (BlockSpec("ssm", None),), 0)]
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        g = len(pat)
+        reps, rem = divmod(cfg.n_layers, g)
+
+        def pattern(first, n):
+            return tuple(BlockSpec(m, "dense", layer_window(cfg, first + i))
+                         for i, m in enumerate(pat[:n]))
+
+        segs = [Segment(reps, pattern(0, g), 0)]
+        if rem:
+            segs.append(Segment(1, pattern(reps * g, rem), reps * g))
+        return segs
     if cfg.family != "decoder" or cfg.attn_type not in ("full", "swa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: only the full-attention, sliding-window and MLA decoder (dense or "
-            "MoE) and the SSM are ported"
+            "MoE), the SSM and the RG-LRU hybrid are ported"
         )
     mixer = "mla" if cfg.attn_type == "mla" else "attn"
     if cfg.moe:
@@ -199,6 +221,8 @@ def _init_block(gen, spec: BlockSpec, cfg: ModelConfig, lead: tuple, device):
         params["mixer"] = attn_mod.init_mla(gen, cfg, lead, device)
     elif spec.mixer == "ssm":
         params["mixer"] = ssm_mod.init_mamba_block(gen, cfg, lead, device)
+    elif spec.mixer == "rec":
+        params["mixer"] = rglru_mod.init_rglru_block(gen, cfg, lead, device)
     else:
         params["mixer"] = attn_mod.init_attention(gen, cfg, lead, device)
     if spec.ffn is None:
@@ -251,6 +275,8 @@ def _apply_block(bparams, spec: BlockSpec, x: Tensor, cfg: ModelConfig, sin, cos
         return x + y, aux
     if spec.mixer == "mla":
         x = x + attn_mod.mla_attention(bparams["mixer"], h, cfg, sin, cos)
+    elif spec.mixer == "rec":
+        x = x + rglru_mod.rglru_block(bparams["mixer"], h, cfg)
     else:
         x = x + attn_mod.attention(bparams["mixer"], h, cfg, sin, cos, window=spec.window)
     h = rmsnorm(bparams["ffn_norm"], x)
@@ -318,6 +344,8 @@ def _init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: in
                       num_blocks: int | None):
     if spec.mixer == "ssm":  # constant-size recurrent state, dense in both layouts
         return ssm_mod.init_mamba_cache(cfg, batch, dtype, lead, device)
+    if spec.mixer == "rec":  # likewise (its spec's window is the config's, unused here)
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype, lead, device)
     if spec.mixer == "mla":  # the dense latent cache in both layouts
         return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, lead, device)
     if spec.window > 0:
@@ -344,8 +372,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     of ``num_blocks`` blocks (default: full occupancy) with per-slot
     tables (``repro_torch.serve.kv_pool``) — interchangeable at every call
     site.  A sliding-window layer keeps its dense ring, an MLA layer its
-    dense latent cache and an SSM layer its conv tail and state, in both
-    layouts."""
+    dense latent cache, an SSM layer its conv tail and state and an RG-LRU
+    layer its hidden state and conv tail, in both layouts."""
     if layout not in ("dense", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     dev = resolve_device(device)
@@ -361,18 +389,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _recurrent_chunk(mparams, x: Tensor, cache: dict, cfg: ModelConfig, active=None,
-                     lengths=None):
-    """An SSM layer's T-token chunk from its cached state: the step form
-    at T = 1 (``mamba_decode``), the block form for T > 1 (``mamba_block``);
-    they are the same recurrence in different float associations.  The new
-    conv tail and state are written into the cache's tensors; an inactive
-    slot's rows keep their bits (upstream's ``_freeze_inactive``)."""
+                     lengths=None, mixer: str = "ssm"):
+    """A recurrent layer's T-token chunk from its cached state: the step
+    form at T = 1 (``mamba_decode``, ``rglru_decode``), the block form for
+    T > 1 (``mamba_block``, ``rglru_block``); they are the same recurrence
+    in different float associations.  ``mixer`` is "ssm" or "rec".  The
+    new state and conv tail are written into the cache's tensors; an
+    inactive slot's rows keep their bits (upstream's
+    ``_freeze_inactive``)."""
     if lengths is not None:
         raise NotImplementedError(
             "ragged chunk lengths are attention-family only (recurrent state would "
             "integrate the pad tail); chunked admission prefill gates on "
             "_chunked_prefill_safe accordingly")
-    if x.shape[1] == 1:
+    if mixer == "rec":
+        if x.shape[1] == 1:
+            y, new = rglru_mod.rglru_decode(mparams, x, cache, cfg)
+        else:
+            y, new = rglru_mod.rglru_block(mparams, x, cfg, return_cache=True, cache=cache)
+    elif x.shape[1] == 1:
         y, new = ssm_mod.mamba_decode(mparams, x, cache, cfg)
     else:
         y, _, new = ssm_mod.mamba_block(mparams, x, cfg, return_cache=True, cache=cache)
@@ -388,8 +423,9 @@ def _recurrent_chunk(mparams, x: Tensor, cache: dict, cfg: ModelConfig, active=N
 def _chunk_block(bparams, spec, x, cache, pos, cfg, rope, active=None, lengths=None,
                  read_to=None):
     h = rmsnorm(bparams["pre_norm"], x)
-    if spec.mixer == "ssm":
-        y, cache = _recurrent_chunk(bparams["mixer"], h, cache, cfg, active, lengths)
+    if spec.mixer in ("ssm", "rec"):
+        y, cache = _recurrent_chunk(bparams["mixer"], h, cache, cfg, active, lengths,
+                                    spec.mixer)
     elif spec.mixer == "mla":
         y, cache = attn_mod.mla_chunk(bparams["mixer"], h, cache, pos, cfg, rope,
                                       active=active, lengths=lengths, read_to=read_to)

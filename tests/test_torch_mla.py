@@ -62,9 +62,8 @@ from test_torch_trainer import _data_iter
 
 ARCH = "deepseek-v2-236b"
 TOTAL = 40
-# the five archs of the JAX registry the port has still not ported
-OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b",
-          "recurrentgemma-2b")
+# the four archs of the JAX registry the port has still not ported
+OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b")
 MODES = ("none", "bitnet", "bitnet158", "pquant")
 
 

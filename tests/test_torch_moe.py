@@ -71,8 +71,7 @@ from test_torch_trainer import _data_iter
 
 ARCH = "deepseek-moe-16b"
 TOTAL = 40
-OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b",
-          "recurrentgemma-2b")
+OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b")
 
 
 def _cfgs(**kw):

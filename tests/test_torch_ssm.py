@@ -69,9 +69,8 @@ GRAD_TOL = 1e-4
 MODEL_TOL = 1e-4
 S = 37  # not a multiple of the reduced chunk (16)
 TOTAL = 40
-# the five archs of the JAX registry the port has still not ported
-OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b",
-          "recurrentgemma-2b")
+# the four archs of the JAX registry the port has still not ported
+OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b")
 MODES = ("none", "bitnet", "bitnet158", "pquant")
 
 
