@@ -227,10 +227,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    then [10]'s card vs CPU gradient check on the same cut in f32 at 2 x 64
    tokens.  (e) h2o-danube-1.8b at full width (24 layers, each a
    4096-token window; 32 heads over 8 KV heads of 80, vocab 32000
-   untied) on its first 4 layers, ``DecodeEngine`` on 2 requests of 4160
-   tokens, 8 new: the launches (4 x (5, 2, 1) a forward, no
-   ``paged_attention``), TTFT and ms/step.  (f) ``make_train_step`` on
-   its first 6 layers at full width (all 24 until PR 28, 12 until PR 29; bf16,
+   untied) on its first 2 layers, ``DecodeEngine`` on 2
+   requests of 4160 tokens, 8 new: the launches (2 x (5, 2, 1) a forward,
+   no ``paged_attention``), TTFT and ms/step.  (f) ``make_train_step`` on
+   its first 3 layers at full width (bf16,
    remat) at 1 x 6144 tokens (past the window): finite losses, the first
    within ln V +- 1.5, step 0 (lr 0) moves nothing watched and step 1
    does, no host sync; ms a step, tokens/s, peak memory, busy share.
@@ -244,18 +244,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the card one block at a time (236e9 f32 latents, one MoE block 15.1
    GB), held leaf for leaf, bit for bit, to the one-shot export on a
    3-layer cut (1 dense + 2 MoE); its GB by kind, the device memory held.
-   (b) ``DecodeEngine`` on the first 8 layers (``MLA_DECODE_LAYERS``: the
-   dense one and 7 MoE; 30 until PR 28, 16 until PR 29), 4 requests of 32
-   tokens, 8 new: one transfer, no plain version called, exactly the
-   launches ``_mla_launches`` derives (a decode forward 8 x 5 + 7 x 160 x
-   3 = 3400 ``w1a8_gemv``, 8 ``w1a8_matmul``: the latent expansion over 4
-   x 40 cache rows, 16 ``decoupled_gemv``, 8 ``int8_matmul``; the 128-row
+   (b) ``DecodeEngine`` on the first 4 layers (``MLA_DECODE_LAYERS``: the
+   dense one and 3 MoE), 4
+   requests of 32 tokens, 8 new: one transfer, no plain version called,
+   exactly the launches ``_mla_launches`` derives (a decode forward 4 x 5
+   + 3 x 160 x 3 = 1460 ``w1a8_gemv``, 4 ``w1a8_matmul``: the latent
+   expansion over 4 x 40 cache rows, 8 ``decoupled_gemv``, 4
+   ``int8_matmul``; the 128-row
    prefill on the
    GEMMs but its experts' 8-row buffers); TTFT (synchronized where the
    prefill ends) and ms/step of two generates (the second repeating the
    stream); finite logits of a prefill and a decode step; the busy share
-   of one decode step.  (c) on the same first 8 layers
-   (``MLA_PREFILL_LAYERS``; all 60 until PR 28, 16 until PR 29), 8 requests of 256 tokens
+   of one decode step.  (c) on the same first 4 layers
+   (``MLA_PREFILL_LAYERS``), 8 requests of 256 tokens
    (2048 prefill rows, capacity 96 an expert), one new token, twice: the launches exactly
    ``w1a8_matmul``, ``decoupled_matmul`` and ``int8_matmul``; TTFT and
    the routings dropped by capacity.  (d) ``ContinuousBatchingEngine`` on
@@ -326,7 +327,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the same, beside (b)'s.  (d) ``ContinuousBatchingEngine``, 4 slots of
    416 positions, 8 requests from ``SEED`` (prompts 16-384, 8-32 new;
    ``SSM_CB``), paged and dense, chunked prefill and (paged) the prefix
-   cache requested, on the first 24 layers: both declined with one log
+   cache requested, on the first 12 layers: both declined with one log
    line each, each request finished once by length, no chunked slice and
    no ``paged_attention``, the pool drained, dense equal to paged
    (``_declined_cb``); then phase 16 (c)'s rule on a
@@ -337,7 +338,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    leaf to the CPU's; then an 8-token ``forward_chunk`` against 8
    one-token steps from one prefill's cache: the first layer's conv tail
    bit for bit, the states and logits within ``LOGIT_TOL`` of their
-   largest.  (f) ``make_train_step`` on the first 24 layers
+   largest.  (f) ``make_train_step`` on the first 12 layers
    (bf16, remat, 4 x 2048 tokens): finite losses, step 0 moves nothing
    watched and step 1 every mixer leaf of the first layer, no host sync;
    ms a step, tokens/s, peak memory, model TFLOP/s (6 N T: the SSD's own
@@ -370,9 +371,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
    within ``FLOAT_NOISE``), and the model from a prefill's cache (act-quant
    codes compared site by site and token by token, the first that
    differs a rounding tie; the first layer's h within ``FLOAT_NOISE``).
-   (f) ``make_train_step`` at full depth (bf16, remat, 1 x 2048 tokens):
-   as phase 17 (f), model TFLOP/s with the 8 attention layers' term; then
+   (f) ``make_train_step`` on the first 8 layers (``HYB_TRAIN_LAYERS``:
+   2 repeats and the remainder, the full plan; bf16,
+   remat, 1 x 2048 tokens): as phase 17 (f), model TFLOP/s with the 2
+   attention layers' term; then
    the card vs CPU gradient check on (e)'s cut, judged as phase 14's.
+
+19. The encoder-decoder (``models/encdec.py``): whisper-large-v3 at full
+   width and depth (32 encoder + 32 decoder layers, d_model 1280, 20
+   heads of 64, d_ff 5120 GELU non-GLU, r 256, vocab 51866 tied, 32768
+   learned decoder positions, 1500 frames) from ``SEED``, packed, greedy,
+   f32 caches; the frames (the conv/mel frontend is a stub in both
+   packages) seeded embeddings.  (a) the export block by block (each
+   encoder and decoder layer alone, ``_encdec_export``), held leaf for
+   leaf, bit for bit, to the one-shot export; its GB by kind.  (b)
+   ``DecodeEngine`` with ``extra_inputs={"frames": ...}``, 4 requests of
+   1500 frames and 4 tokens, 16 new, caches of 448 positions: one
+   transfer, no plain version called, exactly the launches of
+   ``_encdec_launches`` (the prefill's encoder and cross K/V on the
+   prefill GEMMs over 6000 frame rows, its 16 prompt rows and each decode
+   forward on the GEMVs: 224 ``w1a8_gemv`` + 32 ``decoupled_gemv`` + 32
+   ``int8_matmul`` a decode forward); TTFT and ms/step of two generates;
+   ``generate_stream`` and ``BatchedServer.generate_python_loop`` equal
+   to ``generate``; the busy share of one decode step and the cache's
+   bytes a request (cross K/V and self K/V).  (c) phase 5's checks on a
+   2 + 2-layer cut at 2 x (1500 frames, 4 tokens), 8 new (the decode
+   tier's prompts may part at a rounding tie: the encoder's 3000 rows run
+   the prefill tier), and the cross K/V unchanged bit for bit over 3
+   decode steps.  (d) ``make_train_step`` at full depth (bf16, remat, 2 x
+   (1500 frames, 448 tokens)): as phase 17 (f), model TFLOP/s by
+   ``_encdec_flops``; then the card vs CPU gradient check on (c)'s cut at
+   1 x (1500 frames, 64 tokens), judged as phase 14's.
 
 Phase 3 also holds ``paged_attention`` at phase 16's longest suffix
 slice (T 128 at 256 over 16 slots of 512).  It holds the kernels at
@@ -406,7 +435,12 @@ And at phase 18's (tagged "rg"): recurrentgemma-2b's W1A8 linears (2560,
 2560), (2560, 256) (one KV head of 256) and (7680, 2560) and its fused
 pair (2560, 7680, 384) at (b)'s 4 decode rows and at 32, and on the GEMMs
 at (b)'s 1024 and (c)'s 4100 prefill rows; ``int8_matmul`` at (384,
-2560), held at 4, 32, 1024 and 4100 and timed at the last two.
+2560), held at 4, 32, 1024 and 4100 and timed at the last two.  And at
+phase 19's (tagged "wh"): whisper-large-v3's W1A8 linears (1280, 1280)
+and (5120, 1280) and its non-GLU up pair (1280, 5120, 256) at (b)'s 4
+decode rows, its 16 prompt rows and 32, and on the GEMMs at the
+encoder's 3000 and 6000 frame rows; ``int8_matmul`` at (256, 1280) at 4,
+16 and 6000 rows.
 Phase 3 also holds
 ``paged_attention`` against its plain version at phase 8's shapes (decode over ragged lengths up to 512, f32 and bf16 pools, GQA;
 a 64-token chunked slice) within ``PA_ATOL``, beside its bound and the
@@ -470,6 +504,11 @@ launch counts and summary.
     python3 chip_smoke.py --hybrid
 
 runs phases 1, 2 and 18 alone and prints one JSON line of phase 18's
+launch counts and summary.
+
+    python3 chip_smoke.py --encdec
+
+runs phases 1, 2 and 19 alone and prints one JSON line of phase 19's
 launch counts and summary.
 
     python3 chip_smoke.py --prefix
@@ -576,6 +615,15 @@ RG_W1A8_SHAPES = ((2560, 2560), (2560, 256), (7680, 2560))
 RG_DECOUPLED_SHAPE = (2560, 7680, 384)
 RG_INT8_SHAPE = (384, 2560)
 RG_DECODE_ROWS, RG_PREFILL_ROWS = (4, 32), (1024, 4100)
+# whisper-large-v3's shapes (phase 19): the W1A8 linears (K, N): every
+# attention projection (1280, 1280), the FFN's w1_down (5120, 1280); the
+# non-GLU up pair (K, N, r) and w8_down (K, N); the rows of [19]: (b)'s 4
+# decode rows, its prompt's 4 x 4 = 16 and 32 beside _int_mm, and the
+# encoder's 2 x 1500 ((c)'s cut) and 4 x 1500 ((b)) frame rows
+WH_W1A8_SHAPES = ((1280, 1280), (5120, 1280))
+WH_DECOUPLED_SHAPE = (1280, 5120, 256)
+WH_INT8_SHAPE = (256, 1280)
+WH_DECODE_ROWS, WH_PREFILL_ROWS = (4, 16, 32), (3000, 6000)
 MAIN_ROWS = 4  # decode rows of the decode-tier path (4 requests)
 SLOT_ROWS = 16  # decode rows of the continuous-batching path (16 slots)
 BF16_GEMV_ROWS = (MAIN_ROWS, SLOT_ROWS, 32)  # the GEMV rows also timed in bf16
@@ -930,6 +978,25 @@ def phase_kernels(torch, peaks, only=None):
         log("[3] int8_matmul routes (M, K, N) at [18]'s shapes: " + ", ".join(
             f"{(m, k, n)} {int8_matmul_route(m, k, n)}"
             for m in RG_DECODE_ROWS + RG_PREFILL_ROWS))
+        # whisper-large-v3's w8_down (K 256, N 1280): held in f32 and bf16,
+        # timed in f32 at [19]'s 4 decode rows, its 16 prompt rows and the
+        # encoder's 6000 frame rows (beside _int_mm, which takes M > 16)
+        k, n = WH_INT8_SHAPE
+        ws = [int8(k, n) for _ in range(_copies(k * n))]
+        wh_rows = (WH_DECODE_ROWS[0], WH_DECODE_ROWS[1], WH_PREFILL_ROWS[-1])
+        for m in wh_rows:
+            x, gamma = int8(m, k), scales(m)
+            err = max(_close(int8_matmul(x, ws[0], gamma, wscale, dt).float(),
+                             int8_matmul_plain(x, ws[0], gamma, wscale, dt).float())
+                      for dt in dtypes)
+            b = bound(m * k + k * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("int8_matmul", m, (k, n), err,
+                   lambda i: int8_matmul(x, ws[i % len(ws)], gamma, wscale),
+                   lambda i: int8_matmul_plain(x, ws[0], gamma, wscale), b,
+                   (lambda i: torch._int_mm(x, ws[i % len(ws)])) if m > 16 else None, tag="wh")
+        del ws
+        log("[3] int8_matmul routes (M, K, N) at [19]'s shapes: " + ", ".join(
+            f"{(m, k, n)} {int8_matmul_route(m, k, n)}" for m in wh_rows))
 
     def rows_w1a8_gemv():
         # decode tier: fused act-quant GEMV (M <= 32); held exactly for x
@@ -1048,6 +1115,25 @@ def phase_kernels(torch, peaks, only=None):
                        lambda i: wg.w1a8_gemv_plain(x, ws[0], lam), b,
                        (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
                        tag="rg")
+            del ws, w_lib
+        # [19]'s shapes (whisper-large-v3: the projections' (1280, 1280),
+        # w1_down's (5120, 1280)): held in f32 and bf16, timed in f32 at
+        # (b)'s 4 decode rows, its 16 prompt rows and 32 beside _int_mm
+        for k, n in WH_W1A8_SHAPES:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            for m in WH_DECODE_ROWS:
+                x = torch.randn((m, k), generator=gen, **f32)
+                err = max(_close(wg.w1a8_gemv(x.to(dt), ws[0], lam, dt).float(),
+                                 wg.w1a8_gemv_plain(x.to(dt), ws[0], lam, dt).float())
+                          for dt in dtypes)
+                x_lib = int8(m, k)
+                b = bound(m * k * 4 + k // 8 * n + 4 + m * n * 4, 2 * m * k * n)
+                record("w1a8_gemv", m, (k, n), err,
+                       lambda i: wg.w1a8_gemv(x, ws[i % len(ws)], lam),
+                       lambda i: wg.w1a8_gemv_plain(x, ws[0], lam), b,
+                       (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                       tag="wh")
             del ws, w_lib
 
     def rows_decoupled_gemv():
@@ -1212,6 +1298,29 @@ def phase_kernels(torch, peaks, only=None):
                    (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
                    tag="rg")
         del w1s, w8s, w_lib
+        # [19]'s non-GLU up pair (N 5120, r 256): held in f32 and bf16,
+        # timed in f32 at (b)'s 4 decode rows, its 16 prompt rows and 32
+        k, n, r = WH_DECOUPLED_SHAPE
+        w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+        w8s = [int8(k, r) for _ in w1s]
+        w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+        for m in WH_DECODE_ROWS:
+            x = torch.randn((m, k), generator=gen, **f32)
+            err = 0.0
+            for dt in dtypes:
+                got = wg.decoupled_gemv(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                want = wg.decoupled_gemv_plain(x.to(dt), w1s[0], w8s[0], *sc, dt)
+                err = max(err, _close(got[0].float(), want[0].float()),
+                          _close(got[1].float(), want[1].float()))
+            x_lib = int8(m, k)
+            b = bound(m * k * 4 + k // 8 * n + k * r + 16 + m * (n + r) * 4,
+                      2 * m * k * (n + r))
+            record("decoupled_gemv", m, (k, n, r), err,
+                   lambda i: wg.decoupled_gemv(x, w1s[i % len(w1s)], w8s[i % len(w8s)], *sc),
+                   lambda i: wg.decoupled_gemv_plain(x, w1s[0], w8s[0], *sc), b,
+                   (lambda i: torch._int_mm(x_lib, w_lib)) if m == LIB_GEMV_ROWS else None,
+                   tag="wh")
+        del w1s, w8s, w_lib
 
     def rows_w1a8_matmul():
         # prefill tier on pre-quantized rows (M > 32): held exactly in f32
@@ -1338,6 +1447,25 @@ def phase_kernels(torch, peaks, only=None):
             del ws, w_lib
         log("[3] w1a8_matmul routes (M, K, N) at [18]'s shapes: " + ", ".join(
             f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s, m in rg_rows))
+        # [19]'s shapes at the encoder's 3000 and 6000 frame rows (the
+        # cut's and (b)'s; the cross wk / wv run (1280, 1280) over them
+        # too): held exactly in f32 and bf16, timed in f32 beside _int_mm
+        wh_rows = [(s, m) for s in WH_W1A8_SHAPES for m in WH_PREFILL_ROWS]
+        for (k, n), m in wh_rows:
+            ws = [packed(k, n) for _ in range(_copies(k // 8 * n))]
+            w_lib = unpack_ref(ws[0])
+            x, gamma = int8(m, k), scales(m)
+            err = max(_close(wm.w1a8_matmul(x, ws[0], gamma, lam, dt).float(),
+                             wm.w1a8_matmul_plain(x, ws[0], gamma, lam, dt).float())
+                      for dt in dtypes)
+            b = bound(m * k + k // 8 * n + m * 4 + 4 + m * n * 4, 2 * m * k * n)
+            record("w1a8_matmul", m, (k, n), err,
+                   lambda i: wm.w1a8_matmul(x, ws[i % len(ws)], gamma, lam),
+                   lambda i: wm.w1a8_matmul_plain(x, ws[0], gamma, lam), b,
+                   lambda i: torch._int_mm(x, w_lib), tag="wh", nops=2 * m * k * n)
+            del ws, w_lib
+        log("[3] w1a8_matmul routes (M, K, N) at [19]'s shapes: " + ", ".join(
+            f"{(m,) + s} {wm.w1a8_matmul_route(m, *s)}" for s, m in wh_rows))
 
     def rows_decoupled_matmul():
         # held exactly in f32 and bf16 and timed in f32 at every M (the
@@ -1503,6 +1631,31 @@ def phase_kernels(torch, peaks, only=None):
         del w1s, w8s, w_lib
         log("[3] decoupled_matmul routes (M, K, N, r) at [18]'s shapes: " + ", ".join(
             f"{(m, k, n, r)} {route(m, k, n, r)}" for m in RG_PREFILL_ROWS))
+        # [19]'s non-GLU up pair (N 5120, r 256) at the encoder's 3000 and
+        # 6000 frame rows: held exactly in f32 and bf16, timed in f32
+        # beside _int_mm
+        k, n, r = WH_DECOUPLED_SHAPE
+        w1s = [packed(k, n) for _ in range(_copies(k // 8 * n + k * r))]
+        w8s = [int8(k, r) for _ in w1s]
+        w_lib = torch.cat([unpack_ref(w1s[0]), w8s[0]], dim=1)
+        for m in WH_PREFILL_ROWS:
+            x, gamma = int8(m, k), scales(m)
+            err = 0.0
+            for dt in dtypes:
+                got = decoupled_matmul(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                want = decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc, out_dtype=dt)
+                err = max(err, _close(got[0].float(), want[0].float()),
+                          _close(got[1].float(), want[1].float()))
+            b = bound(m * k + k // 8 * n + k * r + m * 4 + 16 + m * (n + r) * 4,
+                      2 * m * k * (n + r))
+            record("decoupled_matmul", m, (k, n, r), err,
+                   lambda i: decoupled_matmul(x, w1s[i % len(w1s)], w8s[i % len(w8s)], gamma,
+                                              *sc),
+                   lambda i: decoupled_matmul_plain(x, w1s[0], w8s[0], gamma, *sc), b,
+                   lambda i: torch._int_mm(x, w_lib), tag="wh", nops=2 * m * k * (n + r))
+        del w1s, w8s, w_lib
+        log("[3] decoupled_matmul routes (M, K, N, r) at [19]'s shapes: " + ", ".join(
+            f"{(m, k, n, r)} {route(m, k, n, r)}" for m in WH_PREFILL_ROWS))
 
     def rows_rmsnorm_quant():
         # timed on bf16 and f32 rows of d_model at the prefill rows, x
@@ -1764,18 +1917,20 @@ def _layer_launches(cfg, per_layer: dict, forwards: int) -> tuple[dict, str]:
             "forwards")
 
 
-def _counted_generate(torch, eng, prompts, greedy, want: dict, how: str, tag: str):
+def _counted_generate(torch, eng, prompts, greedy, want: dict, how: str, tag: str,
+                      extra=None):
     """One ``generate`` between a reset and a read of the launch counters:
     checks one host transfer and, for each kernel in ``want``, exactly
     ``want[kernel]`` launches (``how`` says how they were counted).
-    Returns (stream, launches, wall seconds)."""
+    ``extra``: the generate's ``extra_inputs`` (an encoder-decoder's
+    frames).  Returns (stream, launches, wall seconds)."""
     from repro_torch.kernels import _cuda
 
     before = eng.host_transfers
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    stream = eng.generate(prompts, greedy)
+    stream = eng.generate(prompts, greedy, extra)
     t_gen = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     if eng.host_transfers - before != 1:
@@ -2058,7 +2213,7 @@ def _compare_act_quant(torch, card, cpu, names=("card", "cpu")) -> dict:
 
 def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool = False,
               cut=None, prefill_tier: bool = True, replay_choices: bool = False,
-              new_tokens: int = CUT_NEW_TOKENS):
+              new_tokens: int = CUT_NEW_TOKENS, extra=None):
     """The first CUT_LAYERS layers at the decode-tier prompts (PR 11's
     check) and at CUT_PREFILL_BATCH x PROMPT tokens (the prefill tier in
     every forward), each run three ways: on the card, on the card with
@@ -2095,7 +2250,8 @@ def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool
     between two devices.  The choices the card computes are still counted
     against the CPU's.  ``new_tokens``: the greedy tokens a stream (phase 14
     takes 4: each CPU decode step of a gemma3-27b layer unpacks 0.4e9
-    signs)."""
+    signs).  ``extra``: the decode-tier prompts' extra model inputs, on
+    the CPU (phase 19: an encoder-decoder's frames)."""
     import contextlib
 
     from repro_torch.kernels import _cuda
@@ -2126,10 +2282,13 @@ def phase_cut(torch, params, cfg, prompts, tag: str = "5", decode_may_part: bool
             kernels = _PlainKernels() if plain else contextlib.nullcontext()
             replay = out["cpu"][4] if replay_choices and name != "cpu" else None
             with _ActQuantTrace() as trace, kernels, _ExpertChoices(replay) as routed:
-                logits, _ = api.prefill(tree, {"tokens": batch_prompts.to(dev)}, cut, max_len)
+                inputs = extra if batch_prompts is prompts else None
+                batch = {"tokens": batch_prompts.to(dev),
+                         **{k: v.to(dev) for k, v in (inputs or {}).items()}}
+                logits, _ = api.prefill(tree, batch, cut, max_len)
                 n_prefill = len(routed.choices)
                 stream = DecodeEngine(tree, cut, max_len=max_len, device=dev).generate(
-                    batch_prompts, greedy)
+                    batch_prompts, greedy, inputs)
             launched = sum(_cuda.LAUNCHES.values())
             if launched == 0 if name == "card" else launched:
                 raise AssertionError(f"{name}: {launched} kernel launches")
@@ -2768,11 +2927,20 @@ FLIP_RATE = 1e-4
 TIE_NOISE = 1e-3
 
 
-def _train_batch(torch, vocab: int, b: int, s: int, seed: int, device):
+def _train_batch(torch, vocab: int, b: int, s: int, seed: int, device, frames=None):
     """b sequences of s tokens from a seeded generator; labels are the next
-    tokens."""
-    toks = torch.randint(0, vocab, (b, s + 1), generator=torch.Generator().manual_seed(seed))
-    return {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+    tokens.  ``frames`` (F, D): an encoder-decoder's seeded frames too."""
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, vocab, (b, s + 1), generator=gen)
+    batch = {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+    if frames is not None:
+        batch["frames"] = torch.randn((b,) + tuple(frames), generator=gen).to(device)
+    return batch
+
+
+def _frame_shape(cfg):
+    """(F, D) of an encoder-decoder's frames, else None."""
+    return (cfg.n_frontend_tokens, cfg.d_model) if cfg.family == "encdec" else None
 
 
 def _train_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
@@ -2785,7 +2953,10 @@ def _train_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
     and AV at H d_v, 2 B S^2 H d each in the forward, over all S^2: no
     causal skip; under MLA d_qk = qk_nope + qk_rope and d_v = v_head_dim,
     else both head_dim), T = B S tokens; remat runs the layers' forward
-    again (their weights: N without the vocabulary tables)."""
+    again (their weights: N without the vocabulary tables).  An
+    encoder-decoder's are :func:`_encdec_flops`'s."""
+    if cfg.family == "encdec":
+        return _encdec_flops(cfg, b, s)[:2]
     t = b * s
     tables = cfg.vocab_size * cfg.d_model
     d_qk, d_v = _attn_widths(cfg)
@@ -2793,6 +2964,35 @@ def _train_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
     model = 6 * (n_params - (0 if cfg.tie_embeddings else tables)) * t + 3 * attn
     layer_params = n_params - tables * (1 if cfg.tie_embeddings else 2)
     return model, model + 2 * layer_params * t + attn
+
+
+def _encdec_flops(cfg, b: int, s: int) -> tuple[float, float, str]:
+    """(model FLOPs of one training step, with remat's second forward, the
+    formula with this step's numbers) of an encoder-decoder at ``b`` x
+    (F frames, ``s`` tokens): 6 x the matmul weights x the rows each sees
+    (an encoder layer's over B F frame rows; each decoder layer's cross
+    ``wk`` / ``wv`` over them too, its other weights and the tied
+    unembedding over B S token rows; the learned positions are a gather)
+    plus 6 x the attention matmuls (2 Sq Sk H (d_qk + d_v) a sequence and
+    layer forward: the encoder's F x F, the decoder's S x S and S x F);
+    remat runs the layers' forward again."""
+    d, hd, h, kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    f, ne, nd = cfg.n_frontend_tokens, cfg.n_enc_layers, cfg.n_layers
+    r = cfg.quant.r if cfg.quant.mode == "pquant" else 0
+    attn_w = d * (h + 2 * kv) * hd + h * hd * d
+    ffn_w = 2 * d * cfg.d_ff + 2 * d * r
+    cross_kv = 2 * d * kv * hd
+    head = cfg.vocab_size * d * b * s
+    layers = ((attn_w + ffn_w) * ne * b * f + cross_kv * nd * b * f
+              + (2 * attn_w - cross_kv + ffn_w) * nd * b * s)
+    attn = 2 * h * 2 * hd * b * (ne * f * f + nd * (s * s + s * f))
+    model = 6 * (layers + head) + 3 * attn
+    text = (f"6 x (encoder weights {attn_w + ffn_w} x {ne} layers x {b} x {f} frame rows + cross "
+            f"wk/wv {cross_kv} x {nd} layers x {b} x {f} + the decoder's other weights "
+            f"{2 * attn_w - cross_kv + ffn_w} x {nd} layers x {b} x {s} token rows + the tied "
+            f"unembedding {cfg.vocab_size * d} x {b} x {s}) + 6 x 2 x {h} heads x {2 * hd} x "
+            f"{b} x ({ne} x {f}^2 + {nd} x ({s}^2 + {s} x {f})) attention")
+    return model, model + 2 * layers + attn, text
 
 
 def _attn_layers(cfg) -> int:
@@ -2813,6 +3013,8 @@ def _attn_widths(cfg) -> tuple[int, int]:
 
 def _flops_formula(cfg, n_params: int, b: int, s: int) -> str:
     """:func:`_train_flops`'s model FLOPs written out with this step's numbers."""
+    if cfg.family == "encdec":
+        return _encdec_flops(cfg, b, s)[2]
     d_qk, d_v = _attn_widths(cfg)
     n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
     if cfg.family == "ssm":
@@ -3018,7 +3220,8 @@ def _loss_grads(torch, params, batch, cfg, record, replay=None, choice_replay=No
 
 
 def phase_train_cut(torch, n_experts: int = 1, tag: str = "10", cfg=None,
-                    init_on_card: bool = False, f32_noise: bool = False):
+                    init_on_card: bool = False, f32_noise: bool = False,
+                    seqs: int = TRAIN_CUT_BATCH):
     """[10] card vs CPU: one loss_fn with gradients of a 2-layer cut of
     pquant-1.3b (with ``n_experts`` experts) in f32 (remat off) at
     TRAIN_CUT_BATCH x TRAIN_CUT_SEQ tokens, by the CPU tests' rule.  With
@@ -3038,7 +3241,9 @@ def phase_train_cut(torch, n_experts: int = 1, tag: str = "10", cfg=None,
     summation bound, and is another leaf that misses judged against an f64
     run on the card (``F32_UNIT``'s comment).  ``init_on_card`` draws the
     latents on the card and copies them to the CPU (phase 14: gemma3-27b's
-    262144 x 5376 embedding, slow to draw on the CPU)."""
+    262144 x 5376 embedding, slow to draw on the CPU).  ``seqs``: the
+    sequences of TRAIN_CUT_SEQ tokens (phase 19: one, with its 1500
+    frames)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import api
     from repro_torch.optim.adamw import tree_map, tree_paths
@@ -3053,7 +3258,8 @@ def phase_train_cut(torch, n_experts: int = 1, tag: str = "10", cfg=None,
         torch.cuda.empty_cache()
     else:
         params = api.init_model(SEED, cfg, device=cpu)
-    batch = _train_batch(torch, cfg.vocab_size, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, SEED, cpu)
+    batch = _train_batch(torch, cfg.vocab_size, seqs, TRAIN_CUT_SEQ, SEED, cpu,
+                         _frame_shape(cfg))
     t0 = time.perf_counter()
     rec_cpu, rec_card, rec_replay = [], [], []
     loss_cpu, g_cpu, ch_cpu = _loss_grads(torch, params, batch, cfg, rec_cpu)
@@ -3120,7 +3326,7 @@ def phase_train_cut(torch, n_experts: int = 1, tag: str = "10", cfg=None,
                    f"{AMAX_TOL if routed_cfg else GRAD_RTOL}, 0-d {AMAX_TOL}; the AbsMax elements "
                    f"at most {worst_of_rule:.3f} of their rule"
                    + (" or f32 summation bound)" if f32_noise else ")"))
-    log(f"[{tag}] card vs CPU, {cfg.n_layers} layers in f32, {TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ} "
+    log(f"[{tag}] card vs CPU, {cfg.n_layers} layers in f32, {seqs} x {TRAIN_CUT_SEQ} "
         f"tokens: loss {loss_card:.7f} / {loss_cpu:.7f} (replayed {loss_rep:.7f}; CPU "
         f"{t_cpu:.1f} s); {f['primary']} primary act-quant flips, {f['differ']} codes differ of "
         f"{f['codes']}, {f['tokens']} of {f['of']} tokens met one{routed}; gradients within "
@@ -3622,7 +3828,7 @@ def _train_cell(torch, smi: str, cfg, tag: str, part: str, batch: int, seq: int,
         f"GB, init {time.perf_counter() - t0:.1f} s; {batch} x {seq} tokens a step, "
         f"{cfg.dtype} forward, remat {cfg.remat}")
     step = trainer.make_train_step(cfg, TRAIN_TOTAL_STEPS)
-    batches = [_train_batch(torch, cfg.vocab_size, batch, seq, SEED + i, dev)
+    batches = [_train_batch(torch, cfg.vocab_size, batch, seq, SEED + i, dev, _frame_shape(cfg))
                for i in range(TRAIN_WARMUP + n_timed + 1)]
     watched, per_expert = watch(state.params)
     before = {name: t[0].clone() for name, t in watched.items()}
@@ -3855,7 +4061,10 @@ def _block_export(torch, cfg, one_shot: bool = False, latent: bool = False):
     whole latent tree exported at once: the reference the block-by-block
     export must equal (deepseek-moe-16b's 16.4e9, gemma3-27b's 28.0e9 and
     deepseek-v2-236b's 236e9 f32 latents fit on the card only as a cut).
-    ``latent`` returns the one-shot latent tree itself, unexported."""
+    ``latent`` returns the one-shot latent tree itself, unexported.  An
+    encoder-decoder's is :func:`_encdec_export`'s."""
+    if cfg.family == "encdec":
+        return _encdec_export(torch, cfg, one_shot, latent)
     from repro_torch.models import transformer
     from repro_torch.models.layers import init_embedding, init_rmsnorm
     from repro_torch.train.quantized_serving import quantize_params_for_serving as export
@@ -4130,15 +4339,13 @@ SWA_CB_LAYERS = 6
 # the 48-token prompts wrap
 SWA_CUT_WINDOW, SWA_CUT_PROMPT, SWA_CUT_NEW = 32, 48, 2  # 2 new, not 4: room for [15]
 # (e): every ring (4096) wraps in the prefill; on the first DANUBE_SERVE_LAYERS
-# layers, not all 24: the whole run keeps room for [15] and [17] (8 until
-# PR 28)
+# layers, not all 24: the whole run keeps room for [15]-[19]
 DANUBE_BATCH, DANUBE_PROMPT, DANUBE_NEW, DANUBE_MAX_LEN = 2, 4160, 8, 4224
-DANUBE_SERVE_LAYERS = 4
+DANUBE_SERVE_LAYERS = 2
 # (f): positions past the 4096 window in one sequence
 DANUBE_TRAIN_BATCH, DANUBE_TRAIN_SEQ, DANUBE_TRAIN_TIMED = 1, 6144, 2
-# (f) on the first 6 of the 24 layers (all 24 until PR 28, 12 until PR 29:
-# room for [17] and [18])
-DANUBE_TRAIN_LAYERS = 6
+# (f) on the first 3 of the 24 layers: room for [17]-[19]
+DANUBE_TRAIN_LAYERS = 3
 
 
 class _PlainCalls:
@@ -4439,11 +4646,10 @@ MLA_EXPORT_CHECK_LAYERS = 3
 # (b) the decode tier: the prefill's 128 rows run the prefill GEMMs, each
 # decode step's 4 rows the GEMVs, its latent expansion the 4 x 40 cache rows
 MLA_BATCH, MLA_PROMPT, MLA_NEW = 4, 32, 8
-# (b) on the dense layer and the first 7 MoE layers (60 before PR 27, 30
-# before PR 28, 16 before PR 29: room for [16]-[18])
-MLA_DECODE_LAYERS = 8
+# (b) on the dense layer and the first 3 MoE layers: room for [16]-[19]
+MLA_DECODE_LAYERS = 4
 MLA_P_BATCH, MLA_P_PROMPT = 8, 256  # (c) the prefill tier: 2048 rows
-# (c) on the same 8 layers (all 60 until PR 28, 16 until PR 29: room for [17] and [18])
+# (c) on the same 4 layers: room for [17]-[19]
 MLA_PREFILL_LAYERS = MLA_DECODE_LAYERS
 # (d): a 4-layer cut (1 dense + 3 MoE) of the export, 4 slots of 272
 # positions, 5 requests (4 at tick 0), prompts of 16-256 tokens, 4-8 new
@@ -4537,16 +4743,19 @@ def phase_mla_export(torch, cfg):
 
 
 def _mla_generate(torch, cfg, params, prompts, new: int, want: dict, how: str, part: str,
-                  tag: str = "15"):
+                  tag: str = "15", extra=None, max_len=None):
     """One counted ``DecodeEngine`` generate of ``new`` greedy tokens (no
     plain version called), its TTFT read where its prefill ends (a
     synchronize there), then a second generate that must repeat the
     stream.  Returns (launches, {ttft_ms, generate_ms: both runs, medians,
-    ms_per_step, tokens_per_s}, the engine); ``tag`` labels the lines."""
+    ms_per_step, tokens_per_s}, the engine); ``tag`` labels the lines.
+    ``extra``: the generates' ``extra_inputs``; ``max_len``: the engine's
+    cache length (default the prompt and the new tokens)."""
     from repro_torch.serve.engine import DecodeEngine, SamplerConfig
 
     greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=new)
-    eng = DecodeEngine(params, cfg, max_len=prompts.shape[1] + new, device=torch.device("cuda"))
+    eng = DecodeEngine(params, cfg, max_len=max_len or prompts.shape[1] + new,
+                       device=torch.device("cuda"))
     ends = []
     prefill = eng._prefill
 
@@ -4560,11 +4769,12 @@ def _mla_generate(torch, cfg, params, prompts, new: int, want: dict, how: str, p
     walls, ttfts = [], []
     with _PlainCalls() as plain:
         t0 = time.perf_counter()
-        stream, launches, wall = _counted_generate(torch, eng, prompts, greedy, want, how, tag)
+        stream, launches, wall = _counted_generate(torch, eng, prompts, greedy, want, how, tag,
+                                                   extra)
         ttfts.append(ends[-1] - t0)
         walls.append(wall)
         t0 = time.perf_counter()
-        again = eng.generate(prompts, greedy)
+        again = eng.generate(prompts, greedy, extra)
         walls.append(time.perf_counter() - t0)
         ttfts.append(ends[-1] - t0)
     if plain.calls:
@@ -5438,9 +5648,9 @@ SSM_CB = CBLoad(4, 416, 8, 4, (16, 384), (8, 32))
 SSM_CUT_LAYERS, SSM_CUT_EXPERTS = 2, 8  # (e): the first 2 layers, at N = 1 and N = 8
 SSM_STEPS_T = 8  # (e): a chunk of 8 tokens against 8 one-token steps
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_TIMED = 4, 2048, 2  # (f)
-# (d)'s engines and (f)'s step on the first 24 of the 48 layers (all 48
-# until PR 29: room for [18])
-SSM_CB_LAYERS = SSM_TRAIN_LAYERS = 24
+# (d)'s engines and (f)'s step on the first 12 of the 48 layers: room for
+# [18] and [19]
+SSM_CB_LAYERS = SSM_TRAIN_LAYERS = 12
 
 
 def _ssm_launches(cfg, rows: int) -> dict:
@@ -5455,12 +5665,13 @@ def _ssm_launches(cfg, rows: int) -> dict:
 
 def _bytes_by_kind(torch, tree) -> tuple[int, dict]:
     """An export's bytes, in all and by kind: packed 1-bit, int8, the
-    embedding table(s), an RG-LRU model's f32 gates ``wa`` and ``wi``, and
-    the other floats (norms, scales, conv and SSD or RG-LRU parameters)."""
+    embedding table(s), an encoder-decoder's learned positions, an RG-LRU
+    model's f32 gates ``wa`` and ``wi``, and the other floats (norms, scales, conv and SSD or RG-LRU parameters)."""
     by_kind = collections.Counter()
     for k, t in _tree_paths(tree):
         kind = ("packed 1-bit" if t.dtype == torch.uint8 else "int8" if t.dtype == torch.int8
                 else "f32 embedding" if k.startswith(("/embed/", "/lm_head/"))
+                else "f32 learned positions" if k.startswith("/dec_pos/")
                 else "f32 RG-LRU gates" if "/mixer/wa/" in k or "/mixer/wi/" in k
                 else "other float")
         by_kind[kind] += t.numel() * t.element_size()
@@ -5878,7 +6089,10 @@ HYB_CB_LAYERS = 6
 # pattern: one (rec, rec, attn) repeat and the remainder segment (rec)
 HYB_CUT_LAYERS = 4
 HYB_STEPS_T = 8  # (e): a chunk of 8 tokens against 8 one-token steps
-HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB_TRAIN_TIMED = 1, 2048, 2  # (f), at full depth
+HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB_TRAIN_TIMED = 1, 2048, 2  # (f)
+# (f)'s step on the first 8 of the 26 layers: 2 (rec, rec, attn) repeats
+# and the remainder (rec, rec), the full model's plan: room for [19]
+HYB_TRAIN_LAYERS = 8
 
 
 def _n_blocks(cfg, mixer: str) -> int:
@@ -6092,7 +6306,7 @@ def phase_hybrid(torch, smi: str) -> tuple[dict, dict]:
     HYB_LONG_LAYERS layers) and the continuous batcher ((d), on
     HYB_CB_LAYERS layers); a
     HYB_CUT_LAYERS-layer cut on the card and the CPU and a chunk against
-    decode steps ((e)); trained at full depth, and the cut's gradients held
+    decode steps ((e)); trained on HYB_TRAIN_LAYERS layers, and the cut's gradients held
     card vs CPU ((f)).  Returns ({kernel: launches of the counted runs},
     summary)."""
     from repro_torch.configs.registry import get_config
@@ -6161,7 +6375,8 @@ def phase_hybrid(torch, smi: str) -> tuple[dict, dict]:
         got.update({f"ffn/{name}": b0["ffn"][name] for name in ("w1_gate", "w8_down")})
         return got, ()
 
-    summary["train"] = _train_cell(torch, smi, cfg, "18", "(f)", HYB_TRAIN_BATCH,
+    summary["train"] = _train_cell(torch, smi, dataclasses.replace(cfg, n_layers=HYB_TRAIN_LAYERS),
+                                   "18", "(f)", HYB_TRAIN_BATCH,
                                    HYB_TRAIN_SEQ, HYB_TRAIN_TIMED, watch,
                                    lambda n: (n, "every parameter"))
     # the cut at full width: each device's own f32 noise reaches GRAD_RTOL
@@ -6171,6 +6386,252 @@ def phase_hybrid(torch, smi: str) -> tuple[dict, dict]:
         torch, tag="18", cfg=dataclasses.replace(cut, dtype="float32", remat=False),
         init_on_card=True, f32_noise=True)
     log(f"[time] [18] (f) done at {time.perf_counter() - t0:.1f} s")
+    summary["card"] = smi
+    return launches, summary
+
+
+WH_ARCH = "whisper-large-v3"
+# (b): 4 requests of 1500 frames and a 4-token prompt, 16 new tokens (room
+# in the run's time limit), into caches of Whisper's own 448-position
+# decoder cap
+WH_BATCH, WH_PROMPT, WH_NEW, WH_MAX_LEN = 4, 4, 16, 448
+# (c) and (d)'s gradient cut: the first 2 encoder and 2 decoder layers;
+# (c) at 2 requests, 8 new tokens
+WH_CUT_LAYERS, WH_CUT_BATCH = 2, 2
+WH_STEPS = 3  # (c): decode steps over which the cross K/V must stay bit for bit
+# (d) at full depth, one timed step; the gradient cut on one sequence (not
+# TRAIN_CUT_BATCH's 2): room in the run's time limit
+WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_TRAIN_TIMED, WH_GRAD_BATCH = 2, 448, 1, 1
+
+
+def _frames(torch, cfg, b: int, seed: int):
+    """``b`` requests' seeded (F, D) frame embeddings, on the CPU."""
+    return torch.randn((b, cfg.n_frontend_tokens, cfg.d_model),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def _encdec_launches(cfg, rows: int, enc_rows: int = 0) -> dict:
+    """Kernel launches of one packed encoder-decoder forward over ``rows``
+    decoder token rows and ``enc_rows`` frame rows (0: a decode step, the
+    cross K/V cached): each decoder layer's self q/k/v/o, cross q/o and
+    FFN ``w1_down`` on the W1A8 kernel (the decode GEMV at most 32 rows,
+    else the prefill GEMM), its non-GLU up pair on the fused kernel (one
+    launch) and ``w8_down`` on ``int8_matmul``; over the frames each
+    encoder layer's q/k/v/o and ``w1_down``, each decoder layer's cross
+    ``wk`` / ``wv``, the encoder's up pairs and ``w8_down``; no layer on
+    the paged pool."""
+    def tier(m):
+        return ("w1a8_gemv", "decoupled_gemv") if m <= 32 else ("w1a8_matmul", "decoupled_matmul")
+
+    one, two = tier(rows)
+    out = dict({k: 0 for k in MOE_KERNELS}, paged_attention=0)
+    out = _add(out, {one: 7 * cfg.n_layers, two: cfg.n_layers, "int8_matmul": cfg.n_layers})
+    if enc_rows:
+        one, two = tier(enc_rows)
+        out = _add(out, {one: 5 * cfg.n_enc_layers + 2 * cfg.n_layers, two: cfg.n_enc_layers,
+                         "int8_matmul": cfg.n_enc_layers})
+    return out
+
+
+def _encdec_export(torch, cfg, one_shot: bool = False, latent: bool = False):
+    """:func:`_block_export` of an encoder-decoder: each encoder and
+    decoder layer's latents from a generator of its own, exported alone
+    and stacked on the layer axis (with ``one_shot``: stacked first and
+    the whole tree exported at once; ``latent``: the latent tree); the
+    tied embedding, the learned positions and the norms stay float."""
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import init_embedding, init_learned_pos, init_rmsnorm
+    from repro_torch.train.quantized_serving import quantize_params_for_serving as export
+
+    dev = torch.device("cuda")
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(SEED * 1000 + i)
+
+    def stack(init, first: int, n: int):
+        def layer(i):
+            tree = init(gen(1 + first + i), cfg, (), dev)
+            return tree if one_shot or latent else export(tree, cfg, packed=True)
+        return _stacked(layer, n)
+
+    ne, nd = cfg.n_enc_layers, cfg.n_layers
+    tree = {"embed": init_embedding(gen(0), cfg.vocab_size, cfg.d_model, dev),
+            "dec_pos": init_learned_pos(gen(1 + ne + nd), cfg.max_seq_len, cfg.d_model, dev),
+            "encoder": stack(encdec._init_enc_layer, 0, ne),
+            "decoder": stack(encdec._init_dec_layer, ne, nd),
+            "enc_final_norm": init_rmsnorm(cfg.d_model, (), dev),
+            "final_norm": init_rmsnorm(cfg.d_model, (), dev)}
+    if latent:
+        return tree
+    return export(tree, cfg, packed=True) if one_shot else tree
+
+
+def _encdec_cut(params, cfg, n: int):
+    """(params, cfg) of the first ``n`` encoder and ``n`` decoder layers."""
+    cut = dict(params)
+    for k in ("encoder", "decoder"):
+        cut[k] = _tree(lambda t: t[:n].contiguous(), params[k])
+    return cut, dataclasses.replace(cfg, n_layers=n, n_enc_layers=n)
+
+
+def _encdec_serving(torch, cfg, params) -> tuple[dict, dict]:
+    """[19] (b): ``DecodeEngine`` with the frames as ``extra_inputs``:
+    counted and repeated generates (``_mla_generate``), then
+    ``generate_stream`` and ``BatchedServer.generate_python_loop`` against
+    ``generate``; one decode step's time and busy share at the prompt's
+    end; the cache's bytes a request by kind.  Returns (launches,
+    summary)."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.serve.engine import SamplerConfig
+    from repro_torch.train.serve import BatchedServer
+
+    dev = torch.device("cuda")
+    b, s = WH_BATCH, WH_PROMPT
+    prompts = torch.randint(0, cfg.vocab_size, (b, s),
+                            generator=torch.Generator().manual_seed(SEED))
+    extra = {"frames": _frames(torch, cfg, b, SEED + 1)}
+    prefill = _encdec_launches(cfg, b * s, b * cfg.n_frontend_tokens)
+    decode = _encdec_launches(cfg, b)
+    # warm-up: run alone (--encdec), the first prefill loads the f32 GEMM and
+    # SDPA kernels of its shapes (seconds), which TTFT must not count
+    api.prefill(params, {"tokens": prompts.to(dev), "frames": extra["frames"].to(dev)}, cfg,
+                WH_MAX_LEN)
+    torch.cuda.synchronize()
+    launches, summary, eng = _mla_generate(
+        torch, cfg, params, prompts, WH_NEW, _add(prefill, decode, WH_NEW - 1),
+        f"1 prefill forward x {prefill} + {WH_NEW - 1} decode forwards x {decode}", "(b)",
+        tag="19", extra=extra, max_len=WH_MAX_LEN)
+    greedy = SamplerConfig(temperature=0.0, top_k=0, max_new_tokens=WH_NEW)
+    with _PlainCalls() as plain:
+        stream = eng.generate(prompts, greedy, extra)
+        before = eng.host_transfers
+        chunks = list(eng.generate_stream(prompts, greedy, extra, chunk=8))
+        n_chunks = eng.host_transfers - before
+        server = BatchedServer(params, cfg, WH_MAX_LEN, device=dev)
+        loop = server.generate_python_loop(prompts, greedy, extra)
+        batch = {"tokens": prompts.to(dev), "frames": extra["frames"].to(dev)}
+        logits, caches = api.prefill(params, batch, cfg, WH_MAX_LEN)
+        tok = logits.argmax(-1)[:, None]
+        step_logits, _ = api.decode_step(params, tok, caches, s, cfg)
+        if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
+            raise AssertionError("(b) non-finite logits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_step(params, tok, caches, s, cfg)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        busy = _device_time(torch, lambda: api.decode_step(params, tok, caches, s, cfg),
+                            t_step, "19", "(b) decode step", top=8)
+    if plain.calls:
+        raise AssertionError(f"(b): plain versions called on the card: {dict(plain.calls)}")
+    if not (np.array_equal(np.concatenate(chunks, axis=1), stream) and (loop == stream).all()):
+        raise AssertionError("(b) generate_stream or generate_python_loop parts from generate")
+    if n_chunks != -(-(WH_NEW - 1) // 8) or server.host_transfers != WH_NEW:
+        raise AssertionError(f"(b) {n_chunks} stream transfers, {server.host_transfers} in the "
+                             "python loop")
+    by_kind = collections.Counter()
+    for k, t in _tree_paths(caches):
+        by_kind["cross K/V" if "/cross_" in k else "self K/V"] += t.numel() * t.element_size() / b
+    by_kind = dict(by_kind)
+    summary.update(decode_step_ms=t_step * 1e3, device_busy_share=busy / t_step,
+                   cache_bytes_per_request=sum(by_kind.values()), cache_bytes_by_kind=by_kind,
+                   launches_a_forward={"prefill": prefill, "decode": decode})
+    log(f"[19] (b) generate_stream (chunks of 8: {n_chunks} transfers) and "
+        f"BatchedServer.generate_python_loop ({server.host_transfers} transfers) give "
+        f"generate's stream; one decode step after {s} tokens {t_step * 1e3:.2f} ms "
+        f"({100 * busy / t_step:.1f}% busy); the f32 cache {sum(by_kind.values()) / 1e6:.1f} MB a "
+        f"request at max_len {WH_MAX_LEN} (" + ", ".join(
+            f"{k} {v / 1e6:.1f} MB" for k, v in by_kind.items()) + ")")
+    del logits, caches, step_logits, eng, server
+    return launches, summary
+
+
+def _cross_kv_carried(torch, params, cfg) -> int:
+    """[19] (c): a prefill's cross K/V on the card and WH_STEPS decode
+    steps from it: the cross K/V unchanged bit for bit, the self cache
+    written at each step's position.  Returns the steps."""
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (WH_CUT_BATCH, WH_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
+    batch = {"tokens": prompts, "frames": _frames(torch, cfg, WH_CUT_BATCH, SEED + 2).to(dev)}
+    logits, caches = api.prefill(params, batch, cfg, WH_PROMPT + WH_STEPS)
+    cross = {k: caches[k].clone() for k in ("cross_k", "cross_v")}
+    for i in range(WH_STEPS):
+        tok = logits.argmax(-1).reshape(-1, 1)
+        logits, caches = api.decode_step(params, tok, caches, WH_PROMPT + i, cfg)
+        if not caches["self"]["k"][:, :, WH_PROMPT + i].any():
+            raise AssertionError(f"(c) decode step {i} wrote no self K")
+    if not all(torch.equal(caches[k], v) for k, v in cross.items()):
+        raise AssertionError("(c) the cross K/V moved across decode steps")
+    return WH_STEPS
+
+
+def phase_encdec(torch, smi: str) -> tuple[dict, dict]:
+    """Phase 19: whisper-large-v3 at full width and depth, exported block
+    by block ((a)), served by ``DecodeEngine`` with the frames ((b)); a
+    WH_CUT_LAYERS + WH_CUT_LAYERS-layer cut on the card and the CPU, and
+    the cross K/V carried over decode steps ((c)); trained at full depth,
+    and the cut's gradients held card vs CPU ((d)).  Returns ({kernel:
+    launches of the counted run}, summary)."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(WH_ARCH)
+    params, t_block, peak_block, leaves = _export_checked(torch, cfg)
+    nbytes, by_kind = _bytes_by_kind(torch, params)
+    log(f"[19] (a) {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} GELU "
+        f"non-GLU, r {cfg.quant.r}, vocab {cfg.vocab_size} tied, {cfg.max_seq_len} learned "
+        f"positions, {cfg.n_frontend_tokens} frames; exported block by block in {t_block:.1f} s "
+        f"(peak device memory {peak_block / 1e9:.2f} GB): {nbytes / 1e9:.3f} GB (" + ", ".join(
+            f"{k} {v / 1e9:.3f} GB" for k, v in by_kind.items())
+        + f"); equal leaf for leaf, bit for bit, to the one-shot export of the same latents "
+        f"({leaves} leaves)")
+    summary = {"export_gb": nbytes / 1e9,
+               "export_gb_by_kind": {k: v / 1e9 for k, v in by_kind.items()}}
+    log(f"[time] [19] (a) done at {time.perf_counter() - t0:.1f} s")
+    launches, summary["decode"] = _encdec_serving(torch, cfg, params)
+    log(f"[time] [19] (b) done at {time.perf_counter() - t0:.1f} s")
+    card, cut = _encdec_cut(params, cfg, WH_CUT_LAYERS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab_size, (WH_CUT_BATCH, WH_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 3))
+    phase_cut(torch, None, cut, prompts, tag="19", decode_may_part=True, cut=(card, cut),
+              prefill_tier=False, extra={"frames": _frames(torch, cfg, WH_CUT_BATCH, SEED + 3)})
+    summary["cross_kv_steps_bitwise"] = _cross_kv_carried(torch, card, cut)
+    log(f"[19] (c) the cut's cross K/V on the card unchanged bit for bit over "
+        f"{WH_STEPS} decode steps after a prefill")
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] [19] (c) done at {time.perf_counter() - t0:.1f} s")
+
+    def watch(p):
+        enc, dec = p["encoder"], p["decoder"]
+        return ({"encoder/attn/wq": enc["attn"]["wq"]["w"], "encoder/ffn/w1_up": enc["ffn"]["w1_up"],
+                 "encoder/ffn/w8_up": enc["ffn"]["w8_up"],
+                 "decoder/self_attn/wq": dec["self_attn"]["wq"]["w"],
+                 "decoder/cross_attn/wk": dec["cross_attn"]["wk"]["w"],
+                 "decoder/ffn/w1_down": dec["ffn"]["w1_down"],
+                 "decoder/ffn/w8_down": dec["ffn"]["w8_down"],
+                 "dec_pos (position 0)": p["dec_pos"]["pos"]}, ())
+
+    summary["train"] = _train_cell(torch, smi, cfg, "19", "(d)", WH_TRAIN_BATCH, WH_TRAIN_SEQ,
+                                   WH_TRAIN_TIMED, watch, lambda n: (n, "every parameter"))
+    # the cut at full width: the encoder's weight gradients sum over 2 x
+    # 1500 frame rows, so each device's own f32 noise can reach GRAD_RTOL
+    # on a wide leaf: a miss is judged against an f64 run on the card, as
+    # [14]'s, [17]'s and [18]'s cuts
+    summary["train_cut"] = phase_train_cut(
+        torch, tag="19", cfg=dataclasses.replace(cut, dtype="float32", remat=False),
+        init_on_card=True, f32_noise=True, seqs=WH_GRAD_BATCH)
+    log(f"[time] [19] (d) done at {time.perf_counter() - t0:.1f} s")
     summary["card"] = smi
     return launches, summary
 
@@ -6219,6 +6680,20 @@ def hybrid(torch) -> int:
     launches, summary = phase_hybrid(torch, smi)
     log(f"[time] [18] done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"launches": launches, "hybrid": summary}, default=str))
+    return 0
+
+
+def encdec(torch) -> int:
+    """Phases 1, 2 and 19 alone: prints one JSON line of phase 19's launch
+    counts and summary."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _cuda  # fails outside a checkout of the repo
+
+    smi, _, _ = phase_card(torch)
+    t0 = phase_build(_cuda)
+    launches, summary = phase_encdec(torch, smi)
+    log(f"[time] [19] done at {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches": launches, "encdec": summary}, default=str))
     return 0
 
 
@@ -6464,6 +6939,9 @@ def main(torch) -> int:
     h_launches, h_summary = phase_hybrid(torch, smi)
     log(f"[18] summary: {json.dumps(h_summary, default=str)}")
     lap("[18]")
+    w_launches, w_summary = phase_encdec(torch, smi)
+    log(f"[19] summary: {json.dumps(w_summary, default=str)}")
+    lap("[19]")
     c_launches = cb_recs["a"]["launches"]
 
     status = [{"name": n, "replaces": rep,
@@ -6484,7 +6962,8 @@ def main(torch) -> int:
     # run and h2o-danube-1.8b's (e) generate, [15] deepseek-v2-236b's (b)
     # decode and (c) prefill generates and (d) paged run, [16] (a)'s warm run,
     # [17] mamba2-780m's (b) and (c) generates and (d) paged run, [18]
-    # recurrentgemma-2b's (b) and (c) generates and (d) paged run
+    # recurrentgemma-2b's (b) and (c) generates and (d) paged run, [19]
+    # whisper-large-v3's (b) generate
     main_key = {
         "w1a8_gemv": (MAIN_ROWS,) + W1A8_SHAPES[0],
         "decoupled_gemv": (MAIN_ROWS,) + DECOUPLED_SHAPE,
@@ -6504,7 +6983,8 @@ def main(torch) -> int:
                    "continuous": c_launches.get(n, 0), "experts": e_launches.get(n, 0),
                    "moe": m_launches.get(n, 0), "swa": s_launches.get(n, 0),
                    "mla": l_launches.get(n, 0), "prefix": x_launches.get(n, 0),
-                   "ssm": y_launches.get(n, 0), "hybrid": h_launches.get(n, 0)}
+                   "ssm": y_launches.get(n, 0), "hybrid": h_launches.get(n, 0),
+                   "encdec": w_launches.get(n, 0)}
         record.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "shape": list(key), "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -6546,6 +7026,8 @@ if __name__ == "__main__":
                     help="phases 1, 2 and 17 only (mamba2-780m: Mamba-2)")
     ap.add_argument("--hybrid", action="store_true",
                     help="phases 1, 2 and 18 only (recurrentgemma-2b: the RG-LRU hybrid)")
+    ap.add_argument("--encdec", action="store_true",
+                    help="phases 1, 2 and 19 only (whisper-large-v3: the encoder-decoder)")
     ap.add_argument("--time-slice", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -6571,6 +7053,8 @@ if __name__ == "__main__":
         sys.exit(ssm(torch))
     if args.hybrid:
         sys.exit(hybrid(torch))
+    if args.encdec:
+        sys.exit(encdec(torch))
     src = Path(args.src).resolve() if args.src else ROOT / "src"
     if args.kernel:
         sys.exit(one_kernel(torch, args.kernel, src))

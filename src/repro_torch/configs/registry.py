@@ -7,9 +7,10 @@ shorthands for the same family under another quantization mode,
 ``bitnet-<size>``, ``bitnet158-<size>`` and ``none-<size>``;
 ``deepseek-moe-16b`` and the MLA MoE ``deepseek-v2-236b``; the
 sliding-window configs ``gemma3-27b`` (5 local : 1 global) and
-``h2o-danube-1.8b``; the Mamba-2 SSM ``mamba2-780m``; and the RG-LRU
-hybrid ``recurrentgemma-2b``.  The other architectures of the JAX
-registry raise ``NotImplementedError``.
+``h2o-danube-1.8b``; the Mamba-2 SSM ``mamba2-780m``; the RG-LRU
+hybrid ``recurrentgemma-2b``; and the encoder-decoder
+``whisper-large-v3``.  The other architectures of the JAX registry raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.configs import (
     mamba2_780m,
     pquant_paper,
     recurrentgemma_2b,
+    whisper_large_v3,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -45,12 +47,12 @@ ARCHS["gemma3-27b"] = gemma3_27b.make
 ARCHS["h2o-danube-1.8b"] = h2o_danube_1_8b.make
 ARCHS["mamba2-780m"] = mamba2_780m.make
 ARCHS["recurrentgemma-2b"] = recurrentgemma_2b.make
+ARCHS["whisper-large-v3"] = whisper_large_v3.make
 
 # architectures the JAX registry serves that this package has not ported yet
 NOT_PORTED = (
     "granite-20b",
     "deepseek-coder-33b",
-    "whisper-large-v3",
     "phi-3-vision-4.2b",
 )
 

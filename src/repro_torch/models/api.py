@@ -1,6 +1,9 @@
-"""Port of ``repro.models.api`` for the decoder, SSM and hybrid families:
-the entry points the server calls.  Other families raise
-``NotImplementedError``.
+"""Port of ``repro.models.api``: the entry points the server and the
+trainer call, dispatched by family (``models.encdec`` for the
+encoder-decoder, ``models.transformer`` for the decoder, SSM and hybrid
+families).  As upstream, ``forward_chunk`` and the paged cache layout are
+decoder-family only and raise ``NotImplementedError`` for encdec; its
+``prefill`` takes ``batch["frames"]`` beside the tokens.
 
     init_model(seed, cfg, device)                 -> params
     loss_fn(params, batch, cfg)                   -> (loss, {"nll", "aux"})
@@ -17,11 +20,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.telemetry import probes
 
 
 def _mod(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return encdec
     if cfg.family not in ("decoder", "ssm", "hybrid"):
         raise NotImplementedError(f"the {cfg.family} family is not yet ported")
     return transformer
@@ -47,7 +52,8 @@ def forward(params, batch, cfg: ModelConfig):
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int, last_pos=None):
-    """``last_pos`` selects the logits position of a right-padded prompt."""
+    """``last_pos`` selects the logits position of a right-padded prompt;
+    an encdec ``batch`` also holds "frames" (B, F, D)."""
     return _mod(cfg).prefill(params, batch, cfg, cache_len, last_pos)
 
 
@@ -58,6 +64,10 @@ def decode_step(params, tokens, caches, pos, cfg: ModelConfig, active=None):
 def forward_chunk(params, tokens, caches, pos, cfg: ModelConfig, active=None, lengths=None,
                   logits_at=None):
     """``logits_at`` (B,) returns only each slot's logits at that chunk index."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "forward_chunk is decoder-family only; encdec prefill keeps its fused "
+            "encode+decoder path")
     return _mod(cfg).forward_chunk(params, tokens, caches, pos, cfg, active=active,
                                    lengths=lengths, logits_at=logits_at)
 
@@ -67,5 +77,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                num_blocks: int | None = None):
     """``layout="paged"`` builds the block-pool caches (``num_blocks`` per
     layer, default full occupancy) the continuous-batching engine serves."""
+    if cfg.family == "encdec":
+        if layout != "dense":
+            raise NotImplementedError("paged KV caches are decoder-family only")
+        return encdec.init_cache(cfg, batch, max_len, dtype, device)
     return _mod(cfg).init_cache(cfg, batch, max_len, dtype, device, layout, block_size,
                                 num_blocks)

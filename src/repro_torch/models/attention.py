@@ -1,7 +1,7 @@
 """Port of ``repro.models.attention``: full/GQA and sliding-window
-attention with the dense, ring and paged KV-cache adapters, and
-DeepSeek-V2's Multi-head Latent Attention (MLA) over a dense latent cache
-``{"ckv", "krope"}`` in both layouts.
+attention with the dense, ring and paged KV-cache adapters, the Whisper
+decoder's cross-attention, and DeepSeek-V2's Multi-head Latent Attention
+(MLA) over a dense latent cache ``{"ckv", "krope"}`` in both layouts.
 
 All projections are BitLinear; on packed serving weights every projection
 runs the W1A8 kernel tier (``repro_torch.core.bitlinear``).  Two cache
@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitlinear import bitlinear, init_linear, init_rmsnorm, rmsnorm
@@ -107,15 +108,31 @@ def causal_mask(sq: int, skv: int, window: int = 0, device=None) -> Tensor:
     return m[None, None]
 
 
-def attention(params, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor, window: int = 0):
-    """Full-sequence causal attention (train / eval, no cache), over the
-    ``window`` latest positions where it is > 0."""
+def attention(params, x: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor, window: int = 0,
+              causal: bool = True, cache_len: Optional[int] = None):
+    """Full-sequence attention (train / eval / the encoder-decoder's
+    prefill): causal over the ``window`` latest positions where it is > 0,
+    or bidirectional (no mask) with ``causal=False``.
+
+    With ``cache_len`` it also returns a dense KV cache {"k", "v"} of that
+    length: positions [0:S] filled and the rest zeros where ``cache_len >=
+    S``, else a RING of the last ``cache_len`` positions rolled so that
+    slot(p) == p % cache_len (decode then overwrites the oldest entry)."""
     q, k, v = _project_qkv(params, x, cfg)
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     s = x.shape[1]
-    return _out_proj(params, _sdpa(q, k, v, causal_mask(s, s, window, x.device)), cfg)
+    mask = causal_mask(s, s, window, x.device) if causal else None
+    y = _out_proj(params, _sdpa(q, k, v, mask), cfg)
+    if cache_len is None:
+        return y
+    if cache_len >= s:
+        pad = (0, 0, 0, 0, 0, cache_len - s)  # (D, H, S) from the last axis
+        return y, {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    shift = s % cache_len
+    return y, {"k": torch.roll(k[:, s - cache_len:], shift, dims=1),
+               "v": torch.roll(v[:, s - cache_len:], shift, dims=1)}
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +391,29 @@ def attention_decode(params, x: Tensor, cache: dict, pos, cfg: ModelConfig,
     mask = _decode_mask(pos, skv, device=x.device)
     out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
     return _out_proj(params, out, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the Whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(params, x: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig) -> Tensor:
+    """x: (B, Sq, D) queries against k/v (B, Sm, Hkv, D) precomputed from
+    the encoder's memory (:func:`cross_kv`), no mask; SubLN and ``wo``."""
+    b, sq, _ = x.shape
+    q = bitlinear(params["wq"], x, cfg.quant).reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    return _out_proj(params, _sdpa(q, k, v, None), cfg)
+
+
+def cross_kv(params, memory: Tensor, cfg: ModelConfig):
+    """Cross-attention K/V (B, Sm, Hkv, D) of the encoder's memory (B, Sm,
+    D), computed once a request."""
+    b, sm, _ = memory.shape
+    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    k = bitlinear(params["wk"], memory, cfg.quant).reshape(b, sm, nkv, hd)
+    v = bitlinear(params["wv"], memory, cfg.quant).reshape(b, sm, nkv, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

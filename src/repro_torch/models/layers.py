@@ -1,5 +1,5 @@
-"""Port of ``repro.models.layers``: embeddings, rotary tables, the FFN
-block dispatch and the training loss."""
+"""Port of ``repro.models.layers``: embeddings, learned positions, rotary
+tables, the FFN block dispatch and the training loss."""
 
 from __future__ import annotations
 
@@ -22,6 +22,11 @@ Tensor = torch.Tensor
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int, device=None):
     e = torch.randn((vocab, d_model), generator=gen, device=device) * (d_model**-0.5)
     return {"table": e}
+
+
+def init_learned_pos(gen: torch.Generator, max_len: int, d_model: int, device=None):
+    """A learned position table {"pos": (max_len, d_model)}, N(0, 0.02^2)."""
+    return {"pos": torch.randn((max_len, d_model), generator=gen, device=device) * 0.02}
 
 
 def embed(params, tokens: Tensor, cfg: ModelConfig) -> Tensor:

@@ -43,8 +43,8 @@ loop reads each layer's window and theta as Python values.  An SSM
 layer keeps a dense cache {"conv" (serving dtype), "state" (f32)} and an
 RG-LRU layer {"h" (f32), "conv" (serving dtype)} in both layouts,
 rewritten in place after each chunk; inactive slots keep theirs bit for
-bit (upstream's ``_freeze_inactive``).  The enc-dec plan is not ported
-yet and raises ``NotImplementedError``.
+bit (upstream's ``_freeze_inactive``).  The encoder-decoder family is
+``models/encdec.py``.
 """
 
 from __future__ import annotations

@@ -132,12 +132,19 @@ class DecodeEngine:
         self.host_transfers += 1
         return x.cpu().numpy()
 
-    def _prefill(self, prompts: Tensor, scfg: SamplerConfig, gen):
+    def _batch_and_off(self, prompts: Tensor, extra_inputs: Optional[dict]):
+        """The model batch (the prompts and any extra inputs, e.g. an
+        encoder-decoder's "frames") and the decoder position offset of the
+        first generated token past the prompt: a VLM's image tokens
+        (``cfg.n_image_tokens`` where "image_embeds" is given), else 0."""
+        batch = {"tokens": prompts, **(extra_inputs or {})}
+        off = self.cfg.n_image_tokens if extra_inputs and "image_embeds" in extra_inputs else 0
+        return batch, off
+
+    def _prefill(self, batch: dict, off: int, scfg: SamplerConfig, gen):
         with annotate("serve/prefill_forward"):
-            logits, caches = api.prefill(
-                self.params, {"tokens": prompts}, self.cfg, self.max_len
-            )
-        return sample_token(gen, logits, scfg), caches, prompts.shape[1]
+            logits, caches = api.prefill(self.params, batch, self.cfg, self.max_len)
+        return sample_token(gen, logits, scfg), caches, batch["tokens"].shape[1] + off
 
     def _decode(self, tok: Tensor, caches, pos: int, gen, length: int,
                 scfg: SamplerConfig, stop, done: Tensor):
@@ -155,17 +162,22 @@ class DecodeEngine:
         toks = torch.stack(out, dim=1) if out else tok.new_empty((tok.shape[0], 0))
         return toks, tok, pos, done
 
-    def _setup(self, prompts, scfg: SamplerConfig, seed: int):
+    def _setup(self, prompts, scfg: SamplerConfig, seed: int,
+               extra_inputs: Optional[dict] = None):
         """Everything a call sends to the device, before any work is queued:
-        the prompts, the stop tokens and the sampling generator."""
+        the model batch (``_batch_and_off``: the prompts and the extra
+        inputs), the position offset, the stop tokens and the sampling
+        generator."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64).to(self.device)
+        extra = {k: torch.as_tensor(v).to(self.device) for k, v in (extra_inputs or {}).items()}
+        batch, off = self._batch_and_off(prompts, extra)
         stop = None
         if scfg.stop_tokens:
             stop = torch.tensor(scfg.stop_tokens, dtype=torch.int32).to(self.device)
         gen = None
         if scfg.temperature != 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        return prompts, stop, gen
+        return batch, off, stop, gen
 
     @staticmethod
     def _check_budget(scfg: SamplerConfig) -> None:
@@ -173,13 +185,14 @@ class DecodeEngine:
             raise ValueError(f"max_new_tokens must be >= 1, got {scfg.max_new_tokens}")
 
     def generate(self, prompts, scfg: Optional[SamplerConfig] = None,
-                 seed: int = 0) -> np.ndarray:
+                 extra_inputs: Optional[dict] = None, seed: int = 0) -> np.ndarray:
         """(B, max_new_tokens) int32 for (B, S) equal-length prompts — one
-        device->host transfer in total."""
+        device->host transfer in total.  ``extra_inputs`` joins the model
+        batch (an encoder-decoder's {"frames": (B, F, D)})."""
         scfg = SamplerConfig() if scfg is None else scfg
         self._check_budget(scfg)
-        prompts, stop, gen = self._setup(prompts, scfg, seed)
-        tok, caches, pos = self._prefill(prompts, scfg, gen)
+        batch, off, stop, gen = self._setup(prompts, scfg, seed, extra_inputs)
+        tok, caches, pos = self._prefill(batch, off, scfg, gen)
         done = _hit_stop(tok, stop)
         rest, _, _, _ = self._decode(
             tok, caches, pos, gen, scfg.max_new_tokens - 1, scfg, stop, done
@@ -187,7 +200,8 @@ class DecodeEngine:
         return self._fetch(torch.cat([tok[:, None], rest], dim=1))
 
     def generate_stream(self, prompts, scfg: Optional[SamplerConfig] = None,
-                        seed: int = 0, chunk: int = 8) -> Iterator[np.ndarray]:
+                        extra_inputs: Optional[dict] = None, seed: int = 0,
+                        chunk: int = 8) -> Iterator[np.ndarray]:
         """Chunked streaming: yields arrays whose concatenation equals
         ``generate``'s output, one host transfer per chunk.  The first yield
         carries the prefill-sampled token with the first decode chunk.  With
@@ -197,8 +211,8 @@ class DecodeEngine:
         if chunk <= 0:
             raise ValueError(f"chunk must be positive, got {chunk}")
         self._check_budget(scfg)
-        prompts, stop, gen = self._setup(prompts, scfg, seed)
-        tok, caches, pos = self._prefill(prompts, scfg, gen)
+        batch, off, stop, gen = self._setup(prompts, scfg, seed, extra_inputs)
+        tok, caches, pos = self._prefill(batch, off, scfg, gen)
         done = _hit_stop(tok, stop)
         pending = tok[:, None]
         remaining = scfg.max_new_tokens - 1

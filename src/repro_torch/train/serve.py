@@ -60,14 +60,15 @@ class BatchedServer:
         self.host_transfers = 0
 
     def generate(self, prompts, scfg: Optional[SamplerConfig] = None,
-                 seed: int = 0) -> np.ndarray:
-        return self.engine.generate(prompts, scfg, seed)
+                 extra_inputs: Optional[dict] = None, seed: int = 0) -> np.ndarray:
+        return self.engine.generate(prompts, scfg, extra_inputs, seed)
 
-    def generate_stream(self, prompts, scfg: Optional[SamplerConfig] = None, seed: int = 0,
-                        chunk: int = 8):
-        return self.engine.generate_stream(prompts, scfg, seed, chunk)
+    def generate_stream(self, prompts, scfg: Optional[SamplerConfig] = None,
+                        extra_inputs: Optional[dict] = None, seed: int = 0, chunk: int = 8):
+        return self.engine.generate_stream(prompts, scfg, extra_inputs, seed, chunk)
 
     def generate_python_loop(self, prompts, scfg: Optional[SamplerConfig] = None,
+                             extra_inputs: Optional[dict] = None,
                              seed: int = 0) -> np.ndarray:
         """(B, max_new_tokens) int32, fetching every token to the host
         before the next decode step: the baseline the engine is measured
@@ -75,9 +76,9 @@ class BatchedServer:
         scfg = SamplerConfig() if scfg is None else scfg
         if scfg.max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {scfg.max_new_tokens}")
-        prompts, _, gen = self.engine._setup(prompts, scfg, seed)
-        s = prompts.shape[1]
-        logits, caches = self._prefill(self.params, {"tokens": prompts})
+        batch, off, _, gen = self.engine._setup(prompts, scfg, seed, extra_inputs)
+        s = batch["tokens"].shape[1] + off
+        logits, caches = self._prefill(self.params, batch)
         out = []
         for i in range(scfg.max_new_tokens):
             tok = sample_token(gen, logits, scfg)

@@ -95,8 +95,11 @@ def make_train_step(
     gradients are asked for, so remat's second forward records nothing)
     and the param/grad-side probes, taken leaf by leaf around the in-place
     update (``telemetry.probes.ParamProbes``).  With ``probes=False`` the
-    step runs no probe op.
+    step runs no probe op.  The encdec family runs with the probes off
+    whatever ``probes`` says, as upstream (whose encoder-decoder layer scan
+    has no probe drain points).
     """
+    probes = bool(probes) and cfg.family != "encdec"
     sched = schedule_for_mode(cfg.quant.mode, total_steps, peak_lr)
     model_dtype = getattr(torch, cfg.dtype)
 

@@ -62,8 +62,8 @@ from test_torch_trainer import _data_iter
 
 ARCH = "deepseek-v2-236b"
 TOTAL = 40
-# the four archs of the JAX registry the port has still not ported
-OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b")
+# the three archs of the JAX registry the port has still not ported
+OTHERS = ("granite-20b", "deepseek-coder-33b", "phi-3-vision-4.2b")
 MODES = ("none", "bitnet", "bitnet158", "pquant")
 
 
@@ -102,6 +102,7 @@ def test_config_equals_jax_and_counts_236e9():
     for arch in OTHERS:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.get_config(arch)
+    assert registry.get_config("whisper-large-v3").family == "encdec"
 
 
 def test_segment_plan_and_caches_keep_upstreams_layout():

@@ -69,8 +69,8 @@ GRAD_TOL = 1e-4
 MODEL_TOL = 1e-4
 S = 37  # not a multiple of the reduced chunk (16)
 TOTAL = 40
-# the four archs of the JAX registry the port has still not ported
-OTHERS = ("granite-20b", "deepseek-coder-33b", "whisper-large-v3", "phi-3-vision-4.2b")
+# the three archs of the JAX registry the port has still not ported
+OTHERS = ("granite-20b", "deepseek-coder-33b", "phi-3-vision-4.2b")
 MODES = ("none", "bitnet", "bitnet158", "pquant")
 
 
@@ -108,6 +108,7 @@ def test_config_equals_jax_and_counts_780e6():
     for arch in OTHERS:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.get_config(arch)
+    assert registry.get_config("whisper-large-v3").family == "encdec"
 
 
 def test_segment_plan_params_and_caches_keep_upstreams_layout():
