@@ -8,9 +8,10 @@ shorthands for the same family under another quantization mode,
 ``deepseek-moe-16b`` and the MLA MoE ``deepseek-v2-236b``; the
 sliding-window configs ``gemma3-27b`` (5 local : 1 global) and
 ``h2o-danube-1.8b``; the Mamba-2 SSM ``mamba2-780m``; the RG-LRU
-hybrid ``recurrentgemma-2b``; and the encoder-decoder
-``whisper-large-v3``.  The other architectures of the JAX registry raise
-``NotImplementedError``.
+hybrid ``recurrentgemma-2b``; the encoder-decoder ``whisper-large-v3``;
+the VLM backbone ``phi-3-vision-4.2b``; and the dense code LMs
+``granite-20b`` and ``deepseek-coder-33b``: every architecture of the JAX
+registry.
 """
 
 from __future__ import annotations
@@ -19,11 +20,14 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs import (
+    deepseek_coder_33b,
     deepseek_moe_16b,
     deepseek_v2_236b,
     gemma3_27b,
+    granite_20b,
     h2o_danube_1_8b,
     mamba2_780m,
+    phi_3_vision_4_2b,
     pquant_paper,
     recurrentgemma_2b,
     whisper_large_v3,
@@ -48,18 +52,16 @@ ARCHS["h2o-danube-1.8b"] = h2o_danube_1_8b.make
 ARCHS["mamba2-780m"] = mamba2_780m.make
 ARCHS["recurrentgemma-2b"] = recurrentgemma_2b.make
 ARCHS["whisper-large-v3"] = whisper_large_v3.make
+ARCHS["phi-3-vision-4.2b"] = phi_3_vision_4_2b.make
+ARCHS["granite-20b"] = granite_20b.make
+ARCHS["deepseek-coder-33b"] = deepseek_coder_33b.make
 
-# architectures the JAX registry serves that this package has not ported yet
-NOT_PORTED = (
-    "granite-20b",
-    "deepseek-coder-33b",
-    "phi-3-vision-4.2b",
-)
+# architectures the JAX registry serves that this package has not ported:
+# none is left
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def get_config(arch: str, **kwargs) -> ModelConfig:
-    if arch in NOT_PORTED:
-        raise NotImplementedError(f"{arch!r} is not yet ported")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
     return ARCHS[arch](**kwargs)

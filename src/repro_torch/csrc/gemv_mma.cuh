@@ -99,7 +99,11 @@ __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m -
 // The shared memory of one block, the same for every block of a launch:
 //   w     the weight slice: packed, per k32 step 4 rows of kCols bytes at
 //         kPackedLd; or (decoupled_gemv's int8 clusters) int8, per step 32
-//         rows of kCols bytes, 16-byte chunks swizzled;
+//         rows of kCols bytes, 16-byte chunks swizzled.  Where the whole
+//         slice would not fit beside the rest (a long K: granite-20b's
+//         w1_down at K 24576 and 32 rows, deepseek-coder-33b's int8 branch
+//         at K 7168), it is staged and multiplied in passes of w_steps
+//         steps, in step order (the same int32 sums);
 //   sums  the int32 (or int16) sums that the 8 blocks send this block:
 //         of rows rank + 8 i, one slot (NT rows at kSumsLd) per sender;
 //   xq    the int8 codes (mpad rows at xq_ld = 32 mod 128 bytes);
@@ -107,8 +111,9 @@ __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m -
 //   amax, gamma: one float per row; two mbarriers (maxima, sums).
 // x itself is never staged: each thread keeps its loads in registers.
 struct Plan {
-  int steps;  // k32 steps of a block (the last blocks may have fewer)
-  int mpad;   // M rounded up to 8 (NT = mpad / 8)
+  int steps;    // k32 steps of a block (the last blocks may have fewer)
+  int w_steps;  // k32 steps of one staging pass (steps where one pass fits)
+  int mpad;     // M rounded up to 8 (NT = mpad / 8)
   int xq_ld;
   size_t sums_off, xq_off, amax_all_off, amax_off, gamma_off, bar_off, total;
 };
@@ -119,17 +124,21 @@ __host__ __device__ inline Plan make_plan(int m, int k) {
   const int total_steps = (k + 31) / 32;
   p.steps = (total_steps + kCluster - 1) / kCluster;
   p.mpad = (int)round_up((size_t)m, 8);
-  const size_t w_bytes = (size_t)p.steps * (kDecoupled ? 32 * kCols : 4 * kPackedLd);
   p.xq_ld = (int)round_up((size_t)p.steps * 32 - 32, 128) + 32;
-  p.sums_off = round_up(w_bytes, 128);
-  // NT rows of int32 from each of the 8 blocks
-  p.xq_off = p.sums_off + round_up((size_t)(p.mpad / 8) * kCluster * kSumsLd * 4, 128);
-  p.amax_all_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
-  p.amax_off = p.amax_all_off + kCluster * kMaxRows * sizeof(float);
-  p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
-  p.bar_off = p.gamma_off + kMaxRows * sizeof(float);
-  p.total = p.bar_off + 2 * sizeof(uint64_t);
-  return p;
+  // the fewest passes whose weight stage fits (one, where the slice does)
+  for (int passes = 1;; ++passes) {
+    p.w_steps = (p.steps + passes - 1) / passes;
+    const size_t w_bytes = (size_t)p.w_steps * (kDecoupled ? 32 * kCols : 4 * kPackedLd);
+    p.sums_off = round_up(w_bytes, 128);
+    // NT rows of int32 from each of the 8 blocks
+    p.xq_off = p.sums_off + round_up((size_t)(p.mpad / 8) * kCluster * kSumsLd * 4, 128);
+    p.amax_all_off = p.xq_off + round_up((size_t)p.mpad * p.xq_ld, 128);
+    p.amax_off = p.amax_all_off + kCluster * kMaxRows * sizeof(float);
+    p.gamma_off = p.amax_off + kMaxRows * sizeof(float);
+    p.bar_off = p.gamma_off + kMaxRows * sizeof(float);
+    p.total = p.bar_off + 2 * sizeof(uint64_t);
+    if (p.total <= kMaxSmem || p.w_steps <= 1) return p;
+  }
 }
 
 // The k32 steps [lo, hi) of K that cluster rank `rank` owns.

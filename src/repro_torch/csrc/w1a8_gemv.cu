@@ -73,29 +73,46 @@ __device__ __forceinline__ void gemv_block(const Args& a) {
   const bool narrow = narrow_sums(p, int8_branch);
   exchange_init(p, smem, m, rank, narrow ? 2 : 4);
 
-  // 1. the first x loads, then the weight slice's staging
+  // 1. the first x loads, then the staging of the weight slice's first
+  // pass (stage_pass(s0, ns): the block's k32 steps [s0, s0 + ns))
   XSlice<In, Config<kDecoupled>::kBatch> xs;
   load_x(xs, static_cast<const In*>(a.x), m, k, 32 * lo, len);
-  if (int8_branch) {
-    const uint8_t* w8 = reinterpret_cast<const uint8_t*>(a.w8) + (size_t)32 * lo * a.r + col0;
-    stage(smem, kCols, w8, a.r, 32 * steps, kCols, min(32 * steps, k - 32 * lo),
-          min(kCols, a.r - col0), a.int8_aligned, Int8Swizzle{});
-  } else {
-    stage(smem, kPackedLd, a.wp + (size_t)4 * lo * n + col0, n, 4 * steps, kCols,
-          min(4 * steps, k / 8 - 4 * lo), min(kCols, n - col0), a.packed_aligned, NoSwizzle{});
-  }
+  const auto stage_pass = [&](int s0, int ns) {
+    const int first = lo + s0;
+    if (int8_branch) {
+      const uint8_t* w8 =
+          reinterpret_cast<const uint8_t*>(a.w8) + (size_t)32 * first * a.r + col0;
+      stage(smem, kCols, w8, a.r, 32 * ns, kCols, min(32 * ns, k - 32 * first),
+            min(kCols, a.r - col0), a.int8_aligned, Int8Swizzle{});
+    } else {
+      stage(smem, kPackedLd, a.wp + (size_t)4 * first * n + col0, n, 4 * ns, kCols,
+            min(4 * ns, k / 8 - 4 * first), min(kCols, n - col0), a.packed_aligned,
+            NoSwizzle{});
+    }
+  };
+  stage_pass(0, min(p.w_steps, steps));
 
   // 2. act-quant of this block's slice, the row maxima shared over the cluster
   quantize_slice(xs, p, smem, m, rank, 8 * steps);
   rt::cp_async_wait_all();
   __syncthreads();
 
-  // 3. the MMAs over the slice
+  // 3. the MMAs over the slice, pass by pass (the next pass staged once
+  // every warp is done with the last)
   Acc<NT> acc = {};
-  if (int8_branch)
-    int8_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
-  else
-    packed_steps<NT>(smem, smem + p.xq_off, p.xq_ld, steps, acc);
+  for (int s0 = 0; s0 < steps; s0 += p.w_steps) {
+    const int ns = min(p.w_steps, steps - s0);
+    if (s0) {
+      __syncthreads();
+      stage_pass(s0, ns);
+      rt::cp_async_wait_all();
+      __syncthreads();
+    }
+    if (int8_branch)
+      int8_steps<NT>(smem, smem + p.xq_off + 32 * s0, p.xq_ld, ns, acc);
+    else
+      packed_steps<NT>(smem, smem + p.xq_off + 32 * s0, p.xq_ld, ns, acc);
+  }
 
   // 4. the sums over the cluster, and the epilogue
   send_sums<NT>(acc, p, smem, m, rank, narrow);

@@ -3,7 +3,10 @@ trainer call, dispatched by family (``models.encdec`` for the
 encoder-decoder, ``models.transformer`` for the decoder, SSM and hybrid
 families).  As upstream, ``forward_chunk`` and the paged cache layout are
 decoder-family only and raise ``NotImplementedError`` for encdec; its
-``prefill`` takes ``batch["frames"]`` beside the tokens.
+``prefill`` takes ``batch["frames"]`` beside the tokens.  A VLM's batch
+(the decoder family, ``cfg.n_image_tokens > 0``) may hold
+``"image_embeds"`` (B, n_image_tokens, D): ``forward``, ``loss_fn`` and
+``prefill`` put those rows before the tokens, and the loss skips them.
 
     init_model(seed, cfg, device)                 -> params
     loss_fn(params, batch, cfg)                   -> (loss, {"nll", "aux"})
@@ -53,7 +56,9 @@ def forward(params, batch, cfg: ModelConfig):
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int, last_pos=None):
     """``last_pos`` selects the logits position of a right-padded prompt;
-    an encdec ``batch`` also holds "frames" (B, F, D)."""
+    an encdec ``batch`` also holds "frames" (B, F, D), a VLM's may hold
+    "image_embeds" (B, n_image_tokens, D), which take the caches' first
+    positions."""
     return _mod(cfg).prefill(params, batch, cfg, cache_len, last_pos)
 
 

@@ -301,12 +301,22 @@ def _rope_tabs(cfg: ModelConfig, rope) -> dict:
     return tabs
 
 
+def _embed_inputs(params, batch: dict, cfg: ModelConfig) -> Tensor:
+    """The token embeddings, with a VLM batch's "image_embeds" (B, n_img, D)
+    cast to their dtype and put before them on the sequence axis."""
+    x = embed(params["embed"], batch["tokens"], cfg)
+    if cfg.n_image_tokens > 0 and "image_embeds" in batch:
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(params, batch: dict, cfg: ModelConfig):
-    """batch: {"tokens": (B, S)}.  Returns (logits (B, S, V), aux_loss).
+    """batch: {"tokens": (B, S)} (+ "image_embeds" for a VLM).  Returns
+    (logits (B, S_total, V), aux_loss); the image rows come first.
 
     Under grad with ``cfg.remat``, a layer keeps only its input for the
     backward pass and runs again there; the values are the same."""
-    x = embed(params["embed"], batch["tokens"], cfg)
+    x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     tabs = {False: (None, None)}
     if _uses_rope(cfg):
@@ -327,9 +337,12 @@ def forward(params, batch: dict, cfg: ModelConfig):
 
 
 def lm_loss(params, batch: dict, cfg: ModelConfig):
-    """Next-token CE.  batch needs "tokens" and "labels" (both (B, S)) and
-    may hold a "mask".  Returns (loss + aux, {"nll", "aux"})."""
+    """Next-token CE over the text positions.  batch needs "tokens" and
+    "labels" (both (B, S)) and may hold a "mask"; image positions (if any)
+    are excluded.  Returns (loss + aux, {"nll", "aux"})."""
     logits, aux = forward(params, batch, cfg)
+    n_img = cfg.n_image_tokens if "image_embeds" in batch else 0
+    logits = logits[:, n_img:]
     loss, nll = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     return loss + aux.to(loss.dtype), {"nll": nll, "aux": aux}
 
@@ -492,9 +505,8 @@ def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, last_pos=None
     right-padded to a shared length.  Causal masking keeps every position
     before ``last_pos`` as an exact-length prefill computes it; as
     upstream's ``dynamic_slice``, an index outside the prompt is clamped
-    into it."""
-    tokens = batch["tokens"]
-    x = embed(params["embed"], tokens, cfg)
+    into it.  A VLM batch's "image_embeds" take the first positions."""
+    x = _embed_inputs(params, batch, cfg)
     caches = init_cache(cfg, x.shape[0], cache_len, dtype=x.dtype, device=x.device)
     x, caches = _forward_chunk_x(params, x, caches, 0, cfg, read_to=x.shape[1])
     if last_pos is None:

@@ -188,7 +188,9 @@ class DecodeEngine:
                  extra_inputs: Optional[dict] = None, seed: int = 0) -> np.ndarray:
         """(B, max_new_tokens) int32 for (B, S) equal-length prompts — one
         device->host transfer in total.  ``extra_inputs`` joins the model
-        batch (an encoder-decoder's {"frames": (B, F, D)})."""
+        batch (an encoder-decoder's {"frames": (B, F, D)}, a VLM's
+        {"image_embeds": (B, n_image_tokens, D)}: ``max_len`` must then hold
+        the image rows, the prompt and the new tokens)."""
         scfg = SamplerConfig() if scfg is None else scfg
         self._check_budget(scfg)
         batch, off, stop, gen = self._setup(prompts, scfg, seed, extra_inputs)

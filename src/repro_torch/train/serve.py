@@ -7,7 +7,9 @@ transfer a call or a chunk).  ``generate_python_loop`` is the per-token
 baseline: the same prefill and decode steps, but each sampled token is
 fetched to the host before the next step, so it makes one transfer a
 token.  It draws from its ``torch.Generator`` in the engine's order, so
-both give the same tokens for a seed, greedy or sampled.
+both give the same tokens for a seed, greedy or sampled.  All three take
+``extra_inputs`` as the engine does (an encoder-decoder's "frames", a
+VLM's "image_embeds", whose rows put the first decode position past them).
 """
 
 from __future__ import annotations

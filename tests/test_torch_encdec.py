@@ -58,7 +58,7 @@ SIN_UNITS = 16
 B, S = 2, 9  # decoder tokens a sequence
 TOTAL = 40
 MODES = ("none", "bitnet", "bitnet158", "pquant")
-# the archs of the JAX registry the port has still not ported
+# the three archs of the JAX registry the port ported last
 OTHERS = ("granite-20b", "deepseek-coder-33b", "phi-3-vision-4.2b")
 
 
@@ -115,7 +115,7 @@ def test_config_equals_jax_and_param_count():
     """Field for field JAX's config in the four modes, full and reduced
     (``n_enc_layers`` 2 and 12 frames reduced); ``param_count`` equal (its
     encoder and cross-attention arms); ``get_config`` builds it, and the
-    three other archs still raise."""
+    three last archs build, equal to JAX's."""
     for mode in MODES:
         j = jregistry.get_config(ARCH, quant_mode=mode)
         t = registry.get_config(ARCH, quant_mode=mode)
@@ -131,10 +131,10 @@ def test_config_equals_jax_and_param_count():
     assert param_count(cfg)["n_1bit"] == 1468006400
     red = registry.reduced(cfg)
     assert (red.n_enc_layers, red.n_frontend_tokens) == (2, 12)
-    assert set(registry.NOT_PORTED) == set(OTHERS) and len(registry.NOT_PORTED) == 3
-    for arch in OTHERS:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            registry.get_config(arch)
+    assert registry.NOT_PORTED == ()
+    for arch in OTHERS:  # built now, field for field JAX's
+        assert dataclasses.asdict(registry.get_config(arch)) == dataclasses.asdict(
+            jregistry.get_config(arch))
 
 
 @pytest.mark.parametrize("length,d", [(12, 64), (1500, 1280)])

@@ -559,6 +559,28 @@ def test_cuda_decoupled_gemv_equals_plain_version_at_every_row_count(cuda_device
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,r", [(24576, None), (6144, 1280), (7168, 1024)])
+def test_cuda_gemvs_at_long_k_equal_plain_versions(cuda_device, k, r):
+    """The K of granite-20b's w1_down (24576) and the int8 branches of
+    granite-20b (K 6144, r 1280) and deepseek-coder-33b (K 7168, r 1024),
+    whose weight slices do not fit a block's shared memory beside 32 rows'
+    codes and sums: staged and multiplied in passes, still bit for bit the
+    plain versions, one launch a call, at 1, 4 and 32 rows."""
+    n = 256
+    for m in (1, 4, 32):
+        xs, ps, ws, sc = _gemv_case(m, k, n, r or 16, "float32", cuda_device, m + k)
+        before = dict(_cuda.LAUNCHES)
+        if r is None:
+            torch.testing.assert_close(w1a8_gemv(xs, ps, sc[0]), w1a8_gemv_plain(xs, ps, sc[0]),
+                                       rtol=0, atol=0, msg=lambda e, m=m: f"M {m}: {e}")
+            assert _cuda.LAUNCHES["w1a8_gemv"] == before.get("w1a8_gemv", 0) + 1
+            continue
+        for a, b in zip(decoupled_gemv(xs, ps, ws, *sc), decoupled_gemv_plain(xs, ps, ws, *sc)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=lambda e, m=m: f"M {m}: {e}")
+        assert _cuda.LAUNCHES["decoupled_gemv"] == before.get("decoupled_gemv", 0) + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 def test_cuda_gemvs_constant_and_zero_rows(cuda_device, x_dtype):
     """The act-quant's edges on the card: constant rows (every value at the

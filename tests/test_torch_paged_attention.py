@@ -325,9 +325,13 @@ def _emulate(q, kpool, vpool, table, start, kv_lens, splits=None):
 
 # (T, G, D): decode, a 5-token slice, GQA and both with D 16, and a
 # 16-token slice with D 32 (the split route); GQA slices of 8 and 16
-# tokens with D 32 (32 and 64 query rows a KV head: the tile route)
+# tokens with D 32 (32 and 64 query rows a KV head: the tile route);
+# phi-3-vision-4.2b's head_dim 96 at decode (the split route, D past a
+# power of two) and in a GQA 16-token slice (32 query rows a KV head: the
+# tile route), and granite-20b's MQA group of 48 at decode (48 query rows:
+# the tile route)
 _EMU_CASES = [(1, 1, 16), (5, 1, 16), (1, 4, 16), (5, 4, 16), (16, 1, 32), (8, 4, 32),
-              (16, 4, 32)]
+              (16, 4, 32), (1, 1, 96), (16, 2, 96), (1, 48, 32)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -502,9 +506,13 @@ def test_unsupported_block_size_takes_the_gather_path(tiny, monkeypatch):
 def test_cuda_kernel_matches_plain_version():
     """On the card: the kernel against its plain version at decode, chunk,
     GQA and bf16-pool shapes and at phase 8's decode shape (16 slots,
-    ragged lengths up to 512, one at 512 and some at 1), max |err| <=
-    1e-5, one launch a call; each case's route is the plan's; and one call
-    under sync-debug "error" mode (the wrapper never synchronises)."""
+    ragged lengths up to 512, one at 512 and some at 1), and at the new
+    heads of the dense decoders: head_dim 96 (phi-3-vision-4.2b) at decode
+    and in a 64-token slice, 48 query heads over one KV head of 128
+    (granite-20b: the tile route even at decode) and 56 over 8
+    (deepseek-coder-33b); max |err| <= 1e-5, one launch a call; each
+    case's route is the plan's; and one call under sync-debug "error" mode
+    (the wrapper never synchronises)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -515,8 +523,12 @@ def test_cuda_kernel_matches_plain_version():
     for dt in (torch.float32, torch.bfloat16):
         cases.append((32, 32, 1, dt, 16, 32, lens16))
     cases.append((32, 8, 1, torch.float32, 16, 32, lens16))
-    for hq, hkv, t, dt, b, mb, lens in cases:
-        d, bs = 64, 16
+    cases = [c + (64,) for c in cases]
+    for hq, hkv, t, d in ((32, 32, 1, 96), (32, 32, 64, 96), (48, 1, 1, 128), (48, 1, 64, 128),
+                          (56, 8, 1, 128)):
+        cases.append((hq, hkv, t, torch.float32, 3, 20, None, d))
+    for hq, hkv, t, dt, b, mb, lens, d in cases:
+        bs = 16
         kpool, vpool, table = _setup(b, hkv, d, bs, mb)
         q = _t(_q(b, t, hq, d)).to(dev)
         kp, vp = _t(kpool).to(dev, dt), _t(vpool).to(dev, dt)
